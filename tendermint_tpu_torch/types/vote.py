@@ -1,0 +1,95 @@
+"""Vote: a signed prevote/precommit (reference: types/vote.go).
+
+Sign bytes are canonical JSON wrapped with the chain id, the reference's
+CanonicalJSONOnceVote layout (types/canonical_json.go:27-33, 52-55), so a
+vote's signed payload is reproducible byte for byte from its fields.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+from tendermint_tpu_torch.codec import jsonval as jv
+from tendermint_tpu_torch.codec.binary import Encoder
+from tendermint_tpu_torch.codec.canonical import canonical_dumps
+from tendermint_tpu_torch.crypto.keys import SignatureEd25519, signature_from_json
+from tendermint_tpu_torch.types.block_id import BlockID
+
+VOTE_TYPE_PREVOTE = 0x01
+VOTE_TYPE_PRECOMMIT = 0x02
+
+
+@dataclass(frozen=True)
+class Vote:
+    validator_address: bytes
+    validator_index: int
+    height: int
+    round_: int
+    type_: int
+    block_id: BlockID
+    signature: SignatureEd25519 | None = None
+
+    def canonical(self) -> dict:
+        """CanonicalJSONVote field set — excludes the signature and the
+        validator identity (types/canonical_json.go:27-33)."""
+        return {
+            "block_id": self.block_id.canonical(),
+            "height": self.height,
+            "round": self.round_,
+            "type": self.type_,
+        }
+
+    def sign_bytes(self, chain_id: str) -> bytes:
+        return canonical_dumps({"chain_id": chain_id, "vote": self.canonical()})
+
+    def with_signature(self, sig: SignatureEd25519) -> "Vote":
+        return replace(self, signature=sig)
+
+    def encode(self, e: Encoder) -> None:
+        e.write_bytes(self.validator_address)
+        e.write_varint(self.validator_index)
+        e.write_varint(self.height)
+        e.write_varint(self.round_)
+        e.write_u8(self.type_)
+        self.block_id.encode(e)
+        if self.signature is None:
+            e.write_u8(0)
+        else:
+            e.write_raw(self.signature.bytes_())  # type byte + fixed 64-byte body
+
+    def to_bytes(self) -> bytes:
+        e = Encoder()
+        self.encode(e)
+        return e.buf()
+
+    def to_json(self):
+        return {
+            "validator_address": self.validator_address.hex().upper(),
+            "validator_index": self.validator_index,
+            "height": self.height,
+            "round": self.round_,
+            "type": self.type_,
+            "block_id": self.block_id.to_json(),
+            "signature": self.signature.to_json() if self.signature else None,
+        }
+
+    @classmethod
+    def from_json(cls, obj) -> "Vote":
+        return cls(
+            jv.hex_field(obj, "validator_address"),
+            jv.int_field(obj, "validator_index", 0, jv.MAX_INDEX),
+            jv.int_field(obj, "height", 0, jv.MAX_HEIGHT),
+            jv.int_field(obj, "round", 0, jv.MAX_ROUND),
+            jv.int_field(obj, "type", 0, 255),
+            BlockID.from_json(jv.dict_field(obj, "block_id")),
+            signature_from_json(obj["signature"]) if obj.get("signature") else None,
+        )
+
+    def __repr__(self):
+        t = {VOTE_TYPE_PREVOTE: "Prevote", VOTE_TYPE_PRECOMMIT: "Precommit"}.get(
+            self.type_, f"?{self.type_}"
+        )
+        return (
+            f"Vote{{{self.validator_index}:{self.validator_address.hex()[:8]} "
+            f"{self.height}/{self.round_:02d}/{t} {self.block_id.hash.hex()[:8]}}}"
+        )
