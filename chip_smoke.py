@@ -7,7 +7,8 @@ Run from the repository root with no arguments:
 Phases, in order; any failure raises and exits non-zero:
 
 1. Card and build: the card's name and power limit, the torch and CUDA
-   versions, the nvcc build of the verify kernel (seconds, registers).
+   versions, the nvcc builds of the three kernels, all started together
+   (seconds, registers, spills).
 2. Kernel vs plain version on the card: 4096 lanes mixing valid,
    tampered, malformed and repeated-key signatures, then the main path's
    own lane counts (100, 4 x 1000, 10,000): the kernel's verdicts must
@@ -17,13 +18,36 @@ Phases, in order; any failure raises and exits non-zero:
    a 100-validator `verify_commit`, fast sync's grouped dispatch of four
    1000-validator commits (`verify_commits_async`), one 10,000-validator
    `verify_commit`, a forged commit and a sub-quorum commit, which must
-   both be refused. The kernel's launch count is reset just before and
-   read just after; no lane of it may fall to the CPU.
+   both be refused. The kernels' launch counts are reset just before and
+   read just after: B1 launches once per batch, B2 and dsm never, and no
+   lane may fall to the CPU.
 4. Times (CUDA events, median of 7 after a warm-up): the kernel at 1024,
    4096 and 16,384 lanes, `verify_plain` at 4096, the native CPU batch
    verifier on a fixed 512-signature sample (best of 3), and the commit
    phases' wall times. Each line carries the card's name and power limit.
+5. B2 (`ed25519_pallas`, the single-bit ladder) on the card: its verdicts
+   equal its plain version's on the 4096 mixed lanes, B1's on every shape
+   of phase 2, and `crypto.ed25519.verify` on a 256-lane sample.
+6. The dsm kernel (`ed25519.dsm_batch`) on the card: 1025 lanes (the
+   last 128-thread block partial) of random scalars and key points with the
+   edge lanes (Q = identity, a = 0, b = 0, P == Q, P == -Q) and the real
+   terms of a 100-validator aggregate commit equal `dsm_plain`'s bytes
+   exactly; 64 lanes equal the pure-Python group law.
+7. The main path through B2: the phase-3 commits through a
+   `Verifier` built under TENDERMINT_TPU_KERNEL=pallas. B2's launch count
+   must equal the device batches; B1's must stay 0.
+8. The aggregate path: 100- and 400-validator `AggregateCommit`s (the JAX
+   package's upgrade bench sizes) through `ValidatorSet.verify_commit` and
+   `verify_commits_async`, which reach `default_verifier()` on the card,
+   and a forged, a dropped-signer and a sub-quorum aggregate, which must be
+   refused. Every lane must run on the card. After the counts are read,
+   the dsm kernel is held against `dsm_plain` on the exact terms of both
+   aggregates (101 and 401 lanes), bytes exactly.
+9. Times: B2 and dsm against their bounds, their plain versions, the
+   aggregate verify split into host and device stages, and the B2 path's
+   commit wall times.
 
+Each path's launch counts are set to 0 just before it and read just after.
 The last lines are the kernels' JSON summary, the card line, and
 {"ok": true, "device": {...}}. Weights are keys made from a numpy seed;
 no network, one card.
@@ -46,12 +70,21 @@ SEED = 20261016
 CHAIN_ID = "chip-smoke"
 DEVICE = "cuda"
 SET_SIZES = (100, 1000, 10_000)  # BASELINE.json: VerifyCommit, fast sync, north star
+AGG_SIZES = (100, 400)  # BENCH_r22.json rows wire:n=100, wire:n=400
 MIXED_LANES = 4096
+DSM_LANES = 1025  # not a multiple of the 128-thread block: the last block is partial
+DSM_TIME_LANES = (101, 401, DSM_LANES, 4096)
 TIME_LANES = (1024, 4096, 16384)
 INT_MUL_PER_S = 67e12 / 2 / 2  # H100 SXM: 32-bit multiplies at half the fp32 FMA rate
 HBM_BYTES_PER_S = 3.35e12
-KERNEL_SOURCE = "tendermint_tpu_torch/ops/csrc/ed25519_verify.cu"
-TPU_KERNEL = "tendermint_tpu/ops/ed25519_f32p.py:301"
+CSRC = "tendermint_tpu_torch/ops/csrc/"
+KERNEL_NAMES = ("ed25519_verify", "ed25519_verify_b2", "ed25519_dsm")
+# the TPU (or XLA) kernel each one replaces, by file:line of its body
+REPLACES = {
+    "ed25519_verify": "tendermint_tpu/ops/ed25519_f32p.py:301",
+    "ed25519_verify_b2": "tendermint_tpu/ops/ed25519_pallas.py:186",
+    "ed25519_dsm": "tendermint_tpu/ops/ed25519.py:542",
+}
 
 
 def log(obj) -> None:
@@ -83,14 +116,32 @@ def cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound_ms(lanes: int) -> tuple[float, str]:
-    """The least time the card could take: the kernel's limb products over
-    the integer multiply rate, or its bytes over the memory rate."""
-    from tendermint_tpu_torch.ops import ed25519_f32p as f32p
-
-    ops_ms = 1e3 * f32p.PRODUCTS_PER_LANE * lanes / INT_MUL_PER_S
-    bytes_ms = 1e3 * f32p.BYTES_PER_LANE * lanes / HBM_BYTES_PER_S
+def bound_ms(module, lanes: int) -> tuple[float, str]:
+    """The least time the card could take for a kernel module's lanes: its
+    limb products over the integer multiply rate, or its bytes over the
+    memory rate, whichever is larger."""
+    ops_ms = 1e3 * module.PRODUCTS_PER_LANE * lanes / INT_MUL_PER_S
+    bytes_ms = 1e3 * module.BYTES_PER_LANE * lanes / HBM_BYTES_PER_S
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def timed(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def expect_refusal(label: str, fn, want: str) -> str:
+    """Run fn, which must raise CommitError starting with `want`."""
+    from tendermint_tpu_torch.types.validator_set import CommitError
+
+    try:
+        fn()
+    except CommitError as exc:
+        if not str(exc).startswith(want):
+            raise AssertionError(f"{label}: wrong refusal {exc}") from exc
+        return str(exc)[:60]
+    raise AssertionError(f"{label} was accepted")
 
 
 # -- set-up: keys, signatures, commits ---------------------------------------
@@ -174,24 +225,26 @@ def main() -> int:
     from tendermint_tpu_torch import native
     from tendermint_tpu_torch.crypto import ed25519 as ed
     from tendermint_tpu_torch.crypto.keys import PubKeyEd25519, SignatureEd25519
+    from tendermint_tpu_torch.ops import ed25519 as ed32
     from tendermint_tpu_torch.ops import ed25519_f32 as f32
     from tendermint_tpu_torch.ops import ed25519_f32p as f32p
+    from tendermint_tpu_torch.ops import ed25519_pallas as b2
     from tendermint_tpu_torch.ops import kernels
     from tendermint_tpu_torch.ops.gateway import Verifier
     from tendermint_tpu_torch.types.block import Commit
     from tendermint_tpu_torch.types.validator import Validator
-    from tendermint_tpu_torch.types.validator_set import CommitError, ValidatorSet
+    from tendermint_tpu_torch.types.validator_set import ValidatorSet
 
     # -- phase 1: card and build ---------------------------------------------
     card = card_line()
     name, power = [s.strip() for s in card.split(",", 1)]
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
-    build_s = kernels.build("ed25519_verify")
-    log({"phase": "build", "kernel": "ed25519_verify", "seconds": build_s})
-    for line in kernels.build_log.get("ed25519_verify", "").splitlines():
-        if "registers" in line or "spill" in line or "stack frame" in line:
-            log(f"ptxas: {line.strip()}")
+    for kname, build_s in kernels.build_all(KERNEL_NAMES).items():
+        log({"phase": "build", "kernel": kname, "seconds": build_s})
+        for line in kernels.build_log.get(kname, "").splitlines():
+            if "registers" in line or "spill" in line or "stack frame" in line:
+                log(f"ptxas {kname}: {line.strip()}")
     t0 = time.perf_counter()
     if not native.available():
         raise RuntimeError("native host library did not build (make -C native)")
@@ -218,7 +271,10 @@ def main() -> int:
         bid100, c100 = make_commit(pool, vs100, seed_of, 1, b"c100")
         group = [(*make_commit(pool, vs1000, seed_of, h, b"c1000"), h) for h in range(1, 5)]
         bid10k, c10k = make_commit(pool, vs10k, seed_of, 1, b"c10k")
-    log({"phase": "setup", "keys": n_keys, "signatures": MIXED_LANES + n_small + 4 * n_mid + n_keys,
+        vs400 = ValidatorSet(validators[: AGG_SIZES[1]])
+        bid400, c400 = make_commit(pool, vs400, seed_of, 1, b"c400")
+    log({"phase": "setup", "keys": n_keys,
+         "signatures": MIXED_LANES + n_small + 4 * n_mid + n_keys + AGG_SIZES[1],
          "seconds": time.perf_counter() - t0})
 
     # -- phase 2: kernel vs plain version on the card ---------------------------
@@ -267,7 +323,7 @@ def main() -> int:
 
     v = Verifier(device=DEVICE)
     wall = {}
-    f32p.launches = 0
+    f32p.launches = b2.launches = ed32.launches = 0
     t0 = time.perf_counter()
     vs100.verify_commit(CHAIN_ID, bid100, 1, c100, batch_verifier=v.commit_batch_verifier())
     wall["commit_small"] = time.perf_counter() - t0
@@ -284,29 +340,20 @@ def main() -> int:
     refusals = {}
     for label, commit, want in (("forged", forged, "invalid signature"),
                                 ("sub_quorum", sub_quorum, "insufficient voting power")):
-        try:
-            vs100.verify_commit(CHAIN_ID, bid100, 1, commit, batch_verifier=v.commit_batch_verifier())
-        except CommitError as exc:
-            if not str(exc).startswith(want):
-                raise AssertionError(f"{label}: wrong refusal {exc}") from exc
-            refusals[label] = str(exc)[:60]
-        else:
-            raise AssertionError(f"{label} commit was accepted")
+        refusals[label] = expect_refusal(label, lambda: vs100.verify_commit(
+            CHAIN_ID, bid100, 1, commit, batch_verifier=v.commit_batch_verifier()), want)
     main_launches = f32p.launches
+    others = {"b2": b2.launches, "dsm": ed32.launches}
     stats = v.stats()
-    log({"phase": "main_path", "launches": main_launches, "stats": stats,
-         "wall_s": wall, "refused": refusals})
-    if main_launches != 5 or stats["tpu_batches"] != 5:
-        raise AssertionError(f"expected 5 device batches, got {main_launches} launches, {stats}")
+    log({"phase": "main_path", "launches": main_launches, "other_launches": others,
+         "stats": stats, "wall_s": wall, "refused": refusals})
+    if main_launches != 5 or stats["tpu_batches"] != 5 or others != {"b2": 0, "dsm": 0}:
+        raise AssertionError(f"expected 5 B1 batches and no other launch: {main_launches} "
+                             f"launches, {others}, {stats}")
     if stats["cpu_sigs"] != 0:
         raise AssertionError(f"{stats['cpu_sigs']} main-path signatures fell to the CPU")
 
     # -- phase 4: times ---------------------------------------------------------
-    def timed(fn) -> float:
-        t0 = time.perf_counter()
-        fn()
-        return time.perf_counter() - t0
-
     warm = {
         "commit_small": lambda: vs100.verify_commit(
             CHAIN_ID, bid100, 1, c100, batch_verifier=v.commit_batch_verifier()),
@@ -327,7 +374,7 @@ def main() -> int:
         args, _, _ = f32p.marshal_device_args(items, DEVICE)
         ms = cuda_ms(lambda: f32p.verify_lanes(*args))
         kernel_ms[lanes] = ms
-        b_ms, b_by = bound_ms(lanes)
+        b_ms, b_by = bound_ms(f32p, lanes)
         log({"phase": "kernel_time", "card": name, "power_limit": power, "lanes": lanes,
              "ms": ms, "sigs_per_s": lanes / ms * 1e3, "bound_ms": b_ms, "bound_by": b_by})
     args, _, _ = f32p.marshal_device_args(mixed, DEVICE)
@@ -355,17 +402,360 @@ def main() -> int:
          "method": "native batch verifier, fixed 512 signatures, best of 3",
          "sigs_per_s": len(sample) / best})
 
-    b_ms, b_by = bound_ms(MIXED_LANES)
-    log({"kernels": [{
-        "name": "ed25519_verify", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": TPU_KERNEL, "launches": main_launches, "max_abs_err": max_err,
-        "ms": kernel_ms[MIXED_LANES], "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None, "lanes": MIXED_LANES,
-    }]})
+    # -- phases 5 to 9: B2, the dsm kernel, and the paths they carry ----------
+    commits = {"commit_small": (vs100, bid100, c100), "fast_sync_group": (vs1000, group),
+               "commit_large": (vs10k, bid10k, c10k), "agg_100": (vs100, bid100, c100),
+               "agg_400": (vs400, bid400, c400)}
+    b2_err = check_b2(shapes, rng)
+    dsm_terms, dsm_err = check_dsm(rng, pubs[:256], commits["agg_100"])
+    b2_launches, b2_runs, b2_wall = b2_main_path(commits, forged, sub_quorum)
+    dsm_launches = aggregate_path(commits, sub_quorum)
+    dsm_err = max(dsm_err, check_dsm_path_shapes(commits))
+    b2_ms, b2_plain_ms, dsm_ms, dsm_plain_ms = time_b2_and_dsm(
+        name, power, mixed, dsm_terms, commits, b2_runs, b2_wall)
+
+    entries = []
+    for kname, module, launches, err, ms, p_ms, lanes in (
+            ("ed25519_verify", f32p, main_launches, max_err, kernel_ms[MIXED_LANES], plain_ms,
+             MIXED_LANES),
+            ("ed25519_verify_b2", b2, b2_launches, b2_err, b2_ms, b2_plain_ms, MIXED_LANES),
+            ("ed25519_dsm", ed32, dsm_launches, dsm_err, dsm_ms, dsm_plain_ms, DSM_LANES)):
+        b_ms, b_by = bound_ms(module, lanes)
+        entries.append({
+            "name": kname, "route": "cuda", "source": f"{CSRC}{kname}.cu",
+            "replaces": REPLACES[kname], "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "lanes": lanes,
+        })
+    log({"kernels": entries})
     log(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})
     return 0
+
+
+def check_b2(shapes, rng) -> int:
+    """Phase 5: B2's verdicts equal its plain version's on the mixed lanes,
+    B1's on every shape, and crypto.ed25519.verify on a sample. Returns
+    the largest difference seen (0 when all agree)."""
+    import torch
+
+    from tendermint_tpu_torch.crypto import ed25519 as ed
+    from tendermint_tpu_torch.ops import ed25519_f32p as f32p
+    from tendermint_tpu_torch.ops import ed25519_pallas as b2
+
+    max_err = 0
+    for label, items in shapes.items():
+        args, valid, n = f32p.marshal_device_args(items, DEVICE)
+        t0 = time.perf_counter()
+        got = b2.verify_lanes(*args)
+        against = {"b1": f32p.verify_lanes(*args)}
+        if label == "mixed":
+            against["plain"] = b2.verify_plain(*args).to(torch.int32)
+        torch.cuda.synchronize()
+        errs = {k: int((got - w).abs().max().item()) for k, w in against.items()}
+        max_err = max(max_err, *errs.values())
+        verdicts = f32p.materialize_verdicts(got.cpu(), valid, n)
+        log({"phase": "b2_vs_plain_and_b1", "shape": label, "lanes": n,
+             "accepted": int(verdicts.sum()), "max_abs_err": errs,
+             "seconds": time.perf_counter() - t0})
+        for k, w in against.items():
+            if errs[k] != 0:
+                bad = torch.nonzero(got != w).flatten()[:10].tolist()
+                raise AssertionError(f"{label}: B2 disagrees with {k} at lanes {bad}")
+        if label == "mixed":
+            sample = rng.choice(n, size=min(256, n), replace=False)
+            ref = np.array([ed.verify(*items[i]) for i in sample])
+            if not np.array_equal(verdicts[sample], ref):
+                raise AssertionError("mixed: B2 verdicts disagree with crypto.ed25519.verify")
+        elif not verdicts.all():
+            raise AssertionError(f"{label}: B2 rejected a valid commit signature")
+    return max_err
+
+
+def _aggregate_args(vs, agg):
+    """(pubs, msgs, rs, s_agg): what AggregateCommit.verify hands the
+    aggregate verifier."""
+    pubs = [vs.get_by_index(i)[1].pub_key.raw for i in agg.signers.indices()]
+    return pubs, [agg.sign_message(CHAIN_ID)] * len(pubs), agg.rs, agg.s_agg
+
+
+def _affine(pt) -> tuple[int, int]:
+    from tendermint_tpu_torch.crypto import ed25519 as ed
+
+    zinv = pow(pt[2], ed.P - 2, ed.P)
+    return (pt[0] * zinv % ed.P, pt[1] * zinv % ed.P)
+
+
+def check_dsm(rng, pubs, agg_case):
+    """Phase 6: the dsm kernel against dsm_plain, bytes exactly, on
+    DSM_LANES lanes from the seed (random scalars below L, validator key
+    points, the edge lanes) ending in the real terms of a 100-validator
+    aggregate commit; then 64 lanes against the pure-Python group law.
+    Returns (terms, largest byte difference)."""
+    import torch
+
+    from tendermint_tpu_torch.crypto import ed25519 as ed
+    from tendermint_tpu_torch.crypto import ed25519_agg
+    from tendermint_tpu_torch.ops import ed25519 as ed32
+    from tendermint_tpu_torch.types.agg_commit import AggregateCommit
+
+    vs, _, commit = agg_case
+    real = ed25519_agg.aggregate_terms(
+        *_aggregate_args(vs, AggregateCommit.from_commit(commit, CHAIN_ID, vs)))
+    points = [_affine(ed.point_decompress(p)) for p in pubs]
+
+    def scalar() -> int:
+        return int.from_bytes(rng.bytes(32), "little") % ed.L
+
+    terms = []
+    for i in range(DSM_LANES - len(real)):
+        p, q = points[int(rng.integers(len(points)))], points[int(rng.integers(len(points)))]
+        a, b = scalar(), scalar()
+        kind = i % 8  # the edge lanes the complete formulas must cover
+        if kind == 1:
+            q = (0, 1)
+        elif kind == 2:
+            a = 0
+        elif kind == 3:
+            b = 0
+        elif kind == 4:
+            q = p
+        elif kind == 5:
+            q = ((-p[0]) % ed.P, p[1])
+        elif kind == 6:
+            a = b = 0
+        terms.append((a, p, b, q))
+    terms += real
+
+    t0 = time.perf_counter()
+    rows = ed32.marshal_dsm_args(terms, DEVICE)
+    x8, y8 = ed32.dsm_lanes(*rows)
+    px, py = ed32.dsm_plain(*(ed32.limbs_from_bytes(r) for r in rows))
+    want = torch.stack([ed32.bytes_from_limbs(px), ed32.bytes_from_limbs(py)])
+    got = torch.stack([x8, y8])
+    torch.cuda.synchronize()
+    err = int((got.int() - want.int()).abs().max().item())
+    log({"phase": "dsm_vs_plain", "lanes": len(terms), "real_aggregate_lanes": len(real),
+         "max_abs_err": err, "seconds": time.perf_counter() - t0})
+    if err != 0:
+        bad = torch.nonzero((got != want).any(dim=(0, 1))).flatten()[:10].tolist()
+        raise AssertionError(f"dsm kernel disagrees with dsm_plain at lanes {bad}")
+    xy = got.cpu().numpy()
+    sample = min(64, len(terms))
+    for i in range(sample):
+        a, p, b, q = terms[i]
+        ref = _affine(ed.point_add(ed.scalar_mult(a, (p[0], p[1], 1, p[0] * p[1] % ed.P)),
+                                   ed.scalar_mult(b, (q[0], q[1], 1, q[0] * q[1] % ed.P))))
+        lane = tuple(int.from_bytes(xy[k, :, i].tobytes(), "little") for k in range(2))
+        if lane != ref:
+            raise AssertionError(f"dsm lane {i} disagrees with the pure-Python group law")
+    log({"phase": "dsm_reference_sample", "lanes": sample, "equal": True})
+    return terms, err
+
+
+def b2_main_path(commits, forged, sub_quorum):
+    """Phase 7: the phase-3 commits through a Verifier built under
+    TENDERMINT_TPU_KERNEL=pallas. Returns (B2 launches, the commit runs,
+    their first wall times)."""
+    from tendermint_tpu_torch.ops import ed25519 as ed32
+    from tendermint_tpu_torch.ops import ed25519_f32p as f32p
+    from tendermint_tpu_torch.ops import ed25519_pallas as b2
+    from tendermint_tpu_torch.ops.gateway import Verifier
+
+    before = os.environ.get("TENDERMINT_TPU_KERNEL")
+    os.environ["TENDERMINT_TPU_KERNEL"] = "pallas"
+    try:
+        v = Verifier(device=DEVICE)
+    finally:
+        if before is None:
+            del os.environ["TENDERMINT_TPU_KERNEL"]
+        else:
+            os.environ["TENDERMINT_TPU_KERNEL"] = before
+    if v.kernel != "pallas":
+        raise AssertionError(f"TENDERMINT_TPU_KERNEL=pallas built a {v.kernel} verifier")
+    vs100, bid100, c100 = commits["commit_small"]
+    vs1000, group = commits["fast_sync_group"]
+    vs10k, bid10k, c10k = commits["commit_large"]
+    runs = {
+        "commit_small": lambda: vs100.verify_commit(
+            CHAIN_ID, bid100, 1, c100, batch_verifier=v.commit_batch_verifier()),
+        "fast_sync_group": lambda: [f() for f in vs1000.verify_commits_async(
+            CHAIN_ID, [(bid, h, c) for bid, c, h in group], v.verify_batch_async)],
+        "commit_large": lambda: vs10k.verify_commit(
+            CHAIN_ID, bid10k, 1, c10k, batch_verifier=v.commit_batch_verifier()),
+    }
+    f32p.launches = b2.launches = ed32.launches = 0
+    wall = {label: timed(fn) for label, fn in runs.items()}
+    refusals = {}
+    for label, commit, want in (("forged", forged, "invalid signature"),
+                                ("sub_quorum", sub_quorum, "insufficient voting power")):
+        refusals[label] = expect_refusal(label, lambda: vs100.verify_commit(
+            CHAIN_ID, bid100, 1, commit, batch_verifier=v.commit_batch_verifier()), want)
+    launches = {"b2": b2.launches, "b1": f32p.launches, "dsm": ed32.launches}
+    stats = v.stats()
+    log({"phase": "b2_main_path", "kernel": v.kernel, "launches": launches, "stats": stats,
+         "wall_s": wall, "refused": refusals})
+    if launches != {"b2": 5, "b1": 0, "dsm": 0} or stats["tpu_batches"] != 5:
+        raise AssertionError(f"expected 5 B2 batches and no other launch: {launches}, {stats}")
+    if stats["cpu_sigs"] != 0:
+        raise AssertionError(f"{stats['cpu_sigs']} B2-path signatures fell to the CPU")
+    return launches["b2"], runs, wall
+
+
+def aggregate_path(commits, sub_quorum) -> int:
+    """Phase 8: 100- and 400-validator aggregate commits through
+    ValidatorSet.verify_commit and verify_commits_async on the default
+    verifier (the card), and three refusals. Returns the dsm launches."""
+    from tendermint_tpu_torch.crypto import ed25519 as ed
+    from tendermint_tpu_torch.crypto import ed25519_agg
+    from tendermint_tpu_torch.libs.bitarray import BitArray
+    from tendermint_tpu_torch.ops import ed25519 as ed32
+    from tendermint_tpu_torch.ops import ed25519_f32p as f32p
+    from tendermint_tpu_torch.ops import ed25519_pallas as b2
+    from tendermint_tpu_torch.ops import gateway
+    from tendermint_tpu_torch.types.agg_commit import AggregateCommit
+
+    dv = gateway.default_verifier()
+    if dv.device.type != DEVICE:
+        raise AssertionError(f"the default verifier runs on {dv.device}")
+    aggs = {label: AggregateCommit.from_commit(commits[label][2], CHAIN_ID, commits[label][0])
+            for label in ("agg_100", "agg_400")}
+    vs100, bid100, c100 = commits["agg_100"]
+    forged = AggregateCommit.from_bytes(aggs["agg_100"].to_bytes())
+    forged.s_agg = ((int.from_bytes(forged.s_agg, "little") + 1) % ed.L).to_bytes(32, "little")
+    dropped = AggregateCommit.from_bytes(aggs["agg_100"].to_bytes())
+    dropped.signers.set_index(0, False)
+    dropped.rs = dropped.rs[1:]
+    keep = [i for i, p in enumerate(sub_quorum.precommits) if p is not None]
+    rs, s_agg = ed25519_agg.aggregate([
+        (vs100.get_by_index(i)[1].pub_key.raw, c100.precommits[i].sign_bytes(CHAIN_ID),
+         c100.precommits[i].signature.raw) for i in keep])
+    thin = AggregateCommit(bid100, 1, 0, BitArray.from_indices(vs100.size(), keep), rs, s_agg)
+
+    before = dv.stats()
+    f32p.launches = b2.launches = ed32.launches = 0
+    wall, want_lanes = {}, 0
+    for label, agg in aggs.items():
+        vs, bid, _ = commits[label]
+        wall[label] = timed(lambda: vs.verify_commit(CHAIN_ID, bid, 1, agg))
+        fin = vs.verify_commits_async(CHAIN_ID, [(bid, 1, agg)], dv.verify_batch_async)
+        fin[0]()
+        want_lanes += 2 * (agg.num_signers() + 1)
+    refusals = {
+        "forged_s_agg": expect_refusal("forged aggregate", lambda: vs100.verify_commit(
+            CHAIN_ID, bid100, 1, forged), "aggregate signature failed verification"),
+        "dropped_signer": expect_refusal("dropped-signer aggregate", lambda: vs100.verify_commit(
+            CHAIN_ID, bid100, 1, dropped), "aggregate signature failed verification"),
+        "sub_quorum_aggregation": expect_refusal(
+            "sub-quorum aggregation", lambda: AggregateCommit.from_commit(
+                sub_quorum, CHAIN_ID, vs100), "aggregable precommits carry only"),
+        "sub_quorum_aggregate": expect_refusal("sub-quorum aggregate", lambda: vs100.verify_commit(
+            CHAIN_ID, bid100, 1, thin), "insufficient voting power"),
+    }
+    want_lanes += (forged.num_signers() + 1) + (dropped.num_signers() + 1)
+    launches = {"dsm": ed32.launches, "b1": f32p.launches, "b2": b2.launches}
+    after = dv.stats()
+    grew = {k: after[k] - before[k] for k in ("agg_batches", "agg_lanes_device", "agg_lanes_cpu")}
+    log({"phase": "aggregate_path", "validators": [a.size() for a in aggs.values()],
+         "signers": [a.num_signers() for a in aggs.values()], "launches": launches,
+         "stats_grew": grew, "wall_s": wall, "refused": refusals})
+    if grew != {"agg_batches": 6, "agg_lanes_device": want_lanes, "agg_lanes_cpu": 0}:
+        raise AssertionError(f"expected 6 device aggregates of {want_lanes} lanes: {grew}")
+    if launches != {"dsm": 6, "b1": 0, "b2": 0}:
+        raise AssertionError(f"expected 6 dsm launches and no other: {launches}")
+    return launches["dsm"]
+
+
+def check_dsm_path_shapes(commits) -> int:
+    """The dsm kernel against dsm_plain, bytes exactly, on the exact terms
+    of the aggregate path's 100- and 400-validator commits (101 and 401
+    lanes, so the last block is partial). Runs after the path's launch
+    counts are read. Returns the largest byte difference."""
+    import torch
+
+    from tendermint_tpu_torch.crypto import ed25519_agg
+    from tendermint_tpu_torch.ops import ed25519 as ed32
+    from tendermint_tpu_torch.types.agg_commit import AggregateCommit
+
+    max_err = 0
+    for label in ("agg_100", "agg_400"):
+        vs, _, commit = commits[label]
+        terms = ed25519_agg.aggregate_terms(
+            *_aggregate_args(vs, AggregateCommit.from_commit(commit, CHAIN_ID, vs)))
+        rows = ed32.marshal_dsm_args(terms, DEVICE)
+        got = torch.stack(ed32.dsm_lanes(*rows))
+        px, py = ed32.dsm_plain(*(ed32.limbs_from_bytes(r) for r in rows))
+        want = torch.stack([ed32.bytes_from_limbs(px), ed32.bytes_from_limbs(py)])
+        err = int((got.int() - want.int()).abs().max().item())
+        log({"phase": "dsm_vs_plain_path_shape", "shape": label, "lanes": len(terms),
+             "max_abs_err": err})
+        if err != 0:
+            bad = torch.nonzero((got != want).any(dim=(0, 1))).flatten()[:10].tolist()
+            raise AssertionError(f"{label}: dsm kernel disagrees with dsm_plain at lanes {bad}")
+        max_err = max(max_err, err)
+    return max_err
+
+
+def time_b2_and_dsm(name, power, mixed, dsm_terms, commits, b2_runs, b2_wall):
+    """Phase 9: B2 and dsm against their bounds and plain versions, the
+    aggregate verify split by stage, and the B2 path's commit times.
+    Returns (B2 ms and plain ms at MIXED_LANES, dsm ms and plain ms at
+    DSM_LANES)."""
+    from tendermint_tpu_torch.crypto import ed25519_agg
+    from tendermint_tpu_torch.ops import ed25519 as ed32
+    from tendermint_tpu_torch.ops import ed25519_f32p as f32p
+    from tendermint_tpu_torch.ops import ed25519_pallas as b2
+    from tendermint_tpu_torch.ops import gateway
+    from tendermint_tpu_torch.types.agg_commit import AggregateCommit
+
+    tag = {"card": name, "power_limit": power}
+    b2_ms = {}
+    for lanes in TIME_LANES:
+        args, _, _ = f32p.marshal_device_args((mixed * (lanes // len(mixed) + 1))[:lanes], DEVICE)
+        b2_ms[lanes] = cuda_ms(lambda: b2.verify_lanes(*args))
+        b_ms, b_by = bound_ms(b2, lanes)
+        log({"phase": "b2_time", **tag, "lanes": lanes, "ms": b2_ms[lanes],
+             "sigs_per_s": lanes / b2_ms[lanes] * 1e3, "bound_ms": b_ms, "bound_by": b_by})
+    args, _, _ = f32p.marshal_device_args(mixed, DEVICE)
+    b2_plain_ms = cuda_ms(lambda: b2.verify_plain(*args), reps=3, warmup=0)
+    log({"phase": "b2_plain_time", **tag, "lanes": MIXED_LANES, "ms": b2_plain_ms})
+
+    dsm_ms = {}
+    for lanes in DSM_TIME_LANES:
+        rows = ed32.marshal_dsm_args((dsm_terms * (lanes // len(dsm_terms) + 1))[:lanes], DEVICE)
+        dsm_ms[lanes] = cuda_ms(lambda: ed32.dsm_lanes(*rows))
+        b_ms, b_by = bound_ms(ed32, lanes)
+        log({"phase": "dsm_time", **tag, "lanes": lanes, "ms": dsm_ms[lanes],
+             "bound_ms": b_ms, "bound_by": b_by})
+    rows = ed32.marshal_dsm_args(dsm_terms[:DSM_LANES], DEVICE)
+    limbs = [ed32.limbs_from_bytes(r) for r in rows]
+    dsm_plain_ms = cuda_ms(lambda: ed32.dsm_plain(*limbs), reps=3, warmup=0)
+    log({"phase": "dsm_plain_time", **tag, "lanes": DSM_LANES, "ms": dsm_plain_ms})
+
+    dv = gateway.default_verifier()
+    for label in ("agg_100", "agg_400"):
+        vs, bid, commit = commits[label]
+        agg = AggregateCommit.from_commit(commit, CHAIN_ID, vs)
+        agg_args = _aggregate_args(vs, agg)
+        terms = ed25519_agg.aggregate_terms(*agg_args)
+        points = ed32.dsm_batch(terms, DEVICE)
+        rows = ed32.marshal_dsm_args(terms, DEVICE)
+        log({"phase": "aggregate_time", **tag, "validators": vs.size(), "lanes": len(terms),
+             "verify_commit_warm_best_of_3_s": min(
+                 timed(lambda: vs.verify_commit(CHAIN_ID, bid, 1, agg)) for _ in range(3)),
+             "aggregate_terms_host_s": min(
+                 timed(lambda: ed25519_agg.aggregate_terms(*agg_args)) for _ in range(3)),
+             "dsm_batch_s": min(timed(lambda: ed32.dsm_batch(terms, DEVICE)) for _ in range(3)),
+             "dsm_kernel_s": cuda_ms(lambda: ed32.dsm_lanes(*rows)) / 1e3,
+             "finish_from_points_host_s": min(
+                 timed(lambda: ed25519_agg.finish_from_points(points)) for _ in range(3)),
+             "stats": dv.stats()})
+
+    for label, fn in b2_runs.items():
+        log({"phase": "b2_commit_time", **tag, "commit": label, "first_s": b2_wall[label],
+             "warm_best_of_3_s": min(timed(fn) for _ in range(3))})
+    return b2_ms[MIXED_LANES], b2_plain_ms, dsm_ms[DSM_LANES], dsm_plain_ms
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Deterministic c-style binary codec: the encoder half that votes, block
-IDs and validators use.
+"""Deterministic c-style binary codec: what votes, block IDs, validators
+and commits (full and aggregate) are written and read with.
 
 Format (the reference's wire-protocol spec,
 docs/specification/wire-protocol.rst):
@@ -8,6 +8,7 @@ docs/specification/wire-protocol.rst):
 - `varint`: 1 length byte then that many big-endian bytes; 0 == b"\\x00";
   negative sets the MSB of the length byte
 - bytes: varint length prefix + raw bytes
+- lists: varint count + concatenated items
 """
 
 from __future__ import annotations
@@ -50,3 +51,68 @@ class Encoder:
 
     def write_bytes(self, b: bytes) -> "Encoder":
         return self.write_raw(encode_bytes(b))
+
+    def write_list(self, items, write_item) -> "Encoder":
+        self.write_varint(len(items))
+        for it in items:
+            write_item(self, it)
+        return self
+
+
+class Decoder:
+    def __init__(self, buf: bytes, off: int = 0):
+        self.buf = buf
+        self.off = off
+
+    def _take(self, n: int) -> bytes:
+        if self.off + n > len(self.buf):
+            raise ValueError("unexpected end of buffer")
+        out = self.buf[self.off : self.off + n]
+        self.off += n
+        return out
+
+    def read_u8(self) -> int:
+        return self._take(1)[0]
+
+    def peek_u8(self) -> int:
+        """The next byte without consuming it: format-tag dispatch
+        (types.agg_commit.decode_commit reads the aggregate-commit magic
+        off it)."""
+        if self.off >= len(self.buf):
+            raise ValueError("unexpected end of buffer")
+        return self.buf[self.off]
+
+    def read_raw(self, n: int) -> bytes:
+        """Exactly n bytes, no length prefix: the mirror of
+        Encoder.write_raw for fixed-width fields (32-byte points, folded
+        scalars, 64-byte signatures)."""
+        return self._take(n)
+
+    def read_varint(self) -> int:
+        ln = self.read_u8()
+        if ln == 0:
+            return 0
+        neg = bool(ln & 0x80)
+        nbytes = ln & 0x7F
+        if nbytes == 0:
+            raise ValueError("non-canonical varint (negative zero)")
+        body = self._take(nbytes)
+        if body[0] == 0:
+            raise ValueError("non-canonical varint (leading zero byte)")
+        n = int.from_bytes(body, "big")
+        return -n if neg else n
+
+    def read_bytes(self) -> bytes:
+        ln = self.read_varint()
+        if ln < 0:
+            raise ValueError("negative byte-slice length")
+        return self._take(ln)
+
+    def read_list(self, read_item) -> list:
+        n = self.read_varint()
+        if n < 0:
+            raise ValueError("negative list length")
+        return [read_item(self) for _ in range(n)]
+
+    def done(self) -> bool:
+        return self.off == len(self.buf)

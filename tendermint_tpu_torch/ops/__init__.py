@@ -1,11 +1,18 @@
-"""Device plane of the port: the verify kernel, its plain PyTorch version,
-and the gateway the commit path talks to.
+"""Device plane of the port: the CUDA kernels, their plain PyTorch
+versions, and the gateway the commit path talks to.
 
 - `ed25519_f32`: the host marshal and `verify_plain`, the plain PyTorch
-  version of the verify ladder.
-- `ed25519_f32p`: the wrapper of the hand-written CUDA ladder
-  (`csrc/ed25519_verify.cu`), built and bound by `kernels`.
-- `gateway`: `Verifier`, the batching gateway with its size gate.
+  version of the B1 verify ladder.
+- `ed25519_f32p`: the wrapper of the hand-written CUDA ladder B1
+  (`csrc/ed25519_verify.cu`).
+- `ed25519`: the int32 radix-2^15 family: limb codecs, field and point
+  ops, and `dsm_batch`, the wrapper of the dual-scalar-multiplication
+  kernel (`csrc/ed25519_dsm.cu`) with its plain version `dsm_plain`.
+- `ed25519_pallas`: the wrapper of the single-bit CUDA ladder B2
+  (`csrc/ed25519_verify_b2.cu`) with its plain version `verify_plain`.
+- `kernels`: builds the `csrc/` sources with nvcc and binds them.
+- `gateway`: `Verifier`, the batching gateway with its size gate, its
+  kernel registry and the aggregate-commit verify.
 """
 
 from __future__ import annotations

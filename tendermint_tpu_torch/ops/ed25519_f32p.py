@@ -50,7 +50,10 @@ def marshal_device_args(items: list[tuple[bytes, bytes, bytes]], device=None):
     return (buf[0], buf[1], buf[2], rsign, buf[3], buf[4]), valid, n
 
 
-def _check_args(ax, ay, ry, rsign, s8, h8) -> int:
+def check_args(ax, ay, ry, rsign, s8, h8) -> int:
+    """The lane count of a verify kernel's arguments (B1's and B2's
+    alike); raises ValueError on a type, shape, layout or device the
+    kernels do not take."""
     n = ax.shape[-1]
     rows = (ax, ay, ry, s8, h8)
     for t in rows:
@@ -71,7 +74,7 @@ def verify_lanes(ax, ay, ry, rsign, s8, h8) -> torch.Tensor:
     A CUDA tensor launches the kernel on the current stream without
     synchronising; a CPU tensor runs the plain version."""
     global launches
-    n = _check_args(ax, ay, ry, rsign, s8, h8)
+    n = check_args(ax, ay, ry, rsign, s8, h8)
     if ax.device.type == "cpu":
         ok = base.verify_plain(ax.float(), ay.float(), ry.float(), rsign, s8.int(), h8.int())
         return ok.to(torch.int32)

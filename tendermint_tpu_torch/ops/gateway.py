@@ -9,25 +9,35 @@ identical accept/reject semantics:
 - batches below `min_tpu_batch` (env TENDERMINT_TPU_MIN_BATCH, default 32)
   run on the CPU: single votes stay on the host, where a launch and a
   marshal cost more than they save;
-- wider batches run on the verifier's device: the CUDA kernel
-  (ops.ed25519_f32p) on the card, or its plain version for
-  `device="cpu"`.
+- wider batches run on the verifier's device: a CUDA kernel on the card,
+  or its plain version for `device="cpu"`. The kernel comes from the
+  registry `KERNELS` by the JAX package's env knob TENDERMINT_TPU_KERNEL,
+  read once per Verifier: `f32p` (B1, the default) or `pallas` (B2).
+
+Aggregate commits verify as one half-aggregate equation
+(`verify_aggregate`): its n + 1 dual scalar multiplications run in the
+dsm kernel (`ops.ed25519.dsm_batch`) at or above the same size gate, and
+on the pure-Python reference below it.
 
 Unlike the JAX gateway, a kernel failure is never caught: there is no
-latch to the CPU and no retry. The stats keep the JAX key names
+latch to the CPU and no retry, and a verify-ahead batch that fails
+re-raises where its verdict is read. The stats keep the JAX key names
 (`tpu_batches`, `tpu_sigs`, `cpu_sigs`, ...), where "tpu" now means the
 device route, so callers read them unchanged.
 """
 
 from __future__ import annotations
 
+import importlib
 import logging
 import os
 import threading
+import time
 
 from tendermint_tpu_torch import native
+from tendermint_tpu_torch.crypto import ed25519_agg
 from tendermint_tpu_torch.crypto.keys import verify_any
-from tendermint_tpu_torch.ops import ed25519_f32p, resolve_device
+from tendermint_tpu_torch.ops import ed25519, resolve_device
 
 logger = logging.getLogger("tendermint_tpu_torch.ops.gateway")
 
@@ -59,6 +69,36 @@ def _split_by_key_type(items: list[Item]):
     return ed_items, ed_pos, other_items, other_pos
 
 
+# The port's verify kernels by their JAX registry names. Each module has
+# verify_batch(items, device) -> bool[n] with identical accept/reject
+# semantics; f32p also pipelines (verify_batch_async).
+KERNELS = {
+    "f32p": "tendermint_tpu_torch.ops.ed25519_f32p",
+    "pallas": "tendermint_tpu_torch.ops.ed25519_pallas",
+}
+# names the JAX package's registry has and the port does not yet
+_NOT_PORTED = ("comb", "devd", "f32", "int32")
+
+
+def kernel_name() -> str:
+    """Validated TENDERMINT_TPU_KERNEL; empty means "f32p". Raises on a
+    name the port lacks, so a typo or a JAX-only choice fails at startup
+    instead of running another kernel."""
+    name = os.environ.get("TENDERMINT_TPU_KERNEL", "")
+    if not name:
+        return "f32p"
+    if name in _NOT_PORTED:
+        raise ValueError(
+            f"TENDERMINT_TPU_KERNEL={name!r} is a kernel of the JAX package "
+            f"that is not ported; the port has {sorted(KERNELS)}"
+        )
+    if name not in KERNELS:
+        raise ValueError(
+            f"TENDERMINT_TPU_KERNEL={name!r}: expected one of {sorted(KERNELS)}"
+        )
+    return name
+
+
 def _min_batch_from_env() -> int:
     raw = os.environ.get("TENDERMINT_TPU_MIN_BATCH", "")
     try:
@@ -68,6 +108,46 @@ def _min_batch_from_env() -> int:
         return 32
 
 
+class _PendingBatch:
+    """An in-flight prime_cache_async dispatch. Each primed item maps to
+    the shared handle; a background thread materializes the verdicts the
+    moment the device answers, so the batch is drained even when no
+    verify_one ever pops an item. `on_done(dt_s)` fires once on success
+    with the dispatch-to-verdicts wall time.
+
+    Unlike the JAX gateway's handle, a failed resolve is not turned into
+    "not primed" (which would re-verify on the CPU): the exception is kept
+    and re-raised by every result_for."""
+
+    __slots__ = ("_done", "_error", "_event")
+
+    def __init__(self, items: list[Item], resolve, on_done=None):
+        self._done: dict[Item, bool] = {}
+        self._error: Exception | None = None
+        self._event = threading.Event()
+        t0 = time.monotonic()
+
+        def materialize() -> None:
+            try:
+                self._done.update((it, bool(ok)) for it, ok in zip(items, resolve()))
+                if on_done is not None:
+                    on_done(time.monotonic() - t0)
+            except Exception as exc:  # kept for result_for, which re-raises
+                self._error = exc
+            finally:
+                self._event.set()
+
+        threading.Thread(target=materialize, daemon=True, name="gateway-prime").start()
+
+    def result_for(self, item: Item) -> bool | None:
+        """The primed verdict (None if the item was not in the batch);
+        re-raises the batch's failure."""
+        self._event.wait()
+        if self._error is not None:
+            raise self._error
+        return self._done.get(item)
+
+
 class Verifier:
     """Batch signature verifier on the card (or, for `device="cpu"`, the
     kernel's plain version), with the CPU below the size gate."""
@@ -75,16 +155,27 @@ class Verifier:
     def __init__(self, min_tpu_batch: int | None = None, device=None):
         self.device = resolve_device(device)
         self.min_tpu_batch = _min_batch_from_env() if min_tpu_batch is None else min_tpu_batch
+        # resolved once: a typo fails here, and the kernel cannot change
+        # under a live node
+        self._kernel = kernel_name()
+        self._module = importlib.import_module(KERNELS[self._kernel])
         self._mtx = threading.Lock()
         self._stats = {
             "tpu_batches": 0, "tpu_sigs": 0, "cpu_sigs": 0,
-            # aggregate-commit lanes: zero until verify_aggregate is ported
+            # aggregate-commit verify lanes: dsm kernel vs the pure-Python
+            # reference below the size gate
             "agg_batches": 0, "agg_lanes_device": 0, "agg_lanes_cpu": 0,
         }
         # verify-ahead verdicts for the live vote path, popped single-use
-        # by verify_one; unconsumed entries age out FIFO
-        self._primed: dict[Item, bool] = {}
+        # by verify_one (a _PendingBatch until its batch resolves);
+        # unconsumed entries age out FIFO
+        self._primed: dict[Item, bool | _PendingBatch] = {}
         self._primed_cap = 1 << 14
+
+    @property
+    def kernel(self) -> str:
+        """The registry name of the verify kernel this verifier runs."""
+        return self._kernel
 
     def _count(self, key: str, n: int) -> None:
         with self._mtx:
@@ -127,15 +218,46 @@ class Verifier:
             self._count("cpu_sigs", n)
             res = _cpu_verify_batch(items)
             return lambda: res
-        kernel_resolve = ed25519_f32p.verify_batch_async(items, self.device)
+        if not hasattr(self._module, "verify_batch_async"):
+            # B2, like the JAX module, verifies synchronously under the
+            # same contract
+            res_now = [bool(b) for b in self._module.verify_batch(items, self.device)]
+            self._device_batch(n)
+            return lambda: res_now
+        kernel_resolve = self._module.verify_batch_async(items, self.device)
         self._device_batch(n)
         return lambda: [bool(b) for b in kernel_resolve()]
 
-    def pop_primed(self, item: Item) -> bool | None:
-        """Pop (single-use) the primed verdict for one item, or None if it
-        was never primed or has aged out."""
+    def verify_aggregate(self, pubs: list[bytes], msgs: list[bytes],
+                         rs: list[bytes], s_agg: bytes) -> bool:
+        """Half-aggregate verify (the crypto.ed25519_agg equation) with its
+        n + 1 dual-scalar-mul lanes in one dsm launch on the verifier's
+        device. Below `min_tpu_batch` lanes the pure-Python reference runs
+        instead: the size gate, as for signatures. Semantics identical to
+        ed25519_agg.verify_aggregate."""
+        terms = ed25519_agg.aggregate_terms(pubs, msgs, rs, s_agg)
+        if terms is None:
+            return False
+        n = len(terms)
+        if n < self.min_tpu_batch:
+            self._count("agg_lanes_cpu", n)
+            return ed25519_agg.verify_aggregate(pubs, msgs, rs, s_agg)
+        points = ed25519.dsm_batch(terms, self.device)
         with self._mtx:
-            return self._primed.pop(item, None)
+            self._stats["agg_batches"] += 1
+            self._stats["agg_lanes_device"] += n
+        return ed25519_agg.finish_from_points(points)
+
+    def pop_primed(self, item: Item) -> bool | None:
+        """Pop (single-use) the primed verdict for one item: True/False
+        from a resolved batch, None if never primed or aged out. A primed
+        batch that failed re-raises its failure here."""
+        with self._mtx:
+            primed = self._primed.pop(item, None)
+        if isinstance(primed, _PendingBatch):
+            # wait outside the mutex: this blocks on the device
+            primed = primed.result_for(item)
+        return primed
 
     def verify_one(self, pubkey: bytes, msg: bytes, sig: bytes) -> bool:
         """Single-signature path (vote-by-vote arrival): a verdict primed
@@ -160,6 +282,22 @@ class Verifier:
             while len(self._primed) > self._primed_cap:
                 self._primed.pop(next(iter(self._primed)))
 
+    def prime_cache_async(self, items: list[Item], on_done=None) -> None:
+        """Pipelined prime_cache: dispatch the batch now
+        (verify_batch_async) and park a pending handle per item; the first
+        verify_one to pop one blocks for the batch verdicts. The caller's
+        host work between dispatch and first pop overlaps the marshal and
+        the kernel. `on_done(dt_s)` observes the dispatch-to-verdicts wall
+        time on success."""
+        if not items:
+            return
+        pending = _PendingBatch(items, self.verify_batch_async(items), on_done)
+        with self._mtx:
+            for it in items:
+                self._primed[it] = pending
+            while len(self._primed) > self._primed_cap:
+                self._primed.pop(next(iter(self._primed)))
+
     def stats(self) -> dict:
         with self._mtx:
             return dict(self._stats)
@@ -173,3 +311,19 @@ class Verifier:
     def vote_verifier(self):
         """For VoteSet.add_vote(verifier=...)."""
         return self.verify_one
+
+
+# -- the process-wide verifier -----------------------------------------------
+
+_default_verifier: Verifier | None = None
+_default_mtx = threading.Lock()
+
+
+def default_verifier() -> Verifier:
+    """The process-wide Verifier on the card (what AggregateCommit.verify
+    reaches when no verifier is passed)."""
+    global _default_verifier
+    with _default_mtx:
+        if _default_verifier is None:
+            _default_verifier = Verifier()
+        return _default_verifier

@@ -3,9 +3,10 @@
 Each source in `csrc/` compiles with nvcc into a shared library with a
 plain C interface, loaded with ctypes: pointers and the stream pass as
 `c_void_p`, counts as `c_int`. The build runs at first use into
-`build/kernels/` at the repository root, and again whenever the source is
-newer than the library. Nothing here runs at import: the CPU tests import
-every module on machines with no nvcc and no card.
+`build/kernels/` at the repository root, and again whenever the source or
+any shared header (`csrc/*.cuh`) is newer than the library. Nothing here
+runs at import: the CPU tests import every module on machines with no nvcc
+and no card.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -40,13 +42,20 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin)")
 
 
+def _newest_input(src: str) -> float:
+    """mtime of the source or of the newest shared header it may include."""
+    headers = [os.path.join(_CSRC, f) for f in os.listdir(_CSRC) if f.endswith(".cuh")]
+    return max(os.path.getmtime(f) for f in [src, *headers])
+
+
 def build(name: str) -> float:
     """Compile csrc/<name>.cu into build/kernels/lib<name>.so if the
-    library is missing or older than its source. Returns the seconds spent
-    compiling (0.0 when the library was current)."""
+    library is missing or older than its source or a csrc/*.cuh header.
+    Returns the seconds spent compiling (0.0 when the library was
+    current)."""
     src = os.path.join(_CSRC, f"{name}.cu")
     out = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
+    if os.path.exists(out) and os.path.getmtime(out) >= _newest_input(src):
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
@@ -61,11 +70,23 @@ def build(name: str) -> float:
     return time.perf_counter() - t0
 
 
+def build_all(names) -> dict[str, float]:
+    """build() every source at once, one nvcc process each; the seconds
+    each took."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(build, names)))
+
+
 _vp, _i32 = ctypes.c_void_p, ctypes.c_int
 # (C entry, argtypes) per source in csrc/
 _ENTRIES = {
     # ax, ay, ry, rsign, s8, h8, out, n, stream
     "ed25519_verify": ("tm_ed25519_verify", [_vp] * 7 + [_i32, _vp]),
+    # the same arguments (B2's 253 single-bit steps)
+    "ed25519_verify_b2": ("tm_ed25519_verify_b2", [_vp] * 7 + [_i32, _vp]),
+    # px, py, qx, qy, a8, b8, x8, y8, n, stream
+    "ed25519_dsm": ("tm_ed25519_dsm", [_vp] * 8 + [_i32, _vp]),
 }
 
 

@@ -4,6 +4,7 @@ types/block.go:222-349). Block and Header come with a later slice."""
 from __future__ import annotations
 
 from tendermint_tpu_torch.codec import jsonval as jv
+from tendermint_tpu_torch.codec.binary import Decoder, Encoder
 from tendermint_tpu_torch.merkle.simple import leaf_hash, simple_hash_from_hashes
 from tendermint_tpu_torch.types.block_id import BlockID
 from tendermint_tpu_torch.types.vote import VOTE_TYPE_PRECOMMIT, Vote
@@ -61,6 +62,34 @@ class Commit:
             ]
             self._hash = simple_hash_from_hashes(leaves)
         return self._hash
+
+    def encode(self, e: Encoder) -> None:
+        self.block_id.encode(e)
+
+        def write_precommit(enc: Encoder, p: Vote | None):
+            if p is None:
+                enc.write_u8(0)
+            else:
+                enc.write_u8(1)
+                p.encode(enc)
+
+        e.write_list(self.precommits, write_precommit)
+
+    def to_bytes(self) -> bytes:
+        e = Encoder()
+        self.encode(e)
+        return e.buf()
+
+    @classmethod
+    def decode(cls, d: Decoder) -> "Commit":
+        bid = BlockID.decode(d)
+
+        def read_precommit(dec: Decoder) -> Vote | None:
+            if dec.read_u8() == 0:
+                return None
+            return Vote.decode(dec)
+
+        return cls(bid, d.read_list(read_precommit))
 
     def to_json(self):
         return {

@@ -6,7 +6,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 from tendermint_tpu_torch.codec import jsonval as jv
-from tendermint_tpu_torch.codec.binary import Encoder
+from tendermint_tpu_torch.codec.binary import Decoder, Encoder
 
 
 @dataclass(frozen=True)
@@ -24,6 +24,12 @@ class PartSetHeader:
     def encode(self, e: Encoder) -> None:
         e.write_varint(self.total)
         e.write_bytes(self.hash)
+
+    @classmethod
+    def decode(cls, d: Decoder) -> "PartSetHeader":
+        total = d.read_varint()
+        h = d.read_bytes()
+        return cls(total, h)
 
     def to_json(self):
         return {"total": self.total, "hash": self.hash.hex().upper()}
@@ -57,6 +63,12 @@ class BlockID:
     def encode(self, e: Encoder) -> None:
         e.write_bytes(self.hash)
         self.parts_header.encode(e)
+
+    @classmethod
+    def decode(cls, d: Decoder) -> "BlockID":
+        h = d.read_bytes()
+        psh = PartSetHeader.decode(d)
+        return cls(h, psh)
 
     def to_json(self):
         return {"hash": self.hash.hex().upper(), "parts": self.parts_header.to_json()}

@@ -6,16 +6,13 @@ verifies, types/validator_set.go:220-264; called per block at
 state/execution.go:198 and per fast-sync block at
 blockchain/reactor.go:235). It takes a pluggable batch verifier so a whole
 commit's signatures go to the device kernel in one batch, with the exact
-accept/reject semantics of the sequential loop.
-
-Aggregate commits (the JAX package's AggregateCommit branch) are not
-ported yet: a commit that is not a `Commit` raises NotImplementedError.
+accept/reject semantics of the sequential loop. An AggregateCommit takes
+the aggregate branch instead: one multi-term check through the gateway.
 """
 
 from __future__ import annotations
 
 from tendermint_tpu_torch.merkle.simple import simple_hash_from_hashes
-from tendermint_tpu_torch.types.block import Commit
 from tendermint_tpu_torch.types.block_id import BlockID
 from tendermint_tpu_torch.types.validator import Validator
 from tendermint_tpu_torch.types.vote import VOTE_TYPE_PRECOMMIT
@@ -23,14 +20,6 @@ from tendermint_tpu_torch.types.vote import VOTE_TYPE_PRECOMMIT
 
 class CommitError(Exception):
     pass
-
-
-def _require_plain_commit(commit) -> None:
-    if not isinstance(commit, Commit):
-        raise NotImplementedError(
-            f"only plain Commits are verified by tendermint_tpu_torch so far; "
-            f"got {type(commit).__name__} (aggregate commits are not ported yet)"
-        )
 
 
 class ValidatorSet:
@@ -107,8 +96,14 @@ class ValidatorSet:
         batch_verifier: callable(list[(pubkey32, msg, sig64)]) -> list[bool].
         When given, all structural checks run first, then every signature in
         the commit is verified in ONE batch; per-signature results feed the
-        same accept/reject logic the sequential loop has."""
-        _require_plain_commit(commit)
+        same accept/reject logic the sequential loop has.
+
+        Polymorphic over the commit format: an AggregateCommit takes the
+        aggregate branch (one multi-term check, batched through the
+        gateway), so every caller spans the upgrade boundary without
+        knowing it."""
+        if self._try_verify_aggregate(chain_id, block_id, height, commit):
+            return
         items = self._commit_structural_check(chain_id, height, commit)
         if batch_verifier is not None:
             oks = batch_verifier(
@@ -131,7 +126,11 @@ class ValidatorSet:
 
         async_batch_verifier: callable(items) -> resolver() -> list[bool]
         (ops.gateway.Verifier.verify_batch_async)."""
-        _require_plain_commit(commit)
+        if self._aggregate_precheck(chain_id, block_id, height, commit):
+            def finish_agg() -> None:
+                self._try_verify_aggregate(chain_id, block_id, height, commit)
+
+            return finish_agg
         items = self._commit_structural_check(chain_id, height, commit)
         resolve = async_batch_verifier(
             [(val.pub_key.raw, sb, sig.raw) for _, _, val, sb, sig in items]
@@ -150,15 +149,22 @@ class ValidatorSet:
         verify_commit would for its block."""
         spans, all_items = [], []
         for block_id, height, commit in entries:
-            _require_plain_commit(commit)
             try:
+                if self._aggregate_precheck(chain_id, block_id, height, commit):
+                    # aggregate entries carry no per-vote lanes for the
+                    # group batch; each runs its own multi-term check (one
+                    # verify_aggregate call, one dsm launch) at consume time
+                    spans.append((block_id, None, 0, 0, (height, commit)))
+                    continue
                 items = self._commit_structural_check(chain_id, height, commit)
             except CommitError as exc:
                 # a structurally bad commit must not poison its group: its
                 # finisher re-raises at consume time
-                spans.append((block_id, exc, 0, 0))
+                spans.append((block_id, exc, 0, 0, None))
                 continue
-            spans.append((block_id, items, len(all_items), len(all_items) + len(items)))
+            spans.append(
+                (block_id, items, len(all_items), len(all_items) + len(items), None)
+            )
             all_items.extend(
                 (val.pub_key.raw, sb, sig.raw) for _, _, val, sb, sig in items
             )
@@ -170,15 +176,49 @@ class ValidatorSet:
                 memo["oks"] = resolve()
             return memo["oks"]
 
-        def make_finish(block_id, items, lo, hi):
+        def make_finish(block_id, items, lo, hi, aggregate):
             def finish() -> None:
                 if isinstance(items, CommitError):
                     raise items
+                if aggregate is not None:
+                    self._try_verify_aggregate(chain_id, block_id, *aggregate)
+                    return
                 self._commit_tally(block_id, items, resolved()[lo:hi])
 
             return finish
 
         return [make_finish(*span) for span in spans]
+
+    # -- aggregate-commit branch (docs/upgrade.md cutover) -----------------
+
+    def _aggregate_precheck(self, chain_id: str, block_id: BlockID,
+                            height: int, commit) -> bool:
+        """True iff `commit` is an AggregateCommit; raises CommitError on
+        the cheap structural mismatches so async callers fail fast."""
+        from tendermint_tpu_torch.types.agg_commit import AggregateCommit
+
+        if not isinstance(commit, AggregateCommit):
+            return False
+        if height != commit.height():
+            raise CommitError(f"wrong height: {height} vs {commit.height()}")
+        if block_id != commit.block_id:
+            raise CommitError(
+                f"aggregate commit is for a different block: "
+                f"{commit.block_id!r} vs {block_id!r}"
+            )
+        err = commit.validate_basic()
+        if err:
+            raise CommitError(err)
+        return True
+
+    def _try_verify_aggregate(self, chain_id: str, block_id: BlockID,
+                              height: int, commit) -> bool:
+        """Full aggregate verify (structural + quorum + multi-term
+        crypto); returns False when `commit` is a plain Commit."""
+        if not self._aggregate_precheck(chain_id, block_id, height, commit):
+            return False
+        commit.verify(chain_id, self)
+        return True
 
     def _commit_structural_check(self, chain_id: str, height: int, commit):
         """Everything verify_commit checks before signatures; returns the

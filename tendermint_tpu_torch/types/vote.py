@@ -10,9 +10,14 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 
 from tendermint_tpu_torch.codec import jsonval as jv
-from tendermint_tpu_torch.codec.binary import Encoder
+from tendermint_tpu_torch.codec.binary import Decoder, Encoder
 from tendermint_tpu_torch.codec.canonical import canonical_dumps
-from tendermint_tpu_torch.crypto.keys import SignatureEd25519, signature_from_json
+from tendermint_tpu_torch.crypto.keys import (
+    TYPE_SECP256K1,
+    SignatureEd25519,
+    _secp256k1_not_ported,
+    signature_from_json,
+)
 from tendermint_tpu_torch.types.block_id import BlockID
 
 VOTE_TYPE_PREVOTE = 0x01
@@ -61,6 +66,24 @@ class Vote:
         e = Encoder()
         self.encode(e)
         return e.buf()
+
+    @classmethod
+    def decode(cls, d: Decoder) -> "Vote":
+        addr = d.read_bytes()
+        idx = d.read_varint()
+        height = d.read_varint()
+        rnd = d.read_varint()
+        typ = d.read_u8()
+        bid = BlockID.decode(d)
+        sig_type = d.read_u8()
+        sig = None
+        if sig_type == SignatureEd25519.TYPE:
+            sig = SignatureEd25519(d.read_raw(64))
+        elif sig_type == TYPE_SECP256K1:
+            raise _secp256k1_not_ported()
+        elif sig_type != 0:
+            raise ValueError(f"unknown signature type {sig_type}")
+        return cls(addr, idx, height, rnd, typ, bid, sig)
 
     def to_json(self):
         return {

@@ -197,7 +197,13 @@ def test_structurally_bad_commit_in_group_raises_at_its_finisher(jax_set):
 
 
 def test_non_commit_is_refused_clearly(jax_set):
+    """Neither a Commit nor an AggregateCommit (aggregates are verified
+    now; tests/test_torch_agg_commit.py): refused with the error type the
+    JAX package raises."""
     jvs, _ = jax_set
     tvs = ValidatorSet.from_json(jvs.to_json())
-    with pytest.raises(NotImplementedError, match="aggregate"):
+    with pytest.raises(AttributeError) as mine:
         tvs.verify_commit(CHAIN, BlockID(), 1, object())
+    with pytest.raises(AttributeError) as theirs:
+        jvs.verify_commit(CHAIN, JBlockID(), 1, object())
+    assert str(mine.value) == str(theirs.value)
