@@ -46,6 +46,29 @@ Phases, in order; any failure raises and exits non-zero:
 9. Times: B2 and dsm against their bounds, their plain versions, the
    aggregate verify split into host and device stages, and the B2 path's
    commit wall times.
+10. B1' (`ed25519_f32p.ShardedVerify`: B1 launched once per shard,
+   each shard on its own device and stream) on two meshes, every visible
+   card and 4 shards over cuda:0: on the 4099-lane quorum batch of
+   `multichip.quorum_batch` and on every lane set of phase 2 (the 4096
+   mixed lanes, the 100- and 10,000-validator commits and the 4 x 1000
+   group, which give phase 11's shard geometries), its verdicts equal
+   the unsharded kernel's and `verify_plain`'s lane for lane, the forged
+   lanes are exactly (0, 1777, 4096, 4098), and the layout has one entry
+   per shard with equal lanes. Then `multichip.dryrun_multichip` over
+   every visible card.
+11. The sharded main path: a `ShardedVerifier` on 4 shards over cuda:0
+   verifies the 10,000-validator commit, the 4 x 1000 fast-sync group,
+   the refused forged and sub-quorum commits, a primed 100-validator batch
+   (`prime_cache_async` / `verify_one`) and a 100-validator commit whose
+   set mixes 96 ed25519 and 4 secp256k1 keys, made with the port's
+   `VoteSet`. B1 launches 4 times a device batch, B2 and dsm never, and
+   exactly the secp256k1 lanes run on the CPU.
+12. Times: the mesh's own window on the card (one start event, every
+   shard stream waiting on it, the current stream waiting on every
+   shard's end) at 4096 and 16,384 lanes on 1 and on 4 shards over
+   cuda:0, the host's time to issue one launch, the 10,000-validator
+   commit through `Verifier` and through `ShardedVerifier` on 1 and 4
+   shards, and the sharded dispatch of its lanes stage by stage.
 
 Each path's launch counts are set to 0 just before it and read just after.
 The last lines are the kernels' JSON summary, the card line, and
@@ -84,7 +107,11 @@ REPLACES = {
     "ed25519_verify": "tendermint_tpu/ops/ed25519_f32p.py:301",
     "ed25519_verify_b2": "tendermint_tpu/ops/ed25519_pallas.py:186",
     "ed25519_dsm": "tendermint_tpu/ops/ed25519.py:542",
+    # B1' is B1's kernel launched per shard: its pallas_call under shard_map
+    "ed25519_verify_sharded": "tendermint_tpu/ops/ed25519_f32p.py:468",
 }
+SHARDS = 4  # B1' on one card: 4 shards over cuda:0
+MIXED_SECP = 4  # secp256k1 validators of the 100-validator mixed commit
 
 
 def log(obj) -> None:
@@ -286,6 +313,7 @@ def main() -> int:
         "commit_large": recorded_items(vs10k, 1, bid10k, c10k),
     }
     max_err = 0
+    whole = {}  # per shape, B1's and the plain version's lanes, for phase 10
     for label, items in shapes.items():
         args, valid, n = f32p.marshal_device_args(items, DEVICE)
         t0 = time.perf_counter()
@@ -295,6 +323,7 @@ def main() -> int:
         torch.cuda.synchronize()
         err = int((got - want).abs().max().item())
         max_err = max(max_err, err)
+        whole[label] = {"b1": got.cpu(), "plain": want.cpu()}
         verdicts = f32p.materialize_verdicts(got.cpu(), valid, n)
         log({"phase": "kernel_vs_plain", "shape": label, "lanes": n, "accepted": int(verdicts.sum()),
              "max_abs_err": err, "seconds": time.perf_counter() - t0})
@@ -414,6 +443,12 @@ def main() -> int:
     b2_ms, b2_plain_ms, dsm_ms, dsm_plain_ms = time_b2_and_dsm(
         name, power, mixed, dsm_terms, commits, b2_runs, b2_wall)
 
+    # -- phases 10 to 12: B1' and the sharded main path ------------------------
+    sharded_err = check_sharded(shapes, whole)
+    mixed_commit = make_mixed_commit(validators[: n_small - MIXED_SECP], seed_of, rng)
+    sharded_launches = sharded_main_path(commits, forged, sub_quorum, mixed_commit)
+    sharded_ms = time_sharded(name, power, mixed, commits)
+
     entries = []
     for kname, module, launches, err, ms, p_ms, lanes in (
             ("ed25519_verify", f32p, main_launches, max_err, kernel_ms[MIXED_LANES], plain_ms,
@@ -427,6 +462,16 @@ def main() -> int:
             "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "lanes": lanes,
         })
+    # B1' on one card: the work of B1 over the same lanes, split 4 ways;
+    # its plain version is verify_plain over those lanes (phase 4's time)
+    b_ms, b_by = bound_ms(f32p, MIXED_LANES)
+    entries.append({
+        "name": "ed25519_verify_sharded", "route": "cuda", "source": f"{CSRC}ed25519_verify.cu",
+        "replaces": REPLACES["ed25519_verify_sharded"], "launches": sharded_launches,
+        "max_abs_err": sharded_err, "ms": sharded_ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms / len(set(shard_meshes()["one_card"])), "bound_by": b_by, "library_ms": None,
+        "lanes": MIXED_LANES, "shards": SHARDS,
+    })
     log({"kernels": entries})
     log(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -756,6 +801,232 @@ def time_b2_and_dsm(name, power, mixed, dsm_terms, commits, b2_runs, b2_wall):
         log({"phase": "b2_commit_time", **tag, "commit": label, "first_s": b2_wall[label],
              "warm_best_of_3_s": min(timed(fn) for _ in range(3))})
     return b2_ms[MIXED_LANES], b2_plain_ms, dsm_ms[DSM_LANES], dsm_plain_ms
+
+
+def shard_meshes() -> dict[str, list[str]]:
+    """B1''s meshes: every visible card, and SHARDS shards over one."""
+    import torch
+
+    return {"cards": [f"cuda:{i}" for i in range(torch.cuda.device_count())],
+            "one_card": ["cuda:0"] * SHARDS}
+
+
+def check_sharded(shapes, whole) -> int:
+    """Phase 10: B1' against the unsharded kernel and verify_plain, lane
+    for lane, over both meshes, on the quorum batch and on every shape of
+    phase 2 (whose B1 and plain lanes `whole` holds), so every shard
+    geometry of phase 11 is compared; then dryrun_multichip over every
+    card. Returns the largest difference."""
+    import torch
+
+    from tendermint_tpu_torch import multichip
+    from tendermint_tpu_torch.ops import ed25519_f32 as f32
+    from tendermint_tpu_torch.ops import ed25519_f32p as f32p
+
+    quorum, forged_at = multichip.quorum_batch()
+    args, _, _ = f32p.marshal_device_args(quorum, DEVICE)
+    whole = {"quorum": {"b1": f32p.verify_lanes(*args).cpu(),
+                        "plain": f32.verify_plain(args[0].float(), args[1].float(), args[2].float(),
+                                                  args[3], args[4].int(), args[5].int())
+                        .to(torch.int32).cpu()},
+             **whole}
+    meshes = {mname: f32p.ShardedVerify(mesh) for mname, mesh in shard_meshes().items()}
+    max_err = 0
+    for label, items in (("quorum", quorum), *shapes.items()):
+        n = len(items)
+        for mname, mesh in shard_meshes().items():
+            t0 = time.perf_counter()
+            res, valid_s, _ = f32p.sharded_verify_arrays(items, meshes[mname])
+            got = res.wait()[:n].clone()
+            errs = {k: int((got - w).abs().max().item()) for k, w in whole[label].items()}
+            max_err = max(max_err, *errs.values())
+            verdicts = f32p.materialize_verdicts(got, valid_s, n)
+            lanes = {sz for _, sz in res.shards}
+            log({"phase": "sharded_vs_b1_and_plain", "inputs": label, "mesh": mname,
+                 "lanes": n, "layout": res.shards, "accepted": int(verdicts.sum()),
+                 "max_abs_err": errs, "seconds": time.perf_counter() - t0})
+            for k, w in whole[label].items():
+                if errs[k] != 0:
+                    bad = torch.nonzero(got != w).flatten()[:10].tolist()
+                    raise AssertionError(f"{label} on {mname}: B1' disagrees with {k} at lanes {bad}")
+            if [d for d, _ in res.shards] != mesh or len(lanes) != 1:
+                raise AssertionError(f"{label} on {mname}: layout {res.shards}")
+            rejected = tuple(int(i) for i in np.flatnonzero(~verdicts))
+            if label == "quorum" and rejected != forged_at:
+                raise AssertionError(f"quorum on {mname}: rejected {rejected[:10]}")
+            if label not in ("quorum", "mixed") and rejected:
+                raise AssertionError(f"{label} on {mname}: valid lanes rejected at {rejected[:10]}")
+    multichip.dryrun_multichip(torch.cuda.device_count())
+    return max_err
+
+
+def make_mixed_commit(ed_validators, seed_of, rng):
+    """A 100-validator commit whose set mixes len(ed_validators) ed25519
+    keys with MIXED_SECP secp256k1 keys from the seed, made through the
+    port's VoteSet. Returns (set, block id, commit)."""
+    from tendermint_tpu_torch.crypto import ed25519 as ed
+    from tendermint_tpu_torch.crypto.keys import SignatureEd25519, gen_priv_key_secp256k1
+    from tendermint_tpu_torch.types.block_id import BlockID, PartSetHeader
+    from tendermint_tpu_torch.types.validator import Validator
+    from tendermint_tpu_torch.types.validator_set import ValidatorSet
+    from tendermint_tpu_torch.types.vote import VOTE_TYPE_PRECOMMIT, Vote
+    from tendermint_tpu_torch.types.vote_set import VoteSet
+
+    secp = [gen_priv_key_secp256k1(rng.bytes(32)) for _ in range(MIXED_SECP)]
+    vs = ValidatorSet(list(ed_validators) + [Validator.new(k.pub_key(), 10) for k in secp])
+    secp_of = {k.pub_key().address(): k for k in secp}
+    bid = BlockID(hashlib.sha256(b"mixed").digest()[:20],
+                  PartSetHeader(1, hashlib.sha256(b"mixed-parts").digest()[:20]))
+    votes = VoteSet(CHAIN_ID, 1, 0, VOTE_TYPE_PRECOMMIT, vs)
+    for idx, v in enumerate(vs.validators):
+        vote = Vote(v.address, idx, 1, 0, VOTE_TYPE_PRECOMMIT, bid)
+        sb = vote.sign_bytes(CHAIN_ID)
+        sig = (secp_of[v.address].sign(sb) if v.address in secp_of
+               else SignatureEd25519(ed.sign(seed_of[v.address], sb)))
+        if not votes.add_vote(vote.with_signature(sig)):
+            raise AssertionError(f"mixed commit: vote {idx} was not added")
+    return vs, bid, votes.make_commit()
+
+
+def sharded_main_path(commits, forged, sub_quorum, mixed_commit) -> int:
+    """Phase 11: the main path through a ShardedVerifier on SHARDS shards
+    over cuda:0. Returns the B1 launches of the run."""
+    from tendermint_tpu_torch.ops import ed25519 as ed32
+    from tendermint_tpu_torch.ops import ed25519_f32p as f32p
+    from tendermint_tpu_torch.ops import ed25519_pallas as b2
+    from tendermint_tpu_torch.ops.gateway import ShardedVerifier
+
+    v = ShardedVerifier(shard_meshes()["one_card"])
+    vs100, bid100, c100 = commits["commit_small"]
+    vs1000, group = commits["fast_sync_group"]
+    vs10k, bid10k, c10k = commits["commit_large"]
+    vs_mix, bid_mix, c_mix = mixed_commit
+    primed = recorded_items(vs100, 1, bid100, c100)
+    f32p.launches = b2.launches = ed32.launches = 0
+    wall = {}
+    wall["commit_large"] = timed(lambda: vs10k.verify_commit(
+        CHAIN_ID, bid10k, 1, c10k, batch_verifier=v.commit_batch_verifier()))
+    wall["fast_sync_group"] = timed(lambda: [f() for f in vs1000.verify_commits_async(
+        CHAIN_ID, [(bid, h, c) for bid, c, h in group], v.verify_batch_async)])
+    refusals = {}
+    for label, commit, want in (("forged", forged, "invalid signature"),
+                                ("sub_quorum", sub_quorum, "insufficient voting power")):
+        refusals[label] = expect_refusal(label, lambda: vs100.verify_commit(
+            CHAIN_ID, bid100, 1, commit, batch_verifier=v.commit_batch_verifier()), want)
+    v.prime_cache_async(primed)
+    if not all(v.verify_one(*it) for it in primed):
+        raise AssertionError("a primed valid signature was rejected")
+    wall["commit_mixed"] = timed(lambda: vs_mix.verify_commit(
+        CHAIN_ID, bid_mix, 1, c_mix, batch_verifier=v.commit_batch_verifier()))
+    launches = {"b1": f32p.launches, "b2": b2.launches, "dsm": ed32.launches}
+    stats = v.stats()
+    log({"phase": "sharded_main_path", "mesh": [str(d) for d in v.mesh], "launches": launches,
+         "stats": stats, "layout": v.last_shard_layout, "wall_s": wall, "refused": refusals})
+    if launches != {"b1": SHARDS * 6, "b2": 0, "dsm": 0} or stats["tpu_batches"] != 6:
+        raise AssertionError(f"expected 6 sharded batches of {SHARDS} B1 launches and no other "
+                             f"launch: {launches}, {stats}")
+    if stats["cpu_sigs"] != MIXED_SECP:
+        raise AssertionError(f"expected exactly the {MIXED_SECP} secp256k1 lanes on the CPU: {stats}")
+    if len(v.last_shard_layout) != SHARDS or len({sz for _, sz in v.last_shard_layout}) != 1:
+        raise AssertionError(f"layout {v.last_shard_layout}")
+    return launches["b1"]
+
+
+def mesh_window_ms(sharded, shard_args, reps: int = 7, warmup: int = 2) -> float:
+    """Median device time of one launch per shard, in a single window: a
+    start event on the current stream, every shard stream waiting on it,
+    the current stream waiting on every shard's end event, then the stop
+    event."""
+    import torch
+
+    from tendermint_tpu_torch.ops import ed25519_f32p as f32p
+
+    def window() -> float:
+        cur = torch.cuda.current_stream()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(cur)
+        for dev, stream, args in zip(sharded.devices, sharded.streams, shard_args):
+            stream.wait_event(start)
+            with torch.cuda.device(dev), torch.cuda.stream(stream):
+                f32p.verify_lanes(*args)
+                end = torch.cuda.Event()
+                end.record(stream)
+            cur.wait_event(end)
+        stop.record(cur)
+        stop.synchronize()
+        return start.elapsed_time(stop)
+
+    for _ in range(warmup):
+        window()
+    return statistics.median(window() for _ in range(reps))
+
+
+def time_sharded(name, power, mixed, commits) -> float:
+    """Phase 12: B1' on 1 and SHARDS shards over cuda:0 at 4096 and
+    16,384 lanes, the host's time to issue one launch, the
+    10,000-validator commit through Verifier and through ShardedVerifier
+    on 1 and SHARDS shards, and the sharded dispatch of its lanes by
+    stage. Returns the SHARDS-shard time at MIXED_LANES."""
+    import torch
+
+    from tendermint_tpu_torch.ops import ed25519_f32p as f32p
+    from tendermint_tpu_torch.ops.gateway import ShardedVerifier, Verifier
+
+    tag = {"card": name, "power_limit": power}
+    window = {}
+    for lanes in (MIXED_LANES, TIME_LANES[-1]):
+        planes, rs, _ = f32p.host_planes((mixed * (lanes // len(mixed) + 1))[:lanes], lanes)
+        b_ms, b_by = bound_ms(f32p, lanes)
+        for shards in (1, SHARDS):
+            sharded = f32p.ShardedVerify(shard_meshes()["one_card"][:1] * shards)
+            per = lanes // shards
+            shard_args = [f32p.device_args(np.ascontiguousarray(planes[..., k * per:(k + 1) * per]),
+                                           np.ascontiguousarray(rs[k * per:(k + 1) * per]),
+                                           sharded.devices[k]) for k in range(shards)]
+            window[lanes, shards] = mesh_window_ms(sharded, shard_args)
+            log({"phase": "sharded_time", **tag, "lanes": lanes, "shards": shards,
+                 "ms": window[lanes, shards], "sigs_per_s": lanes / window[lanes, shards] * 1e3,
+                 "bound_ms": b_ms, "bound_by": b_by})
+    torch.cuda.synchronize()
+    # the host's cost of issuing one launch, which staggers the shards'
+    # start inside the window
+    args, _, _ = f32p.marshal_device_args(mixed, DEVICE)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        f32p.verify_lanes(*args)
+    issue_s = (time.perf_counter() - t0) / 20
+    torch.cuda.synchronize()
+    log({"phase": "launch_issue_time", **tag, "lanes": MIXED_LANES, "host_us_per_launch": issue_s * 1e6})
+
+    vs10k, bid10k, c10k = commits["commit_large"]
+    verifiers = {"verifier_b1": Verifier(device=DEVICE),
+                 "sharded_verifier_1": ShardedVerifier(shard_meshes()["one_card"][:1]),
+                 f"sharded_verifier_{SHARDS}": ShardedVerifier(shard_meshes()["one_card"])}
+    best = {label: [] for label in verifiers}
+    for _ in range(4):
+        for label, ver in verifiers.items():
+            best[label].append(timed(lambda: vs10k.verify_commit(
+                CHAIN_ID, bid10k, 1, c10k, batch_verifier=ver.commit_batch_verifier())))
+    log({"phase": "sharded_commit_time", **tag, "validators": vs10k.size(),
+         "warm_best_of_4_s": {label: min(t) for label, t in best.items()}})
+
+    # where the sharded dispatch of that commit's lanes goes, stage by stage
+    large = recorded_items(vs10k, 1, bid10k, c10k)
+    sharded = f32p.ShardedVerify(shard_meshes()["one_card"])
+    bucket = -(-len(large) // f32p.lane_quantum(SHARDS)) * f32p.lane_quantum(SHARDS)
+    planes, rs, _ = f32p.host_planes(large, bucket)
+    stages = {"host_planes_s": [], "dispatch_s": [], "wait_s": []}
+    for _ in range(3):
+        stages["host_planes_s"].append(timed(lambda: f32p.host_planes(large, bucket)))
+        t0 = time.perf_counter()
+        res = sharded.dispatch(planes, rs)
+        stages["dispatch_s"].append(time.perf_counter() - t0)
+        stages["wait_s"].append(timed(res.wait))
+    log({"phase": "sharded_dispatch_breakdown", **tag, "lanes": len(large), "bucket": bucket,
+         "shards": SHARDS, **{k: min(t) for k, t in stages.items()},
+         "b1_marshal_and_copy_s": min(timed(lambda: f32p.marshal_device_args(large, DEVICE))
+                                      for _ in range(3))})
+    return window[MIXED_LANES, SHARDS]
 
 
 if __name__ == "__main__":

@@ -16,6 +16,9 @@ a hand-written CUDA Ed25519 kernel: the 2-bit ladder B1 (`ops.ed25519_f32p`,
 (`types.agg_commit.AggregateCommit`) verifies as one half-aggregate
 equation whose n + 1 dual scalar multiplications run in a third CUDA kernel
 (`ops.ed25519.dsm_batch`, `ops/csrc/ed25519_dsm.cu`).
+`ops.gateway.ShardedVerifier` splits a batch over a mesh of devices, B1
+launched once per shard (`multichip.dryrun_multichip` drives it).
+secp256k1 validator keys (`crypto.secp256k1`) verify on the CPU.
 
 Entry points run on the card unless the caller passes `device="cpu"`;
 there each kernel's plain PyTorch version runs instead. A missing card is

@@ -1,2 +1,2 @@
-"""Host crypto: Ed25519 keys, signatures and the hashes behind addresses
-and Merkle roots."""
+"""Host crypto: Ed25519 and secp256k1 keys and signatures, and the hashes
+behind addresses and Merkle roots."""

@@ -4,7 +4,8 @@ versions, and the gateway the commit path talks to.
 - `ed25519_f32`: the host marshal and `verify_plain`, the plain PyTorch
   version of the B1 verify ladder.
 - `ed25519_f32p`: the wrapper of the hand-written CUDA ladder B1
-  (`csrc/ed25519_verify.cu`).
+  (`csrc/ed25519_verify.cu`), and B1′, the same kernel launched once per
+  shard over a mesh of devices (`ShardedVerify`).
 - `ed25519`: the int32 radix-2^15 family: limb codecs, field and point
   ops, and `dsm_batch`, the wrapper of the dual-scalar-multiplication
   kernel (`csrc/ed25519_dsm.cu`) with its plain version `dsm_plain`.
@@ -12,7 +13,8 @@ versions, and the gateway the commit path talks to.
   (`csrc/ed25519_verify_b2.cu`) with its plain version `verify_plain`.
 - `kernels`: builds the `csrc/` sources with nvcc and binds them.
 - `gateway`: `Verifier`, the batching gateway with its size gate, its
-  kernel registry and the aggregate-commit verify.
+  kernel registry and the aggregate-commit verify, and `ShardedVerifier`,
+  which runs its device batches through B1′.
 """
 
 from __future__ import annotations

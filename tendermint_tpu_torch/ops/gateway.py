@@ -14,6 +14,10 @@ identical accept/reject semantics:
   registry `KERNELS` by the JAX package's env knob TENDERMINT_TPU_KERNEL,
   read once per Verifier: `f32p` (B1, the default) or `pallas` (B2).
 
+`ShardedVerifier` splits each device batch over a mesh of devices, one
+launch of B1 per shard on its own device and stream (B1', the
+counterpart of the JAX package's shard_map over the f32p ladder).
+
 Aggregate commits verify as one half-aggregate equation
 (`verify_aggregate`): its n + 1 dual scalar multiplications run in the
 dsm kernel (`ops.ed25519.dsm_batch`) at or above the same size gate, and
@@ -37,18 +41,25 @@ import time
 from tendermint_tpu_torch import native
 from tendermint_tpu_torch.crypto import ed25519_agg
 from tendermint_tpu_torch.crypto.keys import verify_any
-from tendermint_tpu_torch.ops import ed25519, resolve_device
+from tendermint_tpu_torch.ops import ed25519, ed25519_f32p, resolve_device
 
 logger = logging.getLogger("tendermint_tpu_torch.ops.gateway")
 
 Item = tuple[bytes, bytes, bytes]  # (pubkey, message, signature)
 
 
+def _ed25519_lane(it: Item) -> bool:
+    """An item the ed25519 kernels take: a 32-byte key and a 64-byte
+    signature (a secp256k1 key has 33 bytes; anything else is malformed
+    and verifies as False on the CPU)."""
+    return len(it[0]) == 32 and len(it[2]) == 64
+
+
 def _cpu_verify_batch(items: list[Item]) -> list[bool]:
     """CPU path: wide all-ed25519 batches ride the native C++ batch
     verifier (one ctypes call, strict RFC 8032 semantics identical to
     crypto.ed25519.verify); everything else verifies per item."""
-    if len(items) >= 16 and all(len(it[0]) == 32 and len(it[2]) == 64 for it in items):
+    if len(items) >= 16 and all(_ed25519_lane(it) for it in items):
         # ready(), not available(): a batch never waits behind a C++ build
         if native.ready():
             return native.ed25519_verify_batch(items)
@@ -60,7 +71,7 @@ def _split_by_key_type(items: list[Item]):
     The kernel is ed25519-only; anything else verifies on the CPU."""
     ed_items, ed_pos, other_items, other_pos = [], [], [], []
     for i, it in enumerate(items):
-        if len(it[0]) == 32 and len(it[2]) == 64:
+        if _ed25519_lane(it):
             ed_items.append(it)
             ed_pos.append(i)
         else:
@@ -80,13 +91,15 @@ KERNELS = {
 _NOT_PORTED = ("comb", "devd", "f32", "int32")
 
 
-def kernel_name() -> str:
+def kernel_name(accepted=None, refusal=None) -> str:
     """Validated TENDERMINT_TPU_KERNEL; empty means "f32p". Raises on a
     name the port lacks, so a typo or a JAX-only choice fails at startup
-    instead of running another kernel."""
-    name = os.environ.get("TENDERMINT_TPU_KERNEL", "")
-    if not name:
-        return "f32p"
+    instead of running another kernel. A caller that takes only some
+    names passes them as `accepted`, and `refusal(name)`, the message
+    for any other."""
+    name = os.environ.get("TENDERMINT_TPU_KERNEL", "") or "f32p"
+    if accepted is not None and name not in accepted:
+        raise ValueError(refusal(name))
     if name in _NOT_PORTED:
         raise ValueError(
             f"TENDERMINT_TPU_KERNEL={name!r} is a kernel of the JAX package "
@@ -311,6 +324,65 @@ class Verifier:
     def vote_verifier(self):
         """For VoteSet.add_vote(verifier=...)."""
         return self.verify_one
+
+
+class ShardedVerifier(Verifier):
+    """A Verifier whose device batches split over `mesh`, a sequence of
+    devices (see ed25519_f32p.ShardedVerify): each shard runs B1 on its
+    own device and stream, and the verdicts gather into one pinned host
+    buffer. A 10,000-validator commit's lanes split over n cards.
+
+    As in the JAX package: batches below `min_tpu_batch` run on the CPU,
+    and a batch with secp256k1 (or malformed) lanes goes through the base
+    class's key-type split, whose ed25519 lanes come back here while the
+    rest verify on the CPU. Unlike the JAX package there is no
+    f32p -> f32 -> CPU ratchet: a failed build, launch, copy or event
+    raises out of verify_batch and out of the resolver, no stat moves,
+    and nothing is latched. A dispatch counts in `tpu_batches` and
+    `tpu_sigs` once its verdicts are back."""
+
+    @staticmethod
+    def _refusal(name: str) -> str:
+        detail = (
+            "the sharded f32 backend (B3 under pjit) is not ported"
+            if name == "f32"
+            else "run a bake-off backend through the base Verifier"
+        )
+        return f"ShardedVerifier shards the f32/f32p kernels; TENDERMINT_TPU_KERNEL={name!r} — {detail}"
+
+    def __init__(self, mesh, min_tpu_batch: int | None = None):
+        # before the base reads the knob: the base refuses the JAX-only
+        # names as "not ported", and the sharded path has its own refusal
+        kernel_name(accepted=("f32p",), refusal=self._refusal)
+        sharded = ed25519_f32p.ShardedVerify(mesh)
+        # the base's own device (aggregate verifies) is the mesh's first
+        super().__init__(min_tpu_batch=min_tpu_batch, device=sharded.devices[0])
+        self.mesh = list(mesh)
+        self._sharded = sharded
+        # (device, lanes) per shard of the latest sharded dispatch; None
+        # until one runs
+        self.last_shard_layout: list[tuple[str, int]] | None = None
+
+    def verify_batch_async(self, items: list[Item]):
+        """Dispatch the shards now; the resolver waits on every shard's
+        event, then masks the verdicts once."""
+        n = len(items)
+        if n == 0 or n < self.min_tpu_batch or not all(_ed25519_lane(it) for it in items):
+            # the CPU floor, or the key-type split, which re-enters here
+            # with the ed25519 lanes; never the base's unsharded kernel
+            return super().verify_batch_async(items)
+        res, valid, _ = ed25519_f32p.sharded_verify_arrays(items, self._sharded)
+        self.last_shard_layout = list(res.shards)
+        memo: list = []
+
+        def resolve() -> list[bool]:
+            if not memo:
+                oks = ed25519_f32p.materialize_verdicts(res.wait(), valid, n)
+                self._device_batch(n)
+                memo.append([bool(b) for b in oks])
+            return memo[0]
+
+        return resolve
 
 
 # -- the process-wide verifier -----------------------------------------------

@@ -1,3 +1,3 @@
 """The types a commit verification needs: BlockID, Vote, Validator, Commit,
-AggregateCommit and ValidatorSet. Block, Header, PartSet and VoteSet come
+AggregateCommit, ValidatorSet and VoteSet. Block, Header and PartSet come
 with a later slice of the port."""

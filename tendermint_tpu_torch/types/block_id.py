@@ -53,6 +53,13 @@ class BlockID:
     def is_zero(self) -> bool:
         return len(self.hash) == 0 and self.parts_header.is_zero()
 
+    def key(self) -> bytes:
+        """Machine key for VoteSet's votes-by-block map
+        (types/block.go:433-435)."""
+        e = Encoder()
+        self.parts_header.encode(e)
+        return self.hash + e.buf()
+
     def canonical(self):
         """CanonicalJSONBlockID; a zero BlockID canonicalizes with hash
         omitted (omitempty, types/canonical_json.go:9-12)."""

@@ -7,18 +7,18 @@ from dataclasses import dataclass
 
 from tendermint_tpu_torch.codec.binary import Encoder
 from tendermint_tpu_torch.crypto.hashing import ripemd160
-from tendermint_tpu_torch.crypto.keys import PubKeyEd25519, pub_key_from_json
+from tendermint_tpu_torch.crypto.keys import PubKey, pub_key_from_json
 
 
 @dataclass
 class Validator:
     address: bytes
-    pub_key: PubKeyEd25519
+    pub_key: PubKey  # ed25519 or secp256k1
     voting_power: int
     accum: int = 0
 
     @classmethod
-    def new(cls, pub_key: PubKeyEd25519, voting_power: int) -> "Validator":
+    def new(cls, pub_key: PubKey, voting_power: int) -> "Validator":
         return cls(pub_key.address(), pub_key, voting_power, 0)
 
     def copy(self) -> "Validator":

@@ -12,6 +12,8 @@ the aggregate branch instead: one multi-term check through the gateway.
 
 from __future__ import annotations
 
+import bisect
+
 from tendermint_tpu_torch.merkle.simple import simple_hash_from_hashes
 from tendermint_tpu_torch.types.block_id import BlockID
 from tendermint_tpu_torch.types.validator import Validator
@@ -32,6 +34,12 @@ class ValidatorSet:
         self._hash: bytes | None = None
         if validators:
             self.increment_accum(1)
+
+    def get_by_address(self, address: bytes) -> tuple[int, Validator | None]:
+        i = bisect.bisect_left([v.address for v in self.validators], address)
+        if i < len(self.validators) and self.validators[i].address == address:
+            return i, self.validators[i].copy()
+        return 0, None
 
     def get_by_index(self, index: int) -> tuple[bytes, Validator | None]:
         if index < 0 or index >= len(self.validators):

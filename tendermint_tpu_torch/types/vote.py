@@ -13,15 +13,42 @@ from tendermint_tpu_torch.codec import jsonval as jv
 from tendermint_tpu_torch.codec.binary import Decoder, Encoder
 from tendermint_tpu_torch.codec.canonical import canonical_dumps
 from tendermint_tpu_torch.crypto.keys import (
-    TYPE_SECP256K1,
+    Signature,
     SignatureEd25519,
-    _secp256k1_not_ported,
+    SignatureSecp256k1,
     signature_from_json,
 )
 from tendermint_tpu_torch.types.block_id import BlockID
 
 VOTE_TYPE_PREVOTE = 0x01
 VOTE_TYPE_PRECOMMIT = 0x02
+
+
+class VoteError(Exception):
+    pass
+
+
+class UnexpectedStepError(VoteError):
+    pass
+
+
+class InvalidValidatorIndexError(VoteError):
+    pass
+
+
+class InvalidValidatorAddressError(VoteError):
+    pass
+
+
+class InvalidSignatureError(VoteError):
+    pass
+
+
+class ConflictingVotesError(VoteError):
+    def __init__(self, vote_a: "Vote", vote_b: "Vote"):
+        super().__init__("conflicting votes")
+        self.vote_a = vote_a
+        self.vote_b = vote_b
 
 
 @dataclass(frozen=True)
@@ -32,7 +59,7 @@ class Vote:
     round_: int
     type_: int
     block_id: BlockID
-    signature: SignatureEd25519 | None = None
+    signature: Signature | None = None
 
     def canonical(self) -> dict:
         """CanonicalJSONVote field set — excludes the signature and the
@@ -47,7 +74,7 @@ class Vote:
     def sign_bytes(self, chain_id: str) -> bytes:
         return canonical_dumps({"chain_id": chain_id, "vote": self.canonical()})
 
-    def with_signature(self, sig: SignatureEd25519) -> "Vote":
+    def with_signature(self, sig: Signature) -> "Vote":
         return replace(self, signature=sig)
 
     def encode(self, e: Encoder) -> None:
@@ -59,8 +86,11 @@ class Vote:
         self.block_id.encode(e)
         if self.signature is None:
             e.write_u8(0)
-        else:
+        elif self.signature.TYPE == SignatureEd25519.TYPE:
             e.write_raw(self.signature.bytes_())  # type byte + fixed 64-byte body
+        else:
+            e.write_u8(self.signature.TYPE)
+            e.write_bytes(self.signature.raw)  # variable DER: length-prefixed
 
     def to_bytes(self) -> bytes:
         e = Encoder()
@@ -79,11 +109,15 @@ class Vote:
         sig = None
         if sig_type == SignatureEd25519.TYPE:
             sig = SignatureEd25519(d.read_raw(64))
-        elif sig_type == TYPE_SECP256K1:
-            raise _secp256k1_not_ported()
+        elif sig_type == SignatureSecp256k1.TYPE:
+            sig = SignatureSecp256k1(d.read_bytes())
         elif sig_type != 0:
             raise ValueError(f"unknown signature type {sig_type}")
         return cls(addr, idx, height, rnd, typ, bid, sig)
+
+    @classmethod
+    def from_bytes(cls, b: bytes) -> "Vote":
+        return cls.decode(Decoder(b))
 
     def to_json(self):
         return {

@@ -211,12 +211,6 @@ def test_prime_cache_then_verify_one():
     assert v.commit_batch_verifier() == v.verify_batch
 
 
-def test_secp256k1_lanes_are_refused_not_misjudged():
-    v = Verifier(min_tpu_batch=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="secp256k1"):
-        v.verify_batch([(b"\x02" * 33, b"m", b"\x00" * 70)])
-
-
 def test_wrapper_checks_arguments():
     args, _, _ = tf32p.marshal_device_args(_odd_items(), "cpu")
     bad = (args[0].int(),) + args[1:]
