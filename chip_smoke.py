@@ -7,13 +7,18 @@ Run from the repository root with no arguments:
 Phases, in order; any failure raises and exits non-zero:
 
 1. Card and build: the card's name and power limit, the torch and CUDA
-   versions, the nvcc builds of the three kernels, all started together
-   (seconds, registers, spills).
+   versions, the nvcc builds of the three kernels and of the multiply-rate
+   probe, all started together (seconds; registers, stack frame and
+   spills per kernel). Then the bound's yardstick: the IMAD.WIDE count of
+   one field multiplication and one squaring in the SASS (cuobjdump), the
+   limb products per lane that gives for B1 and dsm, and the measured
+   rates of a saturating IMAD.WIDE and a 32-bit IMAD microkernel.
 2. Kernel vs plain version on the card: 4096 lanes mixing valid,
    tampered, malformed and repeated-key signatures, then the main path's
-   own lane counts (100, 4 x 1000, 10,000): the kernel's verdicts must
-   equal `verify_plain`'s lane for lane, and a 256-lane sample must equal
-   `crypto.ed25519.verify`.
+   own lane counts (100, 4 x 1000, 10,000), then the ragged lane counts
+   1, 7, 9, 33, 100 and 1025 (a partial last warp and block): the
+   kernel's verdicts must equal `verify_plain`'s lane for lane, and a
+   256-lane sample must equal `crypto.ed25519.verify`.
 3. Main path: commits through `ValidatorSet` and `Verifier` on the card —
    a 100-validator `verify_commit`, fast sync's grouped dispatch of four
    1000-validator commits (`verify_commits_async`), one 10,000-validator
@@ -21,18 +26,20 @@ Phases, in order; any failure raises and exits non-zero:
    both be refused. The kernels' launch counts are reset just before and
    read just after: B1 launches once per batch, B2 and dsm never, and no
    lane may fall to the CPU.
-4. Times (CUDA events, median of 7 after a warm-up): the kernel at 1024,
-   4096 and 16,384 lanes, `verify_plain` at 4096, the native CPU batch
-   verifier on a fixed 512-signature sample (best of 3), and the commit
+4. Times (CUDA events, median of 7 after a warm-up): the kernel at 100,
+   1024, 4096, 10,000 and 16,384 lanes, `verify_plain` at 4096, the
+   native CPU batch verifier on a fixed 512-signature sample (best of
+   3), and the commit
    phases' wall times. Each line carries the card's name and power limit.
 5. B2 (`ed25519_pallas`, the single-bit ladder) on the card: its verdicts
    equal its plain version's on the 4096 mixed lanes, B1's on every shape
    of phase 2, and `crypto.ed25519.verify` on a 256-lane sample.
 6. The dsm kernel (`ed25519.dsm_batch`) on the card: 1025 lanes (the
-   last 128-thread block partial) of random scalars and key points with the
+   last 32-lane block partial) of random scalars and key points with the
    edge lanes (Q = identity, a = 0, b = 0, P == Q, P == -Q) and the real
    terms of a 100-validator aggregate commit equal `dsm_plain`'s bytes
-   exactly; 64 lanes equal the pure-Python group law.
+   exactly, and so do their first 1, 7, 9, 33 and 100 lanes; 64 lanes
+   equal the pure-Python group law.
 7. The main path through B2: the phase-3 commits through a
    `Verifier` built under TENDERMINT_TPU_KERNEL=pallas. B2's launch count
    must equal the device batches; B1's must stay 0.
@@ -95,13 +102,23 @@ DEVICE = "cuda"
 SET_SIZES = (100, 1000, 10_000)  # BASELINE.json: VerifyCommit, fast sync, north star
 AGG_SIZES = (100, 400)  # BENCH_r22.json rows wire:n=100, wire:n=400
 MIXED_LANES = 4096
-DSM_LANES = 1025  # not a multiple of the 128-thread block: the last block is partial
+DSM_LANES = 1025  # not a multiple of the 32-lane block: the last block is partial
 DSM_TIME_LANES = (101, 401, DSM_LANES, 4096)
-TIME_LANES = (1024, 4096, 16384)
-INT_MUL_PER_S = 67e12 / 2 / 2  # H100 SXM: 32-bit multiplies at half the fp32 FMA rate
+# lane counts that end in a partial warp (8 lanes) and a partial block (32)
+RAGGED_LANES = (1, 7, 9, 33, 100, 1025)
+TIME_LANES = (100, 1024, 4096, 10_000, 16_384)
+# The limb products' rate: IMAD.WIDE (signed 32x32->64 with a 64-bit
+# addend, one per limb product in the SASS), the plateau of phase 1's
+# probe swept over chains and blocks an SM, whose loop holds IMAD.WIDE and
+# nothing else but its counter and branch, on an H100 80GB HBM3 at 700 W:
+# 8.35e12/s, half the 32-bit IMAD rate there (16.63e12/s; NVIDIA's 67
+# TFLOP/s fp32 / 2 / 2 = 16.75e12): a wide product takes two multiply
+# slots. Phase 1 logs this run's sweep beside it.
+INT_MUL_PER_S = 8.35e12
 HBM_BYTES_PER_S = 3.35e12
 CSRC = "tendermint_tpu_torch/ops/csrc/"
 KERNEL_NAMES = ("ed25519_verify", "ed25519_verify_b2", "ed25519_dsm")
+PROBE = "imad_rate"  # the multiply-rate probe of phase 1, not a kernel of any path
 # the TPU (or XLA) kernel each one replaces, by file:line of its body
 REPLACES = {
     "ed25519_verify": "tendermint_tpu/ops/ed25519_f32p.py:301",
@@ -150,6 +167,145 @@ def bound_ms(module, lanes: int) -> tuple[float, str]:
     ops_ms = 1e3 * module.PRODUCTS_PER_LANE * lanes / INT_MUL_PER_S
     bytes_ms = 1e3 * module.BYTES_PER_LANE * lanes / HBM_BYTES_PER_S
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def ptxas_summary(build_log: str) -> list[dict]:
+    """Per entry function of a build's `-Xptxas -v` output: registers,
+    stack frame, spill stores and spill loads (bytes)."""
+    import re
+
+    out, cur = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$.]+)'?", line)
+        if m and "entry function" in line:
+            cur = {"function": m.group(1)}
+            out.append(cur)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack_frame=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def sass_counts(lib_path: str) -> dict[str, dict[str, int]]:
+    """Per function in a library's SASS (cuobjdump): IMAD.WIDE of two
+    registers (a limb product), IMAD.WIDE by an immediate (address
+    arithmetic), other IMAD, and all instructions; and the same counts,
+    with shuffles and local loads and stores, inside the function's
+    longest loop (the widest backward branch: in B1 and dsm, one ladder
+    step). The listing is kept beside the library (lib<name>.so.sass)."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    with open(lib_path + ".sass", "w") as f:
+        f.write(sass)
+    listing, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            listing[fn] = []
+        elif fn is not None and (m := re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)):
+            listing[fn].append((int(m.group(1), 16), m.group(2)))
+
+    def tally(instrs) -> dict[str, int]:
+        c = {"IMAD.WIDE": 0, "IMAD.WIDE_imm": 0, "IMAD": 0, "SHFL": 0, "LDL": 0, "STL": 0,
+             "instructions": len(instrs)}
+        for _, ins in instrs:
+            if "IMAD.WIDE" in ins:
+                c["IMAD.WIDE_imm" if re.search(r"IMAD\.WIDE\S* [^;]*, 0x", ins) else "IMAD.WIDE"] += 1
+            else:
+                for op in ("IMAD", "SHFL", "LDL", "STL"):
+                    c[op] += op in ins
+        return c
+
+    counts = {}
+    for fn, instrs in listing.items():
+        back = [(addr - int(m.group(1), 16), int(m.group(1), 16), addr) for addr, ins in instrs
+                if (m := re.search(r"BRA\s+0x([0-9a-f]+)", ins)) and int(m.group(1), 16) < addr]
+        counts[fn] = tally(instrs)
+        if back:
+            _, lo, hi = max(back)
+            counts[fn]["longest_loop"] = tally([(a, ins) for a, ins in instrs if lo <= a <= hi])
+    return counts
+
+
+def check_multiply_rate(name: str, power: str) -> None:
+    """Phase 1's check of the bound's yardstick. In the SASS: how many
+    IMAD.WIDE one field multiplication and one squaring compile to, and so
+    the limb products a B1 and a dsm lane issue; the static IMAD.WIDE count
+    of each kernel library, and each probe loop's (one product a step, and
+    nothing else but its counter and branch). On the card: the rate of the
+    IMAD.WIDE microkernel and of a 32-bit IMAD one, in products per second
+    over the whole card, swept over 4, 8, 16 and 32 chains a thread and 1,
+    2, 4 and 8 blocks of 256 threads an SM; the plateau (the highest rate) is
+    the yardstick, logged beside INT_MUL_PER_S."""
+    import re
+
+    import torch
+
+    from tendermint_tpu_torch.ops import ed25519 as ed32
+    from tendermint_tpu_torch.ops import ed25519_f32p as f32p
+    from tendermint_tpu_torch.ops import kernels
+
+    lib_of = {k: os.path.join(kernels.BUILD_DIR, f"lib{k}.so") for k in (PROBE, *KERNEL_NAMES)}
+    probe = sass_counts(lib_of[PROBE])
+    per_mul = next(c["IMAD.WIDE"] for f, c in probe.items() if "fe_mul_probe" in f)
+    per_sq = next(c["IMAD.WIDE"] for f, c in probe.items() if "fe_sq_probe" in f)
+    per_lane = {kname: {"sass": module.MULS_PER_LANE * per_mul + module.SQS_PER_LANE * per_sq,
+                        "counted": module.PRODUCTS_PER_LANE}
+                for kname, module in (("ed25519_verify", f32p), ("ed25519_dsm", ed32))}
+    libs = {k: sass_counts(lib_of[k]) for k in KERNEL_NAMES}
+    static = {k: sum(c["IMAD.WIDE"] for c in fns.values()) for k, fns in libs.items()}
+    # the kernel function's longest loop: one ladder step of one thread (B1,
+    # dsm) or one single-bit step (B2)
+    loops = {k: next(c.get("longest_loop") for f, c in fns.items() if f"{k}_kernel" in f)
+             for k, fns in libs.items()}
+    log({"phase": "sass", "imad_wide_per_fe_mul": per_mul, "imad_wide_per_fe_sq": per_sq,
+         "limb_products_per_lane": per_lane, "static_imad_wide_per_library": static,
+         "kernel_longest_loop": loops, "probe_functions": probe})
+
+    lib = kernels.load(PROBE)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    threads, per_sm_products = 256, 256 * 8192 * 64  # the same work at every point of the sweep
+    out = torch.empty(8 * sms * threads, dtype=torch.int64, device=DEVICE)
+    # each probe loop's SASS: its products (IMAD.WIDE of two registers, or
+    # IMAD; two a step wide, one narrow) and every other instruction (the
+    # loop's counter and branch)
+    loop_sass = {}
+    for f, c in probe.items():
+        m = re.search(r"imad_rate_kernelILb([01])ELi(\d+)E", f)
+        if m and "longest_loop" in c:
+            loop = c["longest_loop"]
+            made = loop["IMAD.WIDE" if m.group(1) == "1" else "IMAD"]
+            loop_sass[f"{'wide' if m.group(1) == '1' else 'narrow'}x{m.group(2)}"] = {
+                "products": made, "other": loop["instructions"] - made}
+    sweep, plateau = [], {}
+    for wide, label in ((1, "imad_wide_per_s"), (0, "imad_per_s")):
+        for chains in (4, 8, 16, 32):
+            for per_sm in (1, 2, 4, 8):
+                per_thread = per_sm_products // (per_sm * threads)
+                blocks, iters = per_sm * sms, per_thread // (chains * (1 + wide))
+
+                def launch() -> None:
+                    rc = lib.tm_imad_rate(wide, chains, out.data_ptr(), iters, blocks, threads,
+                                          torch.cuda.current_stream().cuda_stream)
+                    if rc != 0:
+                        raise RuntimeError(f"imad_rate launch failed: cudaError {rc}")
+
+                rate = blocks * threads * iters * chains * (1 + wide) / (cuda_ms(launch) / 1e3)
+                sweep.append({"wide": wide, "chains": chains, "blocks_per_sm": per_sm, "per_s": rate})
+                plateau[label] = max(plateau.get(label, 0.0), rate)
+    log({"phase": "multiply_rate", "card": name, "power_limit": power, "sms": sms,
+         "threads": threads, "loop_sass": loop_sass, "sweep": sweep, **plateau,
+         "wide_over_narrow": plateau["imad_wide_per_s"] / plateau["imad_per_s"],
+         "int_mul_per_s": INT_MUL_PER_S,
+         "int_mul_per_s_over_plateau": INT_MUL_PER_S / plateau["imad_wide_per_s"]})
 
 
 def timed(fn) -> float:
@@ -267,11 +423,11 @@ def main() -> int:
     name, power = [s.strip() for s in card.split(",", 1)]
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
-    for kname, build_s in kernels.build_all(KERNEL_NAMES).items():
+    for kname, build_s in kernels.build_all(KERNEL_NAMES + (PROBE,)).items():
         log({"phase": "build", "kernel": kname, "seconds": build_s})
-        for line in kernels.build_log.get(kname, "").splitlines():
-            if "registers" in line or "spill" in line or "stack frame" in line:
-                log(f"ptxas {kname}: {line.strip()}")
+        for entry in ptxas_summary(kernels.build_log.get(kname, "")):
+            log({"phase": "ptxas", "kernel": kname, **entry})
+    check_multiply_rate(name, power)
     t0 = time.perf_counter()
     if not native.available():
         raise RuntimeError("native host library did not build (make -C native)")
@@ -339,6 +495,17 @@ def main() -> int:
             log({"phase": "reference_sample", "lanes": len(sample), "verdicts_seen": families})
         elif not verdicts.all():
             raise AssertionError(f"{label}: a valid commit signature was rejected")
+    for n in RAGGED_LANES:
+        args, _, _ = f32p.marshal_device_args(mixed[:n], DEVICE)
+        got = f32p.verify_lanes(*args)
+        want = f32.verify_plain(args[0].float(), args[1].float(), args[2].float(), args[3],
+                                args[4].int(), args[5].int()).to(torch.int32)
+        err = int((got - want).abs().max().item())
+        max_err = max(max_err, err)
+        log({"phase": "kernel_vs_plain", "shape": "ragged", "lanes": n, "max_abs_err": err})
+        if err != 0:
+            bad = torch.nonzero(got != want).flatten()[:10].tolist()
+            raise AssertionError(f"ragged {n}: kernel disagrees with verify_plain at lanes {bad}")
     torch.cuda.synchronize()
 
     # -- phase 3: the main path through ValidatorSet and Verifier ---------------
@@ -586,6 +753,15 @@ def check_dsm(rng, pubs, agg_case):
     if err != 0:
         bad = torch.nonzero((got != want).any(dim=(0, 1))).flatten()[:10].tolist()
         raise AssertionError(f"dsm kernel disagrees with dsm_plain at lanes {bad}")
+    for n in RAGGED_LANES[:-1]:  # 1025 is DSM_LANES, just compared
+        part = ed32.marshal_dsm_args(terms[:n], DEVICE)
+        got_n = torch.stack(ed32.dsm_lanes(*part))
+        err_n = int((got_n.int() - want[..., :n].int()).abs().max().item())
+        log({"phase": "dsm_vs_plain", "shape": "ragged", "lanes": n, "max_abs_err": err_n})
+        if err_n != 0:
+            bad = torch.nonzero((got_n != want[..., :n]).any(dim=(0, 1))).flatten()[:10].tolist()
+            raise AssertionError(f"ragged {n}: dsm kernel disagrees with dsm_plain at lanes {bad}")
+        err = max(err, err_n)
     xy = got.cpu().numpy()
     sample = min(64, len(terms))
     for i in range(sample):

@@ -1,6 +1,7 @@
-// GF(2^255 - 19) and Edwards-curve point arithmetic for the port's
-// one-thread-per-lane Ed25519 kernels (ed25519_verify.cu, B1;
-// ed25519_verify_b2.cu, B2; ed25519_dsm.cu, the dual scalar multiply).
+// GF(2^255 - 19) arithmetic for the port's Ed25519 kernels, and the
+// one-thread-per-lane point operations of B2 (ed25519_verify_b2.cu). B1
+// (ed25519_verify.cu) and the dual scalar multiply (ed25519_dsm.cu) use the
+// field code here under fe25519x4.cuh's four-threads-per-lane point layer.
 //
 // Field elements are 10 signed 32-bit limbs of radix 2^25.5 (26/25 bits
 // alternating); a limb product is one 32x32->64-bit IMAD.WIDE, a multiply

@@ -42,10 +42,11 @@ NLIMB = 17
 # version): a run reads it to show that its work went through the kernel.
 launches = 0
 
-# The dsm kernel's work per lane, counted from csrc/ed25519_dsm.cu (see its
-# note), for the least time the card could take: field multiplications
-# cost 100 32x32->64-bit limb products and squarings 55.
-MULS_PER_LANE = 2032
+# The dsm kernel's work per lane, summed over the lane's four threads and
+# counted from csrc/ed25519_dsm.cu (see its note), for the least time the
+# card could take: field multiplications cost 100 32x32->64-bit limb
+# products and squarings 55.
+MULS_PER_LANE = 2031
 SQS_PER_LANE = 1278
 PRODUCTS_PER_LANE = 100 * MULS_PER_LANE + 55 * SQS_PER_LANE
 BYTES_PER_LANE = 8 * 32  # six byte rows in, two out

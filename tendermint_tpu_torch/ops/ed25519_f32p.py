@@ -36,9 +36,10 @@ NL = base.NL
 # a run reads it to show that its work went through the kernel.
 launches = 0
 
-# The kernel's work per lane, counted from csrc/ed25519_verify.cu (see its
-# note), for the least time the card could take: field multiplications
-# cost 100 32x32->64-bit limb products and squarings 55.
+# The kernel's work per lane, summed over the lane's four threads and
+# counted from csrc/ed25519_verify.cu (see its note), for the least time
+# the card could take: field multiplications cost 100 32x32->64-bit limb
+# products and squarings 55.
 MULS_PER_LANE = 2021
 SQS_PER_LANE = 1274
 PRODUCTS_PER_LANE = 100 * MULS_PER_LANE + 55 * SQS_PER_LANE
@@ -199,12 +200,12 @@ def verify_batch(items: list[tuple[bytes, bytes, bytes]], device=None) -> np.nda
 
 # -- B1': the ladder sharded over a mesh of devices ----------------------------
 
-BLOCK_LANES = 128  # threads per block of csrc/ed25519_verify.cu
+BLOCK_LANES = 32  # lanes per block of csrc/ed25519_verify.cu: 128 threads, four a lane
 
 
 def lane_quantum(n_shards: int) -> int:
     """Smallest lane count that splits into equal shards of whole
-    128-thread blocks."""
+    blocks of BLOCK_LANES lanes."""
     return n_shards * BLOCK_LANES
 
 

@@ -87,6 +87,8 @@ _ENTRIES = {
     "ed25519_verify_b2": ("tm_ed25519_verify_b2", [_vp] * 7 + [_i32, _vp]),
     # px, py, qx, qy, a8, b8, x8, y8, n, stream
     "ed25519_dsm": ("tm_ed25519_dsm", [_vp] * 8 + [_i32, _vp]),
+    # wide, chains, out, iters, blocks, threads, stream: the multiply-rate probe
+    "imad_rate": ("tm_imad_rate", [_i32, _i32, _vp, _i32, _i32, _i32, _vp]),
 }
 
 

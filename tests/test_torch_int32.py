@@ -358,3 +358,20 @@ def test_dsm_kernel_matches_plain_on_the_card():
     want = [_affine(ted.scalar_mult(t[0], e)) for t, e in zip(terms[:16], ext)]
     got = ted32.dsm_batch([(t[0], t[1], 0, (0, 1)) for t in terms[:16]])
     assert got == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 9, 33, 100, 1025])
+def test_dsm_kernel_matches_plain_on_ragged_lane_counts(n):
+    """A partial last warp (8 lanes) and a partial last 32-lane block:
+    bytes equal dsm_plain's on every lane."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    base = _dsm_terms(63, seed=n)  # 64 terms, the edge lanes among them
+    terms = (base * (n // len(base) + 1))[:n]
+    rows = ted32.marshal_dsm_args(terms, "cuda")
+    x8, y8 = ted32.dsm_lanes(*rows)
+    torch.cuda.synchronize()
+    px, py = ted32.dsm_plain(*(ted32.limbs_from_bytes(r) for r in rows))
+    assert torch.equal(x8, ted32.bytes_from_limbs(px))
+    assert torch.equal(y8, ted32.bytes_from_limbs(py))

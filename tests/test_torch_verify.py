@@ -239,3 +239,23 @@ def test_kernel_matches_plain_on_the_card():
     verdicts = tf32p.materialize_verdicts(got.cpu(), valid, n)
     assert list(verdicts) == [ted.verify(*it) for it in items]
     assert list(tf32p.verify_batch(items)) == list(verdicts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 9, 33, 100, 1025])
+def test_kernel_matches_plain_on_ragged_lane_counts(n):
+    """A partial last warp (8 lanes a warp; no count here is a multiple of
+    8) and a partial last 32-lane block: the groups past the last lane
+    compute on a clamped lane, take part in every shuffle, and store
+    nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    base = _tampered_items() + _identical_key_items() + _odd_items() + _rfc_items()
+    items = (base * (n // len(base) + 1))[:n]
+    args, valid, _ = tf32p.marshal_device_args(items, "cuda")
+    got = tf32p.verify_lanes(*args)
+    torch.cuda.synchronize()
+    want = tf32.verify_plain(args[0].float(), args[1].float(), args[2].float(), args[3],
+                             args[4].int(), args[5].int()).to(torch.int32)
+    assert torch.equal(got, want)
+    assert list(tf32p.materialize_verdicts(got.cpu(), valid, n)) == [ted.verify(*it) for it in items]
