@@ -11,7 +11,8 @@ Phases, in order; any failure raises and exits non-zero:
    probe, all started together (seconds; registers, stack frame and
    spills per kernel). Then the bound's yardstick: the IMAD.WIDE count of
    one field multiplication and one squaring in the SASS (cuobjdump), the
-   limb products per lane that gives for B1 and dsm, and the measured
+   limb products per lane that gives for B1, B2 and dsm, each kernel's
+   longest loop (one ladder step) counted on its own, and the measured
    rates of a saturating IMAD.WIDE and a 32-bit IMAD microkernel.
 2. Kernel vs plain version on the card: 4096 lanes mixing valid,
    tampered, malformed and repeated-key signatures, then the main path's
@@ -31,9 +32,11 @@ Phases, in order; any failure raises and exits non-zero:
    native CPU batch verifier on a fixed 512-signature sample (best of
    3), and the commit
    phases' wall times. Each line carries the card's name and power limit.
-5. B2 (`ed25519_pallas`, the single-bit ladder) on the card: its verdicts
-   equal its plain version's on the 4096 mixed lanes, B1's on every shape
-   of phase 2, and `crypto.ed25519.verify` on a 256-lane sample.
+5. B2 (`ed25519_pallas`, the single-bit ladder, four threads a lane) on
+   the card: its verdicts equal its plain version's on the 4096 mixed
+   lanes, B1's on every shape of phase 2, both at the ragged lane counts
+   1, 7, 9, 33, 100 and 1025, and `crypto.ed25519.verify` on a 256-lane
+   sample.
 6. The dsm kernel (`ed25519.dsm_batch`) on the card: 1025 lanes (the
    last 32-lane block partial) of random scalars and key points with the
    edge lanes (Q = identity, a = 0, b = 0, P == Q, P == -Q) and the real
@@ -238,7 +241,7 @@ def sass_counts(lib_path: str) -> dict[str, dict[str, int]]:
 def check_multiply_rate(name: str, power: str) -> None:
     """Phase 1's check of the bound's yardstick. In the SASS: how many
     IMAD.WIDE one field multiplication and one squaring compile to, and so
-    the limb products a B1 and a dsm lane issue; the static IMAD.WIDE count
+    the limb products a B1, a B2 and a dsm lane issue; the static IMAD.WIDE count
     of each kernel library, and each probe loop's (one product a step, and
     nothing else but its counter and branch). On the card: the rate of the
     IMAD.WIDE microkernel and of a 32-bit IMAD one, in products per second
@@ -251,6 +254,7 @@ def check_multiply_rate(name: str, power: str) -> None:
 
     from tendermint_tpu_torch.ops import ed25519 as ed32
     from tendermint_tpu_torch.ops import ed25519_f32p as f32p
+    from tendermint_tpu_torch.ops import ed25519_pallas as b2
     from tendermint_tpu_torch.ops import kernels
 
     lib_of = {k: os.path.join(kernels.BUILD_DIR, f"lib{k}.so") for k in (PROBE, *KERNEL_NAMES)}
@@ -259,11 +263,12 @@ def check_multiply_rate(name: str, power: str) -> None:
     per_sq = next(c["IMAD.WIDE"] for f, c in probe.items() if "fe_sq_probe" in f)
     per_lane = {kname: {"sass": module.MULS_PER_LANE * per_mul + module.SQS_PER_LANE * per_sq,
                         "counted": module.PRODUCTS_PER_LANE}
-                for kname, module in (("ed25519_verify", f32p), ("ed25519_dsm", ed32))}
+                for kname, module in (("ed25519_verify", f32p), ("ed25519_verify_b2", b2),
+                                      ("ed25519_dsm", ed32))}
     libs = {k: sass_counts(lib_of[k]) for k in KERNEL_NAMES}
     static = {k: sum(c["IMAD.WIDE"] for c in fns.values()) for k, fns in libs.items()}
-    # the kernel function's longest loop: one ladder step of one thread (B1,
-    # dsm) or one single-bit step (B2)
+    # the kernel function's longest loop: one two-bit ladder step of one
+    # thread (B1, dsm) or one single-bit step (B2)
     loops = {k: next(c.get("longest_loop") for f, c in fns.items() if f"{k}_kernel" in f)
              for k, fns in libs.items()}
     log({"phase": "sass", "imad_wide_per_fe_mul": per_mul, "imad_wide_per_fe_sq": per_sq,
@@ -648,8 +653,9 @@ def main() -> int:
 
 def check_b2(shapes, rng) -> int:
     """Phase 5: B2's verdicts equal its plain version's on the mixed lanes,
-    B1's on every shape, and crypto.ed25519.verify on a sample. Returns
-    the largest difference seen (0 when all agree)."""
+    B1's on every shape, both on the first RAGGED_LANES of the mixed lanes
+    (partial warps and blocks), and crypto.ed25519.verify on a sample.
+    Returns the largest difference seen (0 when all agree)."""
     import torch
 
     from tendermint_tpu_torch.crypto import ed25519 as ed
@@ -657,13 +663,14 @@ def check_b2(shapes, rng) -> int:
     from tendermint_tpu_torch.ops import ed25519_pallas as b2
 
     max_err = 0
+    plain_mixed = None
     for label, items in shapes.items():
         args, valid, n = f32p.marshal_device_args(items, DEVICE)
         t0 = time.perf_counter()
         got = b2.verify_lanes(*args)
         against = {"b1": f32p.verify_lanes(*args)}
         if label == "mixed":
-            against["plain"] = b2.verify_plain(*args).to(torch.int32)
+            against["plain"] = plain_mixed = b2.verify_plain(*args).to(torch.int32)
         torch.cuda.synchronize()
         errs = {k: int((got - w).abs().max().item()) for k, w in against.items()}
         max_err = max(max_err, *errs.values())
@@ -682,6 +689,19 @@ def check_b2(shapes, rng) -> int:
                 raise AssertionError("mixed: B2 verdicts disagree with crypto.ed25519.verify")
         elif not verdicts.all():
             raise AssertionError(f"{label}: B2 rejected a valid commit signature")
+    # a lane's verdict depends on its own inputs only, so the plain version's
+    # first n mixed lanes are its verdicts on mixed[:n]
+    for n in RAGGED_LANES:
+        args, _, _ = f32p.marshal_device_args(shapes["mixed"][:n], DEVICE)
+        got = b2.verify_lanes(*args)
+        against = {"b1": f32p.verify_lanes(*args), "plain": plain_mixed[:n]}
+        errs = {k: int((got - w).abs().max().item()) for k, w in against.items()}
+        max_err = max(max_err, *errs.values())
+        log({"phase": "b2_vs_plain_and_b1", "shape": "ragged", "lanes": n, "max_abs_err": errs})
+        for k, w in against.items():
+            if errs[k] != 0:
+                bad = torch.nonzero(got != w).flatten()[:10].tolist()
+                raise AssertionError(f"ragged {n}: B2 disagrees with {k} at lanes {bad}")
     return max_err
 
 

@@ -1,11 +1,12 @@
-"""Time the port's B1 (csrc/ed25519_verify.cu) and dsm (csrc/ed25519_dsm.cu)
-kernels beside the same kernels of other checkouts, on one NVIDIA GPU.
+"""Time the port's B1 (csrc/ed25519_verify.cu), B2 (csrc/ed25519_verify_b2.cu)
+and dsm (csrc/ed25519_dsm.cu) kernels beside the same kernels of other
+checkouts, on one NVIDIA GPU.
 
 Run from the repository root on a machine with a card:
 
     python3 scripts/torch_kernel_compare.py --against LABEL=DIR [--against LABEL=DIR ...]
 
-Each `--against LABEL=DIR` adds the two sources of another checkout DIR
+Each `--against LABEL=DIR` adds the three sources of another checkout DIR
 (for example the parent commit, unpacked with `git archive`). This
 checkout's kernels and every other one are built at once into
 build/kernels/compare/ and ptxas's registers and spills are printed; every
@@ -32,7 +33,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 VERIFY_LANES = (100, 1024, 4096, 10_000, 16_384)
 DSM_LANES = (101, 401, 1025, 4096)
-ENTRIES = {"ed25519_verify": "tm_ed25519_verify", "ed25519_dsm": "tm_ed25519_dsm"}
+ENTRIES = {"ed25519_verify": "tm_ed25519_verify", "ed25519_verify_b2": "tm_ed25519_verify_b2",
+           "ed25519_dsm": "tm_ed25519_dsm"}
 HERE = "this"
 
 
@@ -123,7 +125,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", action="append", default=[], metavar="LABEL=DIR",
-                    help="another checkout whose B1 and dsm sources to time beside these")
+                    help="another checkout whose B1, B2 and dsm sources to time beside these")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_compare: needs an NVIDIA GPU", file=sys.stderr)
@@ -152,6 +154,7 @@ def main() -> int:
             raise RuntimeError(f"launch failed: cudaError {rc}")
 
     for name, lane_counts, make in (("ed25519_verify", VERIFY_LANES, verify_args),
+                                    ("ed25519_verify_b2", VERIFY_LANES, verify_args),
                                     ("ed25519_dsm", DSM_LANES, dsm_args)):
         for n in lane_counts:
             ins, outs = make(n)

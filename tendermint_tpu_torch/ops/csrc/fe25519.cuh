@@ -1,12 +1,11 @@
-// GF(2^255 - 19) arithmetic for the port's Ed25519 kernels, and the
-// one-thread-per-lane point operations of B2 (ed25519_verify_b2.cu). B1
-// (ed25519_verify.cu) and the dual scalar multiply (ed25519_dsm.cu) use the
-// field code here under fe25519x4.cuh's four-threads-per-lane point layer.
+// GF(2^255 - 19) arithmetic for the port's Ed25519 kernels. B1
+// (ed25519_verify.cu), B2 (ed25519_verify_b2.cu) and the dual scalar
+// multiply (ed25519_dsm.cu) use the field code here under fe25519x4.cuh's
+// four-threads-per-lane point layer.
 //
 // Field elements are 10 signed 32-bit limbs of radix 2^25.5 (26/25 bits
 // alternating); a limb product is one 32x32->64-bit IMAD.WIDE, a multiply
-// 100 of them and a square 55. Points are extended coordinates; additions
-// take the addend in "cached" form (Y+X, Y-X, Z, 2d*T).
+// 100 of them and a square 55.
 //
 // Each kernel source includes this header into its own translation unit
 // and shared library, so everything here has internal linkage.
@@ -254,56 +253,6 @@ TM_DEV Fe fe_small(int32_t x) {
   for (int i = 0; i < 10; ++i) f.v[i] = 0;
   f.v[0] = x;
   return f;
-}
-
-struct Ge {  // extended coordinates: x = X/Z, y = Y/Z, T = XY/Z
-  Fe X, Y, Z, T;
-};
-
-struct Cached {  // an addend, pre-transformed for ge_add
-  Fe YpX, YmX, Z, T2d;
-};
-
-TM_DEV Cached to_cached(const Ge& p, const Fe& d2) {
-  return Cached{fe_add(p.Y, p.X), fe_sub(p.Y, p.X), p.Z, fe_mul(p.T, d2)};
-}
-
-// dbl-2008-hwcd for a = -1, in the sign convention of the JAX kernels'
-// point_double; WITH_T = false skips the T that the next doubling ignores.
-template <bool WITH_T>
-TM_DEV Ge ge_dbl(const Ge& p) {
-  const Fe a = fe_sq(p.X);
-  const Fe b = fe_sq(p.Y);
-  const Fe zz = fe_sq(p.Z);
-  const Fe c = fe_add(zz, zz);
-  const Fe h = fe_add(a, b);
-  const Fe e = fe_sub(h, fe_sq(fe_add(p.X, p.Y)));
-  const Fe g = fe_sub(a, b);
-  const Fe f = fe_add(c, g);
-  Ge r;
-  r.X = fe_mul(e, f);
-  r.Y = fe_mul(g, h);
-  r.Z = fe_mul(f, g);
-  if (WITH_T) r.T = fe_mul(e, h);
-  return r;
-}
-
-// add-2008-hwcd-3 (complete) against a cached addend.
-TM_DEV Ge ge_add(const Ge& p, const Cached& q) {
-  const Fe a = fe_mul(fe_sub(p.Y, p.X), q.YmX);
-  const Fe b = fe_mul(fe_add(p.Y, p.X), q.YpX);
-  const Fe c = fe_mul(p.T, q.T2d);
-  const Fe zz = fe_mul(p.Z, q.Z);
-  const Fe d = fe_add(zz, zz);
-  const Fe e = fe_sub(b, a);
-  const Fe f = fe_sub(d, c);
-  const Fe g = fe_add(d, c);
-  const Fe h = fe_add(b, a);
-  return Ge{fe_mul(e, f), fe_mul(g, h), fe_mul(f, g), fe_mul(e, h)};
-}
-
-TM_DEV Ge ge_affine(const Fe& x, const Fe& y) {
-  return Ge{x, y, fe_small(1), fe_mul(x, y)};
 }
 
 }  // namespace

@@ -1,5 +1,6 @@
 // Edwards-curve point arithmetic with four threads per point, for the
-// port's B1 (ed25519_verify.cu) and dsm (ed25519_dsm.cu) kernels.
+// port's B1 (ed25519_verify.cu), B2 (ed25519_verify_b2.cu) and dsm
+// (ed25519_dsm.cu) kernels.
 //
 // A group of four consecutive threads of a warp carries one lane. Thread t
 // of the group (t = threadIdx.x & 3) holds coordinate t of the lane's
@@ -8,7 +9,8 @@
 // is two stages of one field multiplication or squaring per thread,
 // separated by exchanges of whole Fe values inside the group:
 //
-//   doubling (dbl-2008-hwcd, the sign convention of fe25519.cuh's ge_dbl)
+//   doubling (dbl-2008-hwcd, in the sign convention of the JAX row code's
+//   point_double, tendermint_tpu/ops/ed25519.py:245)
 //     stage 1: threads 0-3 square X+Y, Y, Z, X (one exchange first:
 //              thread 0 fetches Y, thread 3 fetches X)
 //     stage 2: each thread gathers (X+Y)^2, Y^2, Z^2, X^2 (four
@@ -20,9 +22,10 @@
 //              T*(2dT)' (one exchange first: threads 0 and 1 swap X and Y)
 //     stage 2: as in the doubling.
 //
-// So a ladder step (two doublings and one addition) is 6 field operations
-// deep on each thread instead of 23, at the price of 15 exchanges of ten
-// limbs. The sums and differences between the stages take one parallel
+// So a two-bit ladder step (two doublings and one addition, B1 and dsm)
+// is 6 field operations deep on each thread instead of 23, at the price of
+// 15 exchanges of ten limbs, and a single-bit step (one doubling and one
+// addition, B2) 4 instead of 16, at 10 exchanges. The sums and differences between the stages take one parallel
 // carry pass instead of a chain (fe_carry_light). All 32 threads of the
 // warp take part in every exchange, so no thread may leave the kernel
 // early: a group past the last lane computes on a clamped lane and skips
@@ -51,12 +54,13 @@ TM_DEV Fe fe_shfl(const Fe& f, int src) {
 }
 #endif
 
-// f0, f1, f2 or f3 by the group rank t, limb by limb (selects, no branch).
-TM_DEV Fe fe_pick(int t, const Fe& f0, const Fe& f1, const Fe& f2, const Fe& f3) {
+// f0, f1, f2 or f3 by k (0..3; the group rank, or B2's bit pair), limb by
+// limb (selects, no branch).
+TM_DEV Fe fe_pick(int k, const Fe& f0, const Fe& f1, const Fe& f2, const Fe& f3) {
   Fe r;
 #pragma unroll
   for (int i = 0; i < 10; ++i)
-    r.v[i] = t == 0 ? f0.v[i] : (t == 1 ? f1.v[i] : (t == 2 ? f2.v[i] : f3.v[i]));
+    r.v[i] = k == 0 ? f0.v[i] : (k == 1 ? f1.v[i] : (k == 2 ? f2.v[i] : f3.v[i]));
   return r;
 }
 
@@ -215,6 +219,25 @@ TM_DEV Fe ge4_ladder(int t, const Fe table[16], const uint32_t sw[8], const uint
     const int sh = 2 * (k & 15);
     const uint32_t sel = ((sw[k >> 4] >> sh) & 3u) | (((hw[k >> 4] >> sh) & 3u) << 2);
     acc = ge4_add(t, acc, table[sel]);
+  }
+  return acc;
+}
+
+// [s]P + [h]Q, MSB first over the 253 bits of the scalars s and h (eight
+// LE words each, below 2^253), walking the cached table {0, P, Q, P+Q} at
+// index (bit of s) + 2 (bit of h): one doubling and one addition a step.
+// The addition is never skipped, also when both bits are 0: a warp's eight
+// lanes would almost never agree on skipping it. All four threads read the
+// lane's words, so the bit pair selects the same entry on each. The entries
+// stay in registers and are picked with selects: faster than an indexed
+// read from local memory (PERF.md).
+TM_DEV Fe ge4_ladder_bits(int t, const Fe table[4], const uint32_t sw[8], const uint32_t hw[8]) {
+  Fe acc = ge4_identity(t);
+#pragma unroll 1
+  for (int k = 252; k >= 0; --k) {
+    acc = ge4_dbl<true>(t, acc);
+    const int sel = ((sw[k >> 5] >> (k & 31)) & 1u) | (((hw[k >> 5] >> (k & 31)) & 1u) << 1);
+    acc = ge4_add(t, acc, fe_pick(sel, table[0], table[1], table[2], table[3]));
   }
   return acc;
 }

@@ -1,7 +1,8 @@
 """The B2 verify kernel's wrapper: the hand-written CUDA single-bit
-ladder (`csrc/ed25519_verify_b2.cu`) on a CUDA tensor, its plain PyTorch
-version (`verify_plain`) on a CPU tensor. Selected in the gateway by
-`TENDERMINT_TPU_KERNEL=pallas`, the JAX registry's name for it.
+ladder (`csrc/ed25519_verify_b2.cu`, four threads a lane) on a CUDA
+tensor, its plain PyTorch version (`verify_plain`) on a CPU tensor.
+Selected in the gateway by `TENDERMINT_TPU_KERNEL=pallas`, the JAX
+registry's name for it.
 
 Replaces the TPU kernel of tendermint_tpu/ops/ed25519_pallas.py: its
 `_verify_kernel` Pallas ladder, in int32 radix-2^15 with 17 limbs, walking
@@ -40,7 +41,7 @@ launches = 0
 # The kernel's work per lane, counted from csrc/ed25519_verify_b2.cu (see
 # its note), for the least time the card could take: field
 # multiplications cost 100 32x32->64-bit limb products and squarings 55.
-MULS_PER_LANE = 3063
+MULS_PER_LANE = 3062
 SQS_PER_LANE = 1266
 PRODUCTS_PER_LANE = 100 * MULS_PER_LANE + 55 * SQS_PER_LANE
 BYTES_PER_LANE = 5 * 32 + 4 + 4  # five byte rows and the sign in, the verdict out

@@ -1,6 +1,7 @@
-"""The four-threads-per-lane point layer of the B1 and dsm kernels
-(`csrc/fe25519x4.cuh`, `ed25519_verify.cu`, `ed25519_dsm.cu`), compiled as
-host C++ with g++ and run on the CPU, exchange for exchange.
+"""The four-threads-per-lane point layer of the B1, B2 and dsm kernels
+(`csrc/fe25519x4.cuh`, `ed25519_verify.cu`, `ed25519_verify_b2.cu`,
+`ed25519_dsm.cu`), compiled as host C++ with g++ and run on the CPU,
+exchange for exchange.
 
 The device code is compiled as written: a stub `cuda_runtime.h` defines
 the CUDA qualifiers away, each `.cu` is cut before `constexpr int
@@ -13,7 +14,8 @@ the kernels' own Z inversion (`block_invert`, one lane a block here) runs
 as written. g++ builds with UBSan, so a signed overflow in the limb
 arithmetic fails the run.
 
-`verify_lane` is held against the port's plain version (`verify_plain`,
+`verify_lane` (B1) and `verify_lane_b2` (B2) are each held against their
+own plain version (`ed25519_f32.verify_plain`, `ed25519_pallas.verify_plain`;
 raw verdicts lane for lane) and against `crypto.ed25519.verify` of both
 packages (masked verdicts) on the RFC 8032 vectors and the tampered,
 malformed and identical-key families of tests/test_ops_f32.py
@@ -36,6 +38,7 @@ import torch
 from tendermint_tpu_torch.crypto import ed25519 as ted
 from tendermint_tpu_torch.ops import ed25519 as ted32
 from tendermint_tpu_torch.ops import ed25519_f32p as tf32p
+from tendermint_tpu_torch.ops import ed25519_pallas as tb2
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "tendermint_tpu_torch", "ops", "csrc")
@@ -92,6 +95,9 @@ void run_group(Body body) {
 @VERIFY@
 }  // namespace
 
+@VERIFY_B2@
+}  // namespace
+
 @DSM@
 }  // namespace
 
@@ -100,6 +106,14 @@ extern "C" int host_verify_lane(const uint32_t* axw, const uint32_t* ayw, const 
   int32_t out[4];
   Fe zs[1];
   run_group([&](int t) { out[t] = verify_lane<1>(t, axw, ayw, ryw, rsign, sw, hw, zs); });
+  return out[0];
+}
+
+extern "C" int host_verify_lane_b2(const uint32_t* axw, const uint32_t* ayw, const uint32_t* ryw,
+                                   int rsign, const uint32_t* sw, const uint32_t* hw) {
+  int32_t out[4];
+  Fe zs[1];
+  run_group([&](int t) { out[t] = verify_lane_b2<1>(t, axw, ayw, ryw, rsign, sw, hw, zs); });
   return out[0];
 }
 
@@ -154,7 +168,9 @@ def lib(tmp_path_factory):
         pytest.skip("needs g++ to build the kernels' device code as host C++")
     d = tmp_path_factory.mktemp("fe25519x4")
     (d / "cuda_runtime.h").write_text(STUB_CUDA_RUNTIME)
-    src = HARNESS.replace("@VERIFY@", _cut("ed25519_verify.cu")).replace("@DSM@", _cut("ed25519_dsm.cu"))
+    src = (HARNESS.replace("@VERIFY@", _cut("ed25519_verify.cu"))
+           .replace("@VERIFY_B2@", _cut("ed25519_verify_b2.cu"))
+           .replace("@DSM@", _cut("ed25519_dsm.cu")))
     (d / "harness.cpp").write_text(src)
     so = d / "libharness.so"
     proc = subprocess.run(
@@ -167,6 +183,8 @@ def lib(tmp_path_factory):
     words = ctypes.POINTER(ctypes.c_uint32)
     lib.host_verify_lane.argtypes = [words] * 3 + [ctypes.c_int] + [words] * 2
     lib.host_verify_lane.restype = ctypes.c_int
+    lib.host_verify_lane_b2.argtypes = lib.host_verify_lane.argtypes
+    lib.host_verify_lane_b2.restype = ctypes.c_int
     lib.host_dsm_lane.argtypes = [words] * 8
     lib.host_dsm_lane.restype = None
     limbs = ctypes.POINTER(ctypes.c_int32)
@@ -175,7 +193,7 @@ def lib(tmp_path_factory):
     return lib
 
 
-@pytest.mark.parametrize("name", ["ed25519_verify.cu", "ed25519_dsm.cu"])
+@pytest.mark.parametrize("name", ["ed25519_verify.cu", "ed25519_dsm.cu", "ed25519_verify_b2.cu"])
 def test_block_geometry_matches_the_wrappers(name):
     """Each kernel's block is 128 threads, four a lane: the 32 lanes that
     ed25519_f32p.BLOCK_LANES (and so lane_quantum) assumes."""
@@ -192,15 +210,16 @@ def _words(col: np.ndarray):
     return w, w.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32))
 
 
-def _host_verdicts(lib, items) -> np.ndarray:
-    """Raw per-lane verdicts of the host-compiled verify_lane on the
-    kernel's own inputs (host_planes), before the host's mask."""
+def _host_verdicts(lane, items) -> np.ndarray:
+    """Raw per-lane verdicts of a host-compiled lane function (verify_lane
+    or verify_lane_b2) on the kernel's own inputs (host_planes), before the
+    host's mask."""
     planes, rs, _ = tf32p.host_planes(items, len(items))
     out = []
     for i in range(len(items)):
         keep = [_words(planes[k, :, i]) for k in range(5)]  # ax, ay, ry, s8, h8
         ax, ay, ry, s8, h8 = (p for _, p in keep)
-        out.append(lib.host_verify_lane(ax, ay, ry, int(rs[i]), s8, h8))
+        out.append(lane(ax, ay, ry, int(rs[i]), s8, h8))
     return np.array(out, dtype=np.int32)
 
 
@@ -215,9 +234,26 @@ def test_verify_lane_matches_plain_and_reference(lib, family):
     from tendermint_tpu.crypto import ed25519 as jed
 
     items = _verify_families()[family]()
-    got = _host_verdicts(lib, items)
+    got = _host_verdicts(lib.host_verify_lane, items)
     args, valid, n = tf32p.marshal_device_args(items, "cpu")
     plain = tf32p.verify_lanes(*args).numpy()
+    assert np.array_equal(got, plain)
+    verdicts = tf32p.materialize_verdicts(got, valid, n)
+    assert list(verdicts) == [ted.verify(*it) for it in items]
+    assert list(verdicts) == [jed.verify(*it) for it in items]
+
+
+@pytest.mark.parametrize("family", ["identical_keys", "odd", "rfc8032", "tampered"])
+def test_verify_lane_b2_matches_plain_and_reference(lib, family):
+    """B2's single-bit walk (ge4_ladder_bits) on four threads: raw verdicts
+    equal to B2's plain version (the JAX kernel's row arithmetic), masked
+    verdicts equal to both packages' crypto.ed25519.verify."""
+    from tendermint_tpu.crypto import ed25519 as jed
+
+    items = _verify_families()[family]()
+    got = _host_verdicts(lib.host_verify_lane_b2, items)
+    args, valid, n = tf32p.marshal_device_args(items, "cpu")
+    plain = tb2.verify_lanes(*args).numpy()
     assert np.array_equal(got, plain)
     verdicts = tf32p.materialize_verdicts(got, valid, n)
     assert list(verdicts) == [ted.verify(*it) for it in items]

@@ -342,6 +342,24 @@ def test_b2_kernel_matches_plain_on_the_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 9, 33, 100, 1025])
+def test_b2_kernel_matches_plain_on_ragged_lane_counts(n):
+    """B2 runs four threads a lane, 32 lanes a block: a partial last warp
+    and a partial last block give verdicts equal to verify_plain's and
+    B1's on every lane."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    base = _all_families()
+    items = (base * (n // len(base) + 1))[:n]
+    args, valid, _ = tf32p.marshal_device_args(items, "cuda")
+    got = tb2.verify_lanes(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tb2.verify_plain(*args).to(torch.int32))
+    assert torch.equal(got, tf32p.verify_lanes(*args))
+    assert list(tf32p.materialize_verdicts(got.cpu(), valid, n)) == [ted.verify(*it) for it in items]
+
+
+@pytest.mark.cuda
 def test_dsm_kernel_matches_plain_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
