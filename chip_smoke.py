@@ -80,6 +80,32 @@ Phases, in order; any failure raises and exits non-zero:
    commit through `Verifier` and through `ShardedVerifier` on 1 and 4
    shards, and the sharded dispatch of its lanes stage by stage.
 
+13. The comb kernels (`ed25519_comb`: B4's verify against per-key tables;
+   `ed25519_comb_tables`: the table build) against their plain versions on
+   the card: 64 keys' tables, bytes exactly; every table of the
+   10,000-validator set built in one launch, 8 sampled keys' rows equal
+   to a pure-Python niels table; the comb verdicts on every lane set of
+   phase 2 and at the ragged lane counts equal `verify_comb_plain`'s raw
+   verdicts and B1's masked ones.
+14. The main path through comb: the phase-3 commits under
+   TENDERMINT_TPU_KERNEL=comb, each twice, after `reset_default_pool()`,
+   then the forged and sub-quorum commits. Every pass's B1, comb and
+   table-build launches must be the second-sight policy's: a lane whose
+   key is seen for the first time rides B1, a key's second sight builds
+   its table (one launch a pass), and every second pass runs on comb
+   alone; one table a distinct key.
+15. A 64-slot pool on the card: eviction, a batch of more keys than the
+   pool holds (PoolExhausted: the lanes ride B1), and a rebuild of evicted
+   keys, every verdict right.
+16. The torch compositions: the 100-validator commit under
+   TENDERMINT_TPU_KERNEL=f32 (B3) and int32 (B5's verify), and through a
+   4-shard f32 `ShardedVerifier`, with no kernel launched; int32's
+   `decompress_batch` and both verifies on the card equal to the CPU and
+   the reference.
+17. Times: the comb kernel at 100 to 16,384 lanes of commit signatures,
+   the table build at 1, 100, 1000 and 10,000 keys, their plain versions,
+   the comb path's commit wall times, and f32 and int32 per batch.
+
 Each path's launch counts are set to 0 just before it and read just after.
 The last lines are the kernels' JSON summary, the card line, and
 {"ok": true, "device": {...}}. Weights are keys made from a numpy seed;
@@ -121,12 +147,26 @@ INT_MUL_PER_S = 8.35e12
 HBM_BYTES_PER_S = 3.35e12
 CSRC = "tendermint_tpu_torch/ops/csrc/"
 KERNEL_NAMES = ("ed25519_verify", "ed25519_verify_b2", "ed25519_dsm")
+COMB_NAMES = ("ed25519_comb", "ed25519_comb_tables")  # phases 13-17
+COMB_TABLE_KEYS = (1, 100, 1000, 10_000)  # table builds timed in phase 17
+COMB_JSON_KEYS = 100  # the table build of the kernels line: the 100-validator commit's
+SMALL_POOL = 64  # phase 15's pool: 63 usable slots
+# int32 decompress_plain's work a key, counted from its code (19
+# multiplications, 255 squarings), in radix-2^25.5 limb products: the
+# least time of a decompression on the card (phase 16)
+DECOMPRESS_PRODUCTS_PER_KEY = 100 * 19 + 55 * 255
+# phase 15's batches, lane ranges of the 100-validator commit: 40 keys; 50
+# keys of which 40 new (so at least 40 - (63 - 40) = 17 evictions); all 100
+# (more than the pool holds); 10 keys evicted by the second batch
+SMALL_POOL_BATCHES = ((0, 40), (30, 80), (0, 100), (0, 10))
 PROBE = "imad_rate"  # the multiply-rate probe of phase 1, not a kernel of any path
 # the TPU (or XLA) kernel each one replaces, by file:line of its body
 REPLACES = {
     "ed25519_verify": "tendermint_tpu/ops/ed25519_f32p.py:301",
     "ed25519_verify_b2": "tendermint_tpu/ops/ed25519_pallas.py:186",
     "ed25519_dsm": "tendermint_tpu/ops/ed25519.py:542",
+    "ed25519_comb": "tendermint_tpu/ops/ed25519_comb.py:151",
+    "ed25519_comb_tables": "tendermint_tpu/ops/ed25519_comb.py:208",
     # B1' is B1's kernel launched per shard: its pallas_call under shard_map
     "ed25519_verify_sharded": "tendermint_tpu/ops/ed25519_f32p.py:468",
 }
@@ -428,11 +468,16 @@ def main() -> int:
     name, power = [s.strip() for s in card.split(",", 1)]
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
-    for kname, build_s in kernels.build_all(KERNEL_NAMES + (PROBE,)).items():
+    ptxas = {}
+    for kname, build_s in kernels.build_all(KERNEL_NAMES + COMB_NAMES + (PROBE,)).items():
         log({"phase": "build", "kernel": kname, "seconds": build_s})
-        for entry in ptxas_summary(kernels.build_log.get(kname, "")):
+        ptxas[kname] = ptxas_summary(kernels.build_log.get(kname, ""))
+        for entry in ptxas[kname]:
             log({"phase": "ptxas", "kernel": kname, **entry})
     check_multiply_rate(name, power)
+    for kname in COMB_NAMES:  # IMAD.WIDE a comb step (two stages: 200 a thread) and a table position
+        log({"phase": "sass", "kernel": kname,
+             "functions": sass_counts(os.path.join(kernels.BUILD_DIR, f"lib{kname}.so"))})
     t0 = time.perf_counter()
     if not native.available():
         raise RuntimeError("native host library did not build (make -C native)")
@@ -621,6 +666,14 @@ def main() -> int:
     sharded_launches = sharded_main_path(commits, forged, sub_quorum, mixed_commit)
     sharded_ms = time_sharded(name, power, mixed, commits)
 
+    # -- phases 13 to 17: the comb path and the torch compositions --------------
+    comb_pool, comb_err = check_comb(shapes, whole, pubs, rng)
+    comb_launches = comb_main_path(name, power, commits, forged, sub_quorum)
+    comb_small_pool(commits)
+    registry_compositions(name, power, commits, mixed)
+    comb_times = time_comb(name, power, comb_pool, shapes, group_items, pubs)
+    del comb_pool
+
     entries = []
     for kname, module, launches, err, ms, p_ms, lanes in (
             ("ed25519_verify", f32p, main_launches, max_err, kernel_ms[MIXED_LANES], plain_ms,
@@ -644,6 +697,12 @@ def main() -> int:
         "bound_ms": b_ms / len(set(shard_meshes()["one_card"])), "bound_by": b_by, "library_ms": None,
         "lanes": MIXED_LANES, "shards": SHARDS,
     })
+    for kname in COMB_NAMES:
+        entries.append({
+            "name": kname, "route": "cuda", "source": f"{CSRC}{kname}.cu",
+            "replaces": REPLACES[kname], "launches": comb_launches[kname], "max_abs_err": comb_err[kname],
+            **comb_times[kname], "library_ms": None, "ptxas": ptxas[kname],
+        })
     log({"kernels": entries})
     log(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -804,17 +863,7 @@ def b2_main_path(commits, forged, sub_quorum):
     from tendermint_tpu_torch.ops import ed25519_pallas as b2
     from tendermint_tpu_torch.ops.gateway import Verifier
 
-    before = os.environ.get("TENDERMINT_TPU_KERNEL")
-    os.environ["TENDERMINT_TPU_KERNEL"] = "pallas"
-    try:
-        v = Verifier(device=DEVICE)
-    finally:
-        if before is None:
-            del os.environ["TENDERMINT_TPU_KERNEL"]
-        else:
-            os.environ["TENDERMINT_TPU_KERNEL"] = before
-    if v.kernel != "pallas":
-        raise AssertionError(f"TENDERMINT_TPU_KERNEL=pallas built a {v.kernel} verifier")
+    v = verifier_under("pallas", lambda: Verifier(device=DEVICE))
     vs100, bid100, c100 = commits["commit_small"]
     vs1000, group = commits["fast_sync_group"]
     vs10k, bid10k, c10k = commits["commit_large"]
@@ -1223,6 +1272,410 @@ def time_sharded(name, power, mixed, commits) -> float:
          "b1_marshal_and_copy_s": min(timed(lambda: f32p.marshal_device_args(large, DEVICE))
                                       for _ in range(3))})
     return window[MIXED_LANES, SHARDS]
+
+
+# -- phases 13 to 17: the comb path (B4) and the torch compositions (B3, B5) ---
+
+
+def key_rows(pubs):
+    """(k, 32) uint8 canonical affine x and y rows of compressed keys
+    (native batch decompression)."""
+    from tendermint_tpu_torch.ops import ed25519_f32 as f32
+
+    xs, ys, ok = f32._decompress_rows([bytes(p) for p in pubs])
+    if not ok.all():
+        raise AssertionError("a validator key did not decompress")
+    return xs, ys
+
+
+def comb_key_rows(pubs):
+    """(32, k) uint8 canonical affine rows of Q = -A, as CombPool.ensure
+    hands them to the table build."""
+    from tendermint_tpu_torch.ops import ed25519_comb as comb
+
+    xs, ys = key_rows(pubs)
+    qx = np.stack([np.frombuffer(comb._neg_x_bytes(x.tobytes()), dtype=np.uint8) for x in xs], axis=1)
+    return np.ascontiguousarray(qx), np.ascontiguousarray(ys.T)
+
+
+def niels_reference(pub: bytes) -> np.ndarray:
+    """A key's (1024, 96) comb table from the pure-Python group law: entry
+    v of position p is v * 16^p * (-A) in niels form."""
+    from tendermint_tpu_torch.crypto import ed25519 as ed
+    from tendermint_tpu_torch.ops import ed25519_comb as comb
+
+    x, y = _affine(ed.point_decompress(pub))
+    gp = ((-x) % ed.P, y, 1, (-x) * y % ed.P)
+    rows = np.zeros((comb.W_POS, comb.W_ENT, comb.COORD_ROWS), dtype=np.uint8)
+    for p in range(comb.W_POS):
+        rows[p, 0, 0] = rows[p, 0, 32] = 1
+        acc = gp
+        for v in range(1, comb.W_ENT):
+            rows[p, v] = comb._niels_rows_np(*_affine(acc)).astype(np.uint8)
+            acc = ed.point_add(acc, gp)
+        for _ in range(4):
+            gp = ed.point_add(gp, gp)
+    return rows.reshape(-1, comb.COORD_ROWS)
+
+
+def comb_lane_args(pool, items):
+    """Lease (building tables where needed) and marshal items for the comb
+    kernel: (the kernel's args after the tables, valid, slots)."""
+    import torch
+
+    from tendermint_tpu_torch.ops import ed25519_f32p as f32p
+
+    n = len(items)
+    planes, rs, valid = f32p.host_planes(items, n)
+    slots = np.zeros(n, dtype=np.int32)
+    vidx = np.flatnonzero(valid)
+    if len(vidx):
+        slots[vidx], _ = pool.ensure([items[i][0] for i in vidx], planes[0].T[vidx], planes[1].T[vidx])
+    with pool.on_stream():
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+                for a in (slots, planes[2], rs, planes[3], planes[4])]
+    torch.cuda.synchronize()
+    return args, valid, slots, planes
+
+
+def check_comb(shapes, whole, pubs, rng):
+    """Phase 13: both comb kernels against their plain versions. Returns
+    (the pool holding every validator's table, the largest difference per
+    kernel)."""
+    import torch
+
+    from tendermint_tpu_torch.ops import ed25519_comb as comb
+    from tendermint_tpu_torch.ops import ed25519_f32p as f32p
+
+    err = {"ed25519_comb_tables": 0, "ed25519_comb": 0}
+    # 64 keys' tables, bytes exactly
+    k = min(64, len(pubs))
+    qx, qy = comb_key_rows(pubs[:k])
+    pool = torch.zeros(((k + 1) * comb.ROWS_PER_SLOT, comb.COORD_ROWS), dtype=torch.uint8, device=DEVICE)
+    comb.build_lanes(pool, torch.from_numpy(qx).to(DEVICE), torch.from_numpy(qy).to(DEVICE),
+                     torch.arange(1, k + 1, dtype=torch.int32, device=DEVICE))
+    want = comb.build_tables_plain(torch.from_numpy(qx).to(DEVICE).float(),
+                                   torch.from_numpy(qy).to(DEVICE).float()).to(torch.uint8)
+    got = pool.view(k + 1, comb.ROWS_PER_SLOT, comb.COORD_ROWS)
+    torch.cuda.synchronize()
+    e = int((got[1:].int() - want.int()).abs().max().item())
+    err["ed25519_comb_tables"] = max(e, int(got[0].int().abs().max().item()))
+    log({"phase": "comb_tables_vs_plain", "keys": k, "max_abs_err": e, "slot0_zero": not got[0].any().item()})
+    if err["ed25519_comb_tables"]:
+        bad = torch.nonzero((got[1:] != want).any(dim=(1, 2))).flatten()[:10].tolist()
+        raise AssertionError(f"table kernel disagrees with build_tables_plain at keys {bad} (or slot 0 written)")
+
+    # every validator's table in one launch, in the pool the verdicts use
+    cpool = comb.CombPool(capacity=len(pubs) + 128, max_capacity=len(pubs) + 128, device=DEVICE)
+    t0 = time.perf_counter()
+    leased, _ = cpool.ensure(list(pubs), *key_rows(pubs))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rows = cpool._pool.view(-1, comb.ROWS_PER_SLOT, comb.COORD_ROWS)
+    sample = rng.choice(len(pubs), size=8, replace=False)
+    equal = [torch.equal(rows[int(leased[j])], torch.from_numpy(niels_reference(pubs[j])).to(DEVICE))
+             for j in sample]
+    log({"phase": "comb_tables_vs_reference", "keys": len(pubs), "sampled": [int(j) for j in sample],
+         "equal": equal, "ensure_and_build_s": build_s, "stats": cpool.stats})
+    if not all(equal):
+        raise AssertionError("the 10,000-key table build disagrees with the pure-Python niels table")
+
+    # verdicts: every phase-2 lane set and the ragged counts
+    cases = [(label, items, whole[label]["b1"]) for label, items in shapes.items()]
+    cases += [(f"ragged_{n}", shapes["mixed"][:n], whole["mixed"]["b1"][:n]) for n in RAGGED_LANES]
+    for label, items, b1_raw in cases:
+        n = len(items)
+        args, valid, _, _ = comb_lane_args(cpool, items)
+        t0 = time.perf_counter()
+        with cpool.on_stream():
+            got = comb.comb_lanes(cpool._pool, cpool.table_b(), *args)
+            plain = comb.verify_comb_plain(cpool._pool, cpool.table_b(), args[0], args[1].float(),
+                                           args[2], args[3].int(), args[4].int()).to(torch.int32)
+        torch.cuda.synchronize()
+        e = int((got - plain).abs().max().item()) if n else 0
+        err["ed25519_comb"] = max(err["ed25519_comb"], e)
+        verdicts = f32p.materialize_verdicts(got.cpu(), valid, n)
+        b1 = f32p.materialize_verdicts(b1_raw, valid, n)
+        log({"phase": "comb_vs_plain_and_b1", "shape": label, "lanes": n, "accepted": int(verdicts.sum()),
+             "max_abs_err": e, "b1_disagree": int((verdicts != b1).sum()),
+             "seconds": time.perf_counter() - t0})
+        if e:
+            bad = torch.nonzero(got != plain).flatten()[:10].tolist()
+            raise AssertionError(f"{label}: comb kernel disagrees with verify_comb_plain at lanes {bad}")
+        if (verdicts != b1).any():
+            raise AssertionError(f"{label}: comb verdicts disagree with B1's at {np.flatnonzero(verdicts != b1)[:10]}")
+        if label in ("commit_small", "fast_sync_group", "commit_large") and not verdicts.all():
+            raise AssertionError(f"{label}: comb rejected a valid commit signature")
+    return cpool, err
+
+
+def comb_expected(keys, seen: dict, built: set) -> dict:
+    """The launches one comb batch of these lanes' keys makes under the
+    second-sight policy (MIN_SIGHT 2), updating `seen` and `built` as the
+    module does: B1 for lanes whose key has no table and is seen for the
+    first time, comb for the rest, one table-build launch if any of their
+    keys has no table yet."""
+    for k in set(keys):
+        seen[k] = seen.get(k, 0) + 1
+    comb_keys = {k for k in keys if k in built or seen[k] >= 2}
+    new = comb_keys - built
+    built |= comb_keys
+    return {"b1": int(any(k not in comb_keys for k in keys)), "comb": int(bool(comb_keys)),
+            "tables": int(bool(new)), "new_keys": len(new)}
+
+
+def comb_main_path(name, power, commits, forged, sub_quorum) -> dict[str, int]:
+    """Phase 14: the phase-3 commits through a Verifier built under
+    TENDERMINT_TPU_KERNEL=comb, each twice after reset_default_pool(),
+    then the refused commits. Returns the launches of each comb kernel."""
+    from tendermint_tpu_torch.ops import ed25519 as ed32
+    from tendermint_tpu_torch.ops import ed25519_comb as comb
+    from tendermint_tpu_torch.ops import ed25519_f32p as f32p
+    from tendermint_tpu_torch.ops import ed25519_pallas as b2
+    from tendermint_tpu_torch.ops.gateway import Verifier
+
+    v = verifier_under("comb", lambda: Verifier(device=DEVICE))
+    vs100, bid100, c100 = commits["commit_small"]
+    vs1000, group = commits["fast_sync_group"]
+    vs10k, bid10k, c10k = commits["commit_large"]
+    runs = {
+        "commit_small": lambda: vs100.verify_commit(
+            CHAIN_ID, bid100, 1, c100, batch_verifier=v.commit_batch_verifier()),
+        "fast_sync_group": lambda: [f() for f in vs1000.verify_commits_async(
+            CHAIN_ID, [(bid, h, c) for bid, c, h in group], v.verify_batch_async)],
+        "commit_large": lambda: vs10k.verify_commit(
+            CHAIN_ID, bid10k, 1, c10k, batch_verifier=v.commit_batch_verifier()),
+    }
+    keys_of = {"commit_small": [vs100.get_by_index(i)[1].pub_key.raw for i in range(vs100.size())],
+               "fast_sync_group": [vs1000.get_by_index(i)[1].pub_key.raw for i in range(vs1000.size())],
+               "commit_large": [vs10k.get_by_index(i)[1].pub_key.raw for i in range(vs10k.size())]}
+    comb.reset_default_pool()
+    seen, built, passes, wall = {}, set(), [], {}
+
+    def counts():
+        return {"b1": f32p.launches, "comb": comb.launches, "tables": comb.table_launches,
+                "b2": b2.launches, "dsm": ed32.launches}
+
+    f32p.launches = b2.launches = ed32.launches = comb.launches = comb.table_launches = 0
+    for label, fn in runs.items():
+        for rep in (1, 2):
+            want = comb_expected(keys_of[label], seen, built)
+            before = counts()
+            wall[label, rep] = timed(fn)
+            got = {k: counts()[k] - before[k] for k in before}
+            passes.append({"commit": label, "pass": rep, "launches": got, "expected": want,
+                           "wall_s": wall[label, rep]})
+            if got != {"b1": want["b1"], "comb": want["comb"], "tables": want["tables"], "b2": 0, "dsm": 0}:
+                raise AssertionError(f"{label} pass {rep}: launches {got}, expected {want}")
+            if rep == 2 and got["b1"]:
+                raise AssertionError(f"{label}: a second pass launched B1")
+    refusals = {}
+    for label, commit, want in (("forged", forged, "invalid signature"),
+                                ("sub_quorum", sub_quorum, "insufficient voting power")):
+        refusals[label] = expect_refusal(label, lambda: vs100.verify_commit(
+            CHAIN_ID, bid100, 1, commit, batch_verifier=v.commit_batch_verifier()), want)
+    launches = counts()
+    stats, pool = v.stats(), comb.default_pool(DEVICE)
+    log({"phase": "comb_main_path", "kernel": v.kernel, "passes": passes, "launches": launches,
+         "stats": stats, "pool": pool.stats, "capacity": pool.capacity, "refused": refusals})
+    if launches != {"b1": 3, "comb": 7, "tables": 3, "b2": 0, "dsm": 0}:
+        raise AssertionError(f"expected 3 B1, 7 comb and 3 table-build launches: {launches}")
+    if pool.stats["build_keys"] != len(keys_of["commit_large"]) or stats["cpu_sigs"] != 0:
+        raise AssertionError(f"expected one table a distinct key and no CPU lane: {pool.stats}, {stats}")
+    # where a warm comb commit's host time goes, stage by stage (every key
+    # has its table): the sight counts, the marshal, the leases, the launch
+    large = recorded_items(vs10k, 1, bid10k, c10k)
+    keys = [it[0] for it in large]
+    planes, rs, _ = f32p.host_planes(large, len(large))
+    xs, ys = planes[0].T, planes[1].T
+    slots, _ = pool.ensure(keys, xs, ys)
+    log({"phase": "comb_commit_breakdown", "card": name, "power_limit": power, "lanes": len(large),
+         "structural_and_tally_s": min(timed(lambda: recorded_items(vs10k, 1, bid10k, c10k))
+                                       for _ in range(3)),
+         "bump_seen_s": min(timed(lambda: comb._bump_seen(set(keys))) for _ in range(3)),
+         "host_planes_s": min(timed(lambda: f32p.host_planes(large, len(large))) for _ in range(3)),
+         "ensure_s": min(timed(lambda: pool.ensure(keys, xs, ys)) for _ in range(3)),
+         "launch_and_resolve_s": min(timed(lambda: pool.launch(slots, planes, rs)()) for _ in range(3)),
+         "verify_batch_s": min(timed(lambda: comb.verify_batch(large, DEVICE)) for _ in range(3))})
+    for label, fn in runs.items():
+        log({"phase": "comb_commit_time", "card": name, "power_limit": power, "commit": label, "first_pass_s": wall[label, 1],
+             "second_pass_s": wall[label, 2], "warm_best_of_3_s": min(timed(fn) for _ in range(3))})
+    return {"ed25519_comb": launches["comb"], "ed25519_comb_tables": launches["tables"]}
+
+
+def verifier_under(kernel: str, make):
+    """make(), a Verifier, built under TENDERMINT_TPU_KERNEL=kernel (the
+    knob is read once, at construction) and checked to run that kernel."""
+    before = os.environ.get("TENDERMINT_TPU_KERNEL")
+    os.environ["TENDERMINT_TPU_KERNEL"] = kernel
+    try:
+        v = make()
+    finally:
+        if before is None:
+            del os.environ["TENDERMINT_TPU_KERNEL"]
+        else:
+            os.environ["TENDERMINT_TPU_KERNEL"] = before
+    if v.kernel != kernel:
+        raise AssertionError(f"TENDERMINT_TPU_KERNEL={kernel} built a {v.kernel} verifier")
+    return v
+
+
+def comb_small_pool(commits) -> None:
+    """Phase 15: a SMALL_POOL-slot pool as the card's default pool, after
+    phase 14 has seen every key twice, through SMALL_POOL_BATCHES: evictions,
+    a batch of more keys than the pool holds (PoolExhausted: B1, no comb
+    launch), then evicted keys again (rebuilt). Every verdict must be
+    right."""
+    from tendermint_tpu_torch.ops import ed25519_comb as comb
+    from tendermint_tpu_torch.ops import ed25519_f32p as f32p
+
+    vs100, bid100, c100 = commits["commit_small"]
+    items = recorded_items(vs100, 1, bid100, c100)
+    pool = comb.CombPool(capacity=SMALL_POOL, max_capacity=SMALL_POOL, device=DEVICE)
+    comb.set_default_pool(pool)
+    steps = []
+    (a_lo, a_hi), (b_lo, b_hi), _, _ = SMALL_POOL_BATCHES
+    min_evictions = (b_hi - a_hi) - (SMALL_POOL - 1 - (a_hi - a_lo))
+    for (lo, hi), want in zip(SMALL_POOL_BATCHES, ((0, 1, 1), (0, 1, 1), (1, 0, 0), (0, 1, 1))):
+        label = f"keys {lo}-{hi - 1}"
+        before = (f32p.launches, comb.launches, comb.table_launches)
+        ok = comb.verify_batch(items[lo:hi], DEVICE)
+        got = tuple(a - b for a, b in zip((f32p.launches, comb.launches, comb.table_launches), before))
+        steps.append({"batch": label, "launches_b1_comb_tables": got, "stats": dict(pool.stats),
+                      "all_accepted": bool(ok.all())})
+        if got != want or not ok.all():
+            raise AssertionError(f"small pool, {label}: launches {got} (expected {want}), "
+                                 f"accepted {int(ok.sum())} of {hi - lo}")
+    log({"phase": "comb_small_pool", "slots": SMALL_POOL, "steps": steps})
+    if pool.stats["evictions"] < min_evictions or pool.stats["grows"]:
+        raise AssertionError(f"expected evictions and no growth: {pool.stats}")
+    comb.reset_default_pool()
+
+
+def registry_compositions(name, power, commits, mixed) -> None:
+    """Phase 16: the 100-validator commit under f32 and int32 and through
+    a 4-shard f32 ShardedVerifier (torch compositions: no kernel
+    launches); f32's, int32's and decompress_batch's outputs on the card
+    against the reference and the CPU."""
+    from tendermint_tpu_torch.crypto import ed25519 as ed
+    from tendermint_tpu_torch.ops import ed25519 as ed32
+    from tendermint_tpu_torch.ops import ed25519_comb as comb
+    from tendermint_tpu_torch.ops import ed25519_f32 as f32
+    from tendermint_tpu_torch.ops import ed25519_f32p as f32p
+    from tendermint_tpu_torch.ops import ed25519_pallas as b2
+    from tendermint_tpu_torch.ops.gateway import ShardedVerifier, Verifier
+
+    tag = {"card": name, "power_limit": power}
+    vs100, bid100, c100 = commits["commit_small"]
+    sample = mixed[:256]
+    ref = [ed.verify(*it) for it in sample]
+    for label, module in (("f32", f32), ("int32", ed32)):
+        if list(module.verify_batch(sample, DEVICE)) != ref:
+            raise AssertionError(f"{label} on the card disagrees with crypto.ed25519.verify")
+    keys = [vs100.get_by_index(i)[1].pub_key.raw for i in range(vs100.size())] + [b"\xff" * 32]
+    for a, b in zip(ed32.decompress_batch(keys, DEVICE), ed32.decompress_batch(keys, "cpu")):
+        if not np.array_equal(a, b):
+            raise AssertionError("int32 decompress_batch on the card disagrees with the CPU")
+    log({"phase": "composition_time", **tag, "keys": len(keys), "lanes": len(mixed),
+         "decompress_batch_s": min(timed(lambda: ed32.decompress_batch(keys, DEVICE)) for _ in range(3)),
+         "decompress_bound_ms": 1e3 * DECOMPRESS_PRODUCTS_PER_KEY * len(keys) / INT_MUL_PER_S,
+         "f32_verify_batch_s": timed(lambda: f32.verify_batch(mixed, DEVICE)),
+         "int32_verify_batch_s": timed(lambda: ed32.verify_batch(mixed, DEVICE))})
+
+    for label, v in (("f32", verifier_under("f32", lambda: Verifier(device=DEVICE))),
+                     ("int32", verifier_under("int32", lambda: Verifier(device=DEVICE))),
+                     (f"sharded_f32_{SHARDS}",
+                      verifier_under("f32", lambda: ShardedVerifier(shard_meshes()["one_card"])))):
+        f32p.launches = b2.launches = ed32.launches = comb.launches = comb.table_launches = 0
+        run = lambda: vs100.verify_commit(  # noqa: E731
+            CHAIN_ID, bid100, 1, c100, batch_verifier=v.commit_batch_verifier())
+        first = timed(run)
+        launches = {"b1": f32p.launches, "b2": b2.launches, "dsm": ed32.launches,
+                    "comb": comb.launches, "tables": comb.table_launches}
+        stats = v.stats()
+        log({"phase": "composition_path", **tag, "kernel": label, "validators": vs100.size(),
+             "launches": launches, "stats": stats, "layout": getattr(v, "last_shard_layout", None),
+             "first_s": first, "warm_best_of_3_s": min(timed(run) for _ in range(3))})
+        if any(launches.values()) or stats["tpu_batches"] != 1 or stats["cpu_sigs"]:
+            raise AssertionError(f"{label}: expected one device batch and no kernel: {launches}, {stats}")
+
+
+def comb_bound_ms(pool, args, lanes: int) -> tuple[float, float]:
+    """The comb verify's least time on these inputs, by operations (its
+    limb products over the multiply rate) and by bytes (the distinct table
+    rows its lanes gather, the lane arguments and the verdicts over the
+    memory rate); the bound is the larger."""
+    from tendermint_tpu_torch.ops import ed25519_comb as comb
+
+    slots, ry, rs, s8, h8 = (a.cpu().numpy() for a in args)
+    pos = np.arange(comb.W_POS)[:, None]
+
+    def digits(b8):
+        return np.stack([b8 & 15, b8 >> 4], axis=1).reshape(comb.W_POS, -1).astype(np.int64)
+
+    rows_a = np.unique((slots[None, :].astype(np.int64) * comb.W_POS + pos) * comb.W_ENT + digits(h8))
+    rows_b = np.unique(pos * comb.W_ENT + digits(s8))
+    moved = (len(rows_a) + len(rows_b)) * comb.COORD_ROWS + lanes * (3 * 32 + 3 * 4)
+    return 1e3 * comb.PRODUCTS_PER_LANE * lanes / INT_MUL_PER_S, 1e3 * moved / HBM_BYTES_PER_S
+
+
+def larger(ops_ms: float, bytes_ms: float) -> tuple[float, str]:
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def time_comb(name, power, pool, shapes, group_items, pubs) -> dict[str, dict]:
+    """Phase 17: the comb kernel at TIME_LANES lanes of commit signatures
+    (the 10,000-validator commit's, then the fast-sync group's: one key a
+    lane, every table in `pool`), the table build at COMB_TABLE_KEYS keys,
+    and both plain versions. Returns the kernels line's numbers per
+    kernel."""
+    import torch
+
+    from tendermint_tpu_torch.ops import ed25519_comb as comb
+
+    tag = {"card": name, "power_limit": power}
+    lanes_src = (shapes["commit_large"] + group_items) * 2
+    out = {}
+    for lanes in TIME_LANES:
+        args, _, _, _ = comb_lane_args(pool, lanes_src[:lanes])
+        with pool.on_stream():
+            ms = cuda_ms(lambda: comb.comb_lanes(pool._pool, pool.table_b(), *args))
+        ops_ms, bytes_ms = comb_bound_ms(pool, args, lanes)
+        b_ms, b_by = larger(ops_ms, bytes_ms)
+        log({"phase": "comb_time", **tag, "lanes": lanes, "ms": ms, "sigs_per_s": lanes / ms * 1e3,
+             "bound_ms": b_ms, "bound_by": b_by, "ops_ms": ops_ms, "bytes_ms": bytes_ms})
+        if lanes == MIXED_LANES:
+            with pool.on_stream():
+                plain_ms = cuda_ms(lambda: comb.verify_comb_plain(
+                    pool._pool, pool.table_b(), args[0], args[1].float(), args[2], args[3].int(),
+                    args[4].int()), reps=3, warmup=1)
+            log({"phase": "comb_plain_time", **tag, "lanes": lanes, "ms": plain_ms})
+            out["ed25519_comb"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                                   "lanes": lanes}
+
+    qx, qy = comb_key_rows(pubs[: max(COMB_TABLE_KEYS)])
+    for keys in COMB_TABLE_KEYS:
+        rows = torch.zeros(((keys + 1) * comb.ROWS_PER_SLOT, comb.COORD_ROWS), dtype=torch.uint8,
+                           device=DEVICE)
+        kx, ky = (torch.from_numpy(np.ascontiguousarray(a[:, :keys])).to(DEVICE) for a in (qx, qy))
+        slots = torch.arange(1, keys + 1, dtype=torch.int32, device=DEVICE)
+        ms = cuda_ms(lambda: comb.build_lanes(rows, kx, ky, slots), reps=5, warmup=1)
+        ops_ms = 1e3 * comb.PRODUCTS_PER_KEY * keys / INT_MUL_PER_S
+        bytes_ms = 1e3 * comb.BYTES_PER_KEY * keys / HBM_BYTES_PER_S
+        b_ms, b_by = larger(ops_ms, bytes_ms)
+        # the kernel's own products (one inversion a position) at the same rate
+        kernel_ops_ms = 1e3 * comb.KERNEL_PRODUCTS_PER_KEY * keys / INT_MUL_PER_S
+        log({"phase": "comb_tables_time", **tag, "keys": keys, "ms": ms, "keys_per_s": keys / ms * 1e3,
+             "bound_ms": b_ms, "bound_by": b_by, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+             "kernel_ops_ms": kernel_ops_ms})
+        if keys == COMB_JSON_KEYS:
+            plain_ms = cuda_ms(lambda: comb.build_tables_plain(kx.float(), ky.float()), reps=3, warmup=1)
+            log({"phase": "comb_tables_plain_time", **tag, "keys": keys, "ms": plain_ms})
+            out["ed25519_comb_tables"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                                          "bound_by": b_by, "keys": keys}
+        del rows
+    torch.cuda.synchronize()
+    return out
 
 
 if __name__ == "__main__":

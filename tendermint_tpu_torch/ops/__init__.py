@@ -2,19 +2,26 @@
 versions, and the gateway the commit path talks to.
 
 - `ed25519_f32`: the host marshal and `verify_plain`, the plain PyTorch
-  version of the B1 verify ladder.
+  version of the B1 verify ladder, which is also the registry's `f32`
+  (B3) on the card.
 - `ed25519_f32p`: the wrapper of the hand-written CUDA ladder B1
   (`csrc/ed25519_verify.cu`), and B1′, the same kernel launched once per
   shard over a mesh of devices (`ShardedVerify`).
 - `ed25519`: the int32 radix-2^15 family: limb codecs, field and point
-  ops, and `dsm_batch`, the wrapper of the dual-scalar-multiplication
-  kernel (`csrc/ed25519_dsm.cu`) with its plain version `dsm_plain`.
+  ops, the registry's `int32` verify and `decompress_batch`, and
+  `dsm_batch`, the wrapper of the dual-scalar-multiplication kernel
+  (`csrc/ed25519_dsm.cu`) with its plain version `dsm_plain`.
+- `ed25519_comb`: the registry's `comb` (B4): the device-resident pool
+  of per-validator comb tables, the wrappers of the table-build and comb
+  verify kernels (`csrc/ed25519_comb_tables.cu`, `csrc/ed25519_comb.cu`)
+  with their plain versions, and the second-sight lane routing.
 - `ed25519_pallas`: the wrapper of the single-bit CUDA ladder B2
   (`csrc/ed25519_verify_b2.cu`) with its plain version `verify_plain`.
 - `kernels`: builds the `csrc/` sources with nvcc and binds them.
 - `gateway`: `Verifier`, the batching gateway with its size gate, its
   kernel registry and the aggregate-commit verify, and `ShardedVerifier`,
-  which runs its device batches through B1′.
+  which runs its device batches through B1′ (or B3's `verify_plain` per
+  shard under `f32`).
 """
 
 from __future__ import annotations

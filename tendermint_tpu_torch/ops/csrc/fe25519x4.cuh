@@ -1,6 +1,7 @@
 // Edwards-curve point arithmetic with four threads per point, for the
-// port's B1 (ed25519_verify.cu), B2 (ed25519_verify_b2.cu) and dsm
-// (ed25519_dsm.cu) kernels.
+// port's B1 (ed25519_verify.cu), B2 (ed25519_verify_b2.cu), dsm
+// (ed25519_dsm.cu) and comb (ed25519_comb.cu, ed25519_comb_tables.cu)
+// kernels.
 //
 // A group of four consecutive threads of a warp carries one lane. Thread t
 // of the group (t = threadIdx.x & 3) holds coordinate t of the lane's
@@ -175,11 +176,16 @@ TM_DEV Fe ge4_dbl(int t, const Fe& p) {
 }
 
 // p + q for q cached (this thread holds coordinate t of q's cached form):
-// stage 1 computes (Y-X)*q0, (Y+X)*q1, Z*q2, T*q3 on threads 0-3.
+// stage 1 computes (Y-X)*q0, (Y+X)*q1, Z*q2, T*q3 on threads 0-3. With
+// NIELS, q is an affine point in niels form (y-x, y+x, 2dxy; Z = 1, the
+// comb kernel's table entries): thread 2's coordinate is not read and its
+// stage-1 product Z*1 is left out (a mixed addition, 7 multiplications).
+template <bool NIELS = false>
 TM_DEV Fe ge4_add(int t, const Fe& p, const Fe& qc) {
   const Fe o = fe_shfl(p, t ^ 1);  // 0 <- Y, 1 <- X
   const Fe u = fe_pick(t, fe_sub_l(o, p), fe_add_l(p, o), p, p);
-  const Fe q = fe_mul(u, qc);
+  Fe q = u;
+  if (!NIELS || t != 2) q = fe_mul(u, qc);
   return ge4_stage2(t, q, true,
                     [](const Fe& a, const Fe& b, const Fe& zz, const Fe& c, Fe& e, Fe& f, Fe& g,
                        Fe& h) {

@@ -1,8 +1,9 @@
 """Ed25519 in int32 radix-2^15 limbs: the JAX package's int32 family
-(`tendermint_tpu/ops/ed25519.py`) in PyTorch, and the wrapper of the
-dual-scalar-multiplication kernel behind aggregate commits.
+(`tendermint_tpu/ops/ed25519.py`) in PyTorch, the registry kernel `int32`,
+and the wrapper of the dual-scalar-multiplication kernel behind aggregate
+commits.
 
-Four parts:
+Five parts:
 
 - The limb codecs (`int_to_limbs_np`, `limbs_to_int`, `scalar_bits_np`)
   and the host marshal (`prepare_batch`, `prepare_batch_limbs`), copies of
@@ -18,9 +19,12 @@ Four parts:
   CUDA device it launches the hand-written kernel
   (`csrc/ed25519_dsm.cu`), on the CPU it runs `dsm_plain`. There is no
   fallback between the two.
-
-The JAX module's own verify (`_verify_impl`, registry name `int32`) and
-batched decompression (`decompress_batch`) are not ported yet.
+- The JAX module's verify (`_verify_impl`, the registry name `int32`) as
+  `verify_int32_plain` behind `verify_batch`, and its batched point
+  decompression (`_decompress_impl`) as `decompress_plain` behind
+  `decompress_batch`. Both are XLA in the JAX package, not Pallas: their
+  counterparts are these torch compositions, run on the card unless the
+  caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -94,6 +98,20 @@ _PX2 = (2 * _P_LIMBS).astype(np.int32)
 _BX = _const_limbs(ed_ref.B[0])
 _BY = _const_limbs(ed_ref.B[1])
 _BT = _const_limbs((ed_ref.B[0] * ed_ref.B[1]) % P)
+_SQRT_M1 = _const_limbs(ed_ref.I_SQRT)
+_D_LIMBS = _const_limbs(ed_ref.D)
+
+
+def _affine(pt) -> tuple[int, int]:
+    zinv = pow(pt[2], P - 2, P)
+    return (pt[0] * zinv % P, pt[1] * zinv % P)
+
+
+# 2B and 3B affine constants for the 2-bit windowed ladder
+_B2_AFF = _affine(ed_ref.point_add(ed_ref.B, ed_ref.B))
+_B3_AFF = _affine(ed_ref.point_add(ed_ref.point_add(ed_ref.B, ed_ref.B), ed_ref.B))
+_B2X, _B2Y = _const_limbs(_B2_AFF[0]), _const_limbs(_B2_AFF[1])
+_B3X, _B3Y = _const_limbs(_B3_AFF[0]), _const_limbs(_B3_AFF[1])
 
 _const_cache: dict = {}
 
@@ -247,6 +265,11 @@ def fcanon(x: torch.Tensor, carry=_carry) -> torch.Tensor:
     return x
 
 
+def feq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Canonical equality -> bool[B]."""
+    return torch.all(fcanon(a) == fcanon(b), dim=0)
+
+
 # ---------------------------------------------------------------------------
 # point arithmetic (extended coordinates X, Y, Z, T), complete formulas
 # ---------------------------------------------------------------------------
@@ -287,6 +310,14 @@ def _identity(like: torch.Tensor):
     return (zeros, one, one, zeros)
 
 
+def _select4(sel: torch.Tensor, options):
+    """sel: (B,) int in 0..3; options: 4 points of (17, B) coords."""
+    idx = sel.long()[None, None, :].expand(1, NLIMB, sel.shape[0])
+    return tuple(
+        torch.gather(torch.stack([opt[coord] for opt in options]), 0, idx)[0] for coord in range(4)
+    )
+
+
 def _digits2_from_limbs(limbs: torch.Tensor) -> torch.Tensor:
     """(17, B) 15-bit limbs -> (127, B) 2-bit digits, MSB first. Scalars
     are < L < 2^253, so bits 253 and 254 are zero."""
@@ -295,6 +326,147 @@ def _digits2_from_limbs(limbs: torch.Tensor) -> torch.Tensor:
     bits = bits.reshape(NLIMB * 15, limbs.shape[-1])[:254]  # little-endian
     d = bits[0::2] + 2 * bits[1::2]  # (127, B)
     return d.flip(0)
+
+
+# ---------------------------------------------------------------------------
+# the registry kernel `int32`: the JAX module's verify and decompression
+# ---------------------------------------------------------------------------
+
+
+def verify_int32_plain(ax, ay, r_y, r_sign, s_limbs, h_limbs) -> torch.Tensor:
+    """ax/ay: affine pubkey limbs (17, B); r_y: R's y limbs (host-checked
+    < p); r_sign: (B,) x-parity of R; s_limbs/h_limbs: (17, B) 15-bit limb
+    encodings of the scalars. Returns bool[B]: the JAX module's
+    `_verify_impl`, step for step (its one-hot sum of the table is a
+    gather of the same entry: 0/1 products, exact in int32).
+
+    Interleaved Straus with 2-bit joint windows: 127 x (2 doublings + 1
+    table add) over the 16-entry table [i]B + [j](-A), i, j in 0..3."""
+    batch = ax.shape[-1]
+    ident = _identity(ax)
+    zeros, one = ident[0], ident[1]
+
+    def const_pt(xc, yc):
+        x = _const(xc, ax).expand(NLIMB, batch)
+        y = _const(yc, ax).expand(NLIMB, batch)
+        return (x, y, one, fmul(x, y))
+
+    # -A = (p - x, y) and its small multiples
+    nax = fsub(zeros, ax)
+    neg_a = (nax, ay, one, fmul(nax, ay))
+    na2 = point_double(neg_a)
+    na3 = point_add(na2, neg_a)
+    b_row = [ident, const_pt(_BX, _BY), const_pt(_B2X, _B2Y), const_pt(_B3X, _B3Y)]
+    a_row = [ident, neg_a, na2, na3]
+    table = []
+    for j in range(4):  # h digit (multiples of -A)
+        for i in range(4):  # s digit (multiples of B)
+            if i == 0:
+                table.append(a_row[j])
+            elif j == 0:
+                table.append(b_row[i])
+            else:
+                table.append(point_add(b_row[i], a_row[j]))
+    tcoords = [torch.stack([t[c] for t in table]) for c in range(4)]  # 4 x (16, 17, B)
+
+    sel = (_digits2_from_limbs(s_limbs) + 4 * _digits2_from_limbs(h_limbs)).long()  # (127, B)
+    acc = ident
+    for step in range(127):
+        acc = point_double(point_double(acc))
+        idx = sel[step][None, None, :].expand(1, NLIMB, batch)
+        acc = point_add(acc, tuple(torch.gather(tc, 0, idx)[0] for tc in tcoords))
+
+    # compress and compare with R
+    px, py, pz, _ = acc
+    zinv = finv(pz)
+    x_aff = fcanon(fmul(px, zinv))
+    y_aff = fcanon(fmul(py, zinv))
+    sign = x_aff[0] & 1
+    return torch.all(y_aff == fcanon(r_y), dim=0) & (sign == r_sign)
+
+
+def verify_batch(items: list[tuple[bytes, bytes, bytes]], device=None) -> np.ndarray:
+    """Batched strict RFC 8032 verify of (pubkey32, message, signature64)
+    triples -> bool[n], semantics identical to crypto.ed25519.verify per
+    item: the host marshal `prepare_batch_limbs`, then `verify_int32_plain`
+    on `device` (the card unless the caller asks for the CPU)."""
+    n = len(items)
+    if n == 0:
+        return np.zeros(0, dtype=bool)
+    *arrays, valid = prepare_batch_limbs(items, n)
+    dev = resolve_device(device)
+    ok = verify_int32_plain(*(torch.from_numpy(a).to(dev) for a in arrays))
+    return ok.cpu().numpy()[:n] & valid[:n]
+
+
+def _pow_2_252_m3(z: torch.Tensor) -> torch.Tensor:
+    """z^(2^252 - 3), the square-root chain of decompression."""
+
+    def rep_sq(x, n):
+        for _ in range(n):
+            x = fsq(x)
+        return x
+
+    z2 = fsq(z)
+    z9 = fmul(rep_sq(z2, 2), z)
+    z11 = fmul(z9, z2)
+    z_5_0 = fmul(fsq(z11), z9)
+    z_10_0 = fmul(rep_sq(z_5_0, 5), z_5_0)
+    z_20_0 = fmul(rep_sq(z_10_0, 10), z_10_0)
+    z_40_0 = fmul(rep_sq(z_20_0, 20), z_20_0)
+    z_50_0 = fmul(rep_sq(z_40_0, 10), z_10_0)
+    z_100_0 = fmul(rep_sq(z_50_0, 50), z_50_0)
+    z_200_0 = fmul(rep_sq(z_100_0, 100), z_100_0)
+    z_250_0 = fmul(rep_sq(z_200_0, 50), z_50_0)
+    return fmul(rep_sq(z_250_0, 2), z)
+
+
+def decompress_plain(y_limbs: torch.Tensor, x_sign: torch.Tensor):
+    """RFC 8032 5.1.3 point decompression, batched, as the JAX module's
+    `_decompress_impl`. Returns (x_limbs (17, B), valid bool[B])."""
+    batch = y_limbs.shape[-1]
+    zeros, one = _identity(y_limbs)[:2]
+    d_l = _const(_D_LIMBS, y_limbs).expand(NLIMB, batch)
+    sqrt_m1 = _const(_SQRT_M1, y_limbs).expand(NLIMB, batch)
+    y2 = fsq(y_limbs)
+    u = fsub(y2, one)
+    v = fadd(fmul(d_l, y2), one)
+    v3 = fmul(fsq(v), v)
+    v7 = fmul(fsq(v3), v)
+    x = fmul(fmul(u, v3), _pow_2_252_m3(fmul(u, v7)))
+    vx2 = fmul(v, fsq(x))
+    ok_direct = feq(vx2, u)
+    ok_flip = feq(vx2, fsub(zeros, u))
+    x = torch.where(ok_flip[None, :], fmul(x, sqrt_m1), x)
+    x = fcanon(x)
+    valid = ok_direct | ok_flip
+    x_is_zero = torch.all(x == 0, dim=0)
+    want_flip = x_sign != (x[0] & 1)
+    valid = valid & ~(x_is_zero & (x_sign == 1))
+    x = torch.where(want_flip[None, :], fsub(zeros, x), x)
+    return fcanon(x), valid
+
+
+def decompress_batch(compressed: list[bytes], device=None):
+    """32-byte encodings -> (x_limbs int32[17, n], y_limbs int32[17, n],
+    valid bool[n]), as the JAX module's `decompress_batch`: non-canonical
+    y >= p is rejected on the host, the rest run `decompress_plain` on
+    `device` (the card unless the caller asks for the CPU)."""
+    n = len(compressed)
+    ys, signs, valid_host = [], [], []
+    for c in compressed:
+        yi = int.from_bytes(c, "little")
+        signs.append((yi >> 255) & 1)
+        yi &= (1 << 255) - 1
+        valid_host.append(yi < P)
+        ys.append(yi if yi < P else 0)
+    y_limbs = int_to_limbs_np(ys)
+    if n == 0:
+        return np.zeros((NLIMB, 0), dtype=np.int32), y_limbs, np.zeros(0, dtype=bool)
+    dev = resolve_device(device)
+    x_limbs, valid = decompress_plain(torch.from_numpy(y_limbs).to(dev),
+                                      torch.tensor(signs, dtype=torch.int32, device=dev))
+    return x_limbs.cpu().numpy(), y_limbs, valid.cpu().numpy() & np.array(valid_host)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
-"""Ed25519 verify in fp32 radix-2^8 limbs: the host marshal and the plain
-PyTorch version of the device kernel.
+"""Ed25519 verify in fp32 radix-2^8 limbs: the host marshal, the plain
+PyTorch version of the device kernel, and the registry kernel `f32`.
 
-Two halves:
+Three parts:
 
 - The host marshal (`prepare_batch8` and its helpers), a copy of the JAX
   package's, so the numpy arrays it returns are identical to JAX's for the
@@ -14,6 +14,12 @@ Two halves:
   radix-2^8 layout, so every field op is bit-for-bit comparable with
   `tendermint_tpu.ops.ed25519_f32`. It is what `ops.ed25519_f32p` runs for
   a tensor on the CPU, and what the kernel is held against on the card.
+- `verify_batch` / `verify_batch_async`, the registry name `f32` (B3 of
+  the JAX package, `_verify_impl` jitted as XLA there, not Pallas):
+  `verify_plain` run as torch operations on the verifier's device, the
+  card unless the caller asks for the CPU. Over a mesh, `verify_rows`
+  runs per shard in `sharded_bucket` lanes (the JAX package's pjit
+  backend, through `ed25519_f32p.ShardedVerify`).
 
 EXACTNESS (the JAX module's argument, unchanged): every fp32 value is an
 integer below 2^24, so every sum is exact in any order. Loose limbs after
@@ -33,6 +39,7 @@ import torch
 
 from tendermint_tpu_torch import native
 from tendermint_tpu_torch.crypto import ed25519 as ed_ref
+from tendermint_tpu_torch.ops import resolve_device
 
 P = ed_ref.P
 L = ed_ref.L
@@ -482,3 +489,43 @@ def prepare_batch8(items: list[tuple[bytes, bytes, bytes]], bucket: int):
         np.ascontiguousarray(h8.T.astype(np.int32)),
         valid,
     )
+
+
+# ---------------------------------------------------------------------------
+# the registry kernel `f32`: verify_plain on the verifier's device
+# ---------------------------------------------------------------------------
+
+
+def verify_rows(ax, ay, ry, rsign, s8, h8) -> torch.Tensor:
+    """`verify_plain` over the verify kernels' arguments (uint8 byte rows
+    (32, n), rsign (n,) int32): (n,) int32 verdicts on their device. The
+    per-shard function of the sharded `f32` backend, and B1's plain
+    version."""
+    return verify_plain(ax.float(), ay.float(), ry.float(), rsign, s8.int(), h8.int()).to(torch.int32)
+
+
+def verify_batch_async(items: list[tuple[bytes, bytes, bytes]], device=None):
+    """Marshal and enqueue `verify_plain` on `device` (the card unless the
+    caller asks for the CPU); return a zero-arg resolver for bool[n].
+    Lanes the host rejected are masked by `valid`."""
+    n = len(items)
+    if n == 0:
+        return lambda: np.zeros(0, dtype=bool)
+    dev = resolve_device(device)
+    ax, ay, ry, rs, s8, h8, valid = prepare_batch8(items, n)
+    ok = verify_plain(*(torch.from_numpy(a).to(dev) for a in (ax, ay, ry, rs, s8, h8)))
+    return lambda: ok.cpu().numpy()[:n] & valid[:n]
+
+
+def verify_batch(items: list[tuple[bytes, bytes, bytes]], device=None) -> np.ndarray:
+    """Batched strict RFC 8032 verify -> bool[n]."""
+    return verify_batch_async(items, device)()
+
+
+def sharded_bucket(n: int, shards: int) -> int:
+    """The JAX package's sharded f32 bucket: the next power of two (at
+    least 8) above max(n, shards), rounded up to a multiple of `shards`."""
+    bucket = 8
+    while bucket < max(n, shards):
+        bucket <<= 1
+    return -(-bucket // shards) * shards

@@ -14,7 +14,9 @@ The sharded form (`ShardedVerify`, `sharded_verify_arrays`) replaces
 same Pallas ladder: a batch's lanes split into equal shards over a mesh
 of devices, and each shard is one launch of the same CUDA kernel on its
 own device and stream. The unsharded `verify_batch_async` is the same
-`dispatch` with one shard on the current stream.
+`dispatch` with one shard on the current stream. `dispatch` takes the
+per-shard function as an argument: the sharded `f32` backend runs B3's
+plain version through it, and the comb pool its kernel.
 
 There is no fallback: on a CUDA tensor the kernel launches or the call
 raises.
@@ -100,8 +102,7 @@ def verify_lanes(ax, ay, ry, rsign, s8, h8) -> torch.Tensor:
     global launches
     n = check_args(ax, ay, ry, rsign, s8, h8)
     if ax.device.type == "cpu":
-        ok = base.verify_plain(ax.float(), ay.float(), ry.float(), rsign, s8.int(), h8.int())
-        return ok.to(torch.int32)
+        return base.verify_rows(ax, ay, ry, rsign, s8, h8)
     if ax.device.type != "cuda":
         raise ValueError(f"unsupported device {ax.device}")
     out = torch.empty(n, dtype=torch.int32, device=ax.device)
@@ -147,11 +148,15 @@ class ShardedVerdicts:
         return self.host
 
 
-def dispatch(planes: np.ndarray, rs: np.ndarray, devices: list[torch.device], streams: list) -> ShardedVerdicts:
-    """Launch B1 on host-marshalled lanes (`host_planes`) split into
+def dispatch(planes: np.ndarray, rs: np.ndarray, devices: list[torch.device], streams: list,
+             verify=None) -> ShardedVerdicts:
+    """Run `verify` (B1 unless given: a function of the kernel's argument
+    tuple returning (n,) int32 verdicts on the arguments' device, without
+    synchronising) on host-marshalled lanes (`host_planes`) split into
     len(devices) equal shards, shard k on devices[k] and streams[k] (None:
     that device's current stream), and start the copies back into one
-    pinned host buffer. A CPU shard runs the plain version now."""
+    pinned host buffer. A CPU shard runs now."""
+    verify = verify or verify_lanes
     total = planes.shape[-1]
     per, rem = divmod(total, len(devices))
     if rem:
@@ -166,13 +171,13 @@ def dispatch(planes: np.ndarray, rs: np.ndarray, devices: list[torch.device], st
         shard = np.ascontiguousarray(planes[..., lo:hi])
         rshard = np.ascontiguousarray(rs[lo:hi])
         if dev.type == "cpu":
-            host[lo:hi] = verify_lanes(*device_args(shard, rshard, dev))
+            host[lo:hi] = verify(*device_args(shard, rshard, dev))
             continue
         # allocate, launch and copy back on the shard's own stream: the
         # caching allocator then hands these blocks out again only to
         # later work on that stream, behind this kernel
         with torch.cuda.device(dev), torch.cuda.stream(stream):
-            ok = verify_lanes(*device_args(shard, rshard, dev, non_blocking=True))
+            ok = verify(*device_args(shard, rshard, dev, non_blocking=True))
             host[lo:hi].copy_(ok, non_blocking=True)
             event = torch.cuda.Event()
             event.record()
@@ -209,6 +214,12 @@ def lane_quantum(n_shards: int) -> int:
     return n_shards * BLOCK_LANES
 
 
+def quantum_bucket(n: int, n_shards: int) -> int:
+    """B1's sharded bucket: n rounded up to a multiple of `lane_quantum`."""
+    q = lane_quantum(n_shards)
+    return -(-n // q) * q
+
+
 def _mesh_device(d) -> torch.device:
     dev = resolve_device(d)
     if dev.type == "cuda":
@@ -228,32 +239,37 @@ class ShardedVerify:
     such as "cuda:1"), one shard each, in order; a device may appear more
     than once. Pure data parallelism, as in the JAX module: no
     device-to-device copy and no collective. One stream per card shard,
-    made once here."""
+    made once here.
 
-    def __init__(self, mesh: Sequence):
+    `verify` and `bucket` choose another per-shard function and its lane
+    count (`dispatch`'s `verify`; bucket(n, shards) lanes in all): the
+    sharded `f32` backend runs B3's `verify_plain` per shard."""
+
+    def __init__(self, mesh: Sequence, verify=None, bucket=quantum_bucket):
         if len(mesh) == 0:
             raise ValueError("a mesh needs at least one device")
         self.devices = [_mesh_device(d) for d in mesh]
         self.streams = [
             torch.cuda.Stream(device=d) if d.type == "cuda" else None for d in self.devices
         ]
+        self.verify = verify
+        self.bucket = bucket
 
     def __len__(self) -> int:
         return len(self.devices)
 
     def dispatch(self, planes: np.ndarray, rs: np.ndarray) -> ShardedVerdicts:
         """`dispatch` over this mesh's devices and streams."""
-        return dispatch(planes, rs, self.devices, self.streams)
+        return dispatch(planes, rs, self.devices, self.streams, self.verify)
 
 
 def sharded_verify_arrays(items: list[tuple[bytes, bytes, bytes]], sharded: ShardedVerify):
     """Marshal once on the host and dispatch through `sharded`: returns
     (ShardedVerdicts, valid, n), the verdicts still in flight (None for an
-    empty batch). The bucket is n rounded up to a multiple of
-    `lane_quantum`; padding lanes are valid=False."""
+    empty batch). The bucket is `sharded.bucket(n, shards)` lanes
+    (`quantum_bucket` for B1); padding lanes are valid=False."""
     n = len(items)
     if n == 0:
         return None, np.zeros(0, dtype=bool), 0
-    q = lane_quantum(len(sharded))
-    planes, rs, valid = host_planes(items, -(-n // q) * q)
+    planes, rs, valid = host_planes(items, sharded.bucket(n, len(sharded)))
     return sharded.dispatch(planes, rs), valid, n

@@ -12,11 +12,14 @@ identical accept/reject semantics:
 - wider batches run on the verifier's device: a CUDA kernel on the card,
   or its plain version for `device="cpu"`. The kernel comes from the
   registry `KERNELS` by the JAX package's env knob TENDERMINT_TPU_KERNEL,
-  read once per Verifier: `f32p` (B1, the default) or `pallas` (B2).
+  read once per Verifier: `f32p` (B1, the default), `pallas` (B2), `comb`
+  (B4, the per-validator comb tables), or the torch compositions `f32`
+  (B3) and `int32` (B5's verify).
 
-`ShardedVerifier` splits each device batch over a mesh of devices, one
-launch of B1 per shard on its own device and stream (B1', the
-counterpart of the JAX package's shard_map over the f32p ladder).
+`ShardedVerifier` splits each device batch over a mesh of devices: under
+`f32p` one launch of B1 per shard on its own device and stream (B1', the
+counterpart of the JAX package's shard_map over the f32p ladder), under
+`f32` B3's `verify_plain` per shard (the JAX package's pjit backend).
 
 Aggregate commits verify as one half-aggregate equation
 (`verify_aggregate`): its n + 1 dual scalar multiplications run in the
@@ -41,7 +44,7 @@ import time
 from tendermint_tpu_torch import native
 from tendermint_tpu_torch.crypto import ed25519_agg
 from tendermint_tpu_torch.crypto.keys import verify_any
-from tendermint_tpu_torch.ops import ed25519, ed25519_f32p, resolve_device
+from tendermint_tpu_torch.ops import ed25519, ed25519_f32, ed25519_f32p, resolve_device
 
 logger = logging.getLogger("tendermint_tpu_torch.ops.gateway")
 
@@ -82,13 +85,16 @@ def _split_by_key_type(items: list[Item]):
 
 # The port's verify kernels by their JAX registry names. Each module has
 # verify_batch(items, device) -> bool[n] with identical accept/reject
-# semantics; f32p also pipelines (verify_batch_async).
+# semantics; f32p, f32 and comb also pipeline (verify_batch_async).
 KERNELS = {
+    "comb": "tendermint_tpu_torch.ops.ed25519_comb",
+    "f32": "tendermint_tpu_torch.ops.ed25519_f32",
     "f32p": "tendermint_tpu_torch.ops.ed25519_f32p",
+    "int32": "tendermint_tpu_torch.ops.ed25519",
     "pallas": "tendermint_tpu_torch.ops.ed25519_pallas",
 }
 # names the JAX package's registry has and the port does not yet
-_NOT_PORTED = ("comb", "devd", "f32", "int32")
+_NOT_PORTED = ("devd",)
 
 
 def kernel_name(accepted=None, refusal=None) -> str:
@@ -232,8 +238,8 @@ class Verifier:
             res = _cpu_verify_batch(items)
             return lambda: res
         if not hasattr(self._module, "verify_batch_async"):
-            # B2, like the JAX module, verifies synchronously under the
-            # same contract
+            # B2 and int32, like their JAX modules, verify synchronously
+            # under the same contract
             res_now = [bool(b) for b in self._module.verify_batch(items, self.device)]
             self._device_batch(n)
             return lambda: res_now
@@ -328,8 +334,9 @@ class Verifier:
 
 class ShardedVerifier(Verifier):
     """A Verifier whose device batches split over `mesh`, a sequence of
-    devices (see ed25519_f32p.ShardedVerify): each shard runs B1 on its
-    own device and stream, and the verdicts gather into one pinned host
+    devices (see ed25519_f32p.ShardedVerify): each shard runs B1 (under
+    `f32p`, the default) or B3's `verify_plain` (under `f32`) on its own
+    device and stream, and the verdicts gather into one pinned host
     buffer. A 10,000-validator commit's lanes split over n cards.
 
     As in the JAX package: batches below `min_tpu_batch` run on the CPU,
@@ -343,18 +350,17 @@ class ShardedVerifier(Verifier):
 
     @staticmethod
     def _refusal(name: str) -> str:
-        detail = (
-            "the sharded f32 backend (B3 under pjit) is not ported"
-            if name == "f32"
-            else "run a bake-off backend through the base Verifier"
-        )
-        return f"ShardedVerifier shards the f32/f32p kernels; TENDERMINT_TPU_KERNEL={name!r} — {detail}"
+        return (f"ShardedVerifier shards the f32/f32p kernels; TENDERMINT_TPU_KERNEL={name!r} — "
+                "run a bake-off backend through the base Verifier")
 
     def __init__(self, mesh, min_tpu_batch: int | None = None):
-        # before the base reads the knob: the base refuses the JAX-only
-        # names as "not ported", and the sharded path has its own refusal
-        kernel_name(accepted=("f32p",), refusal=self._refusal)
-        sharded = ed25519_f32p.ShardedVerify(mesh)
+        # before the base reads the knob: the sharded path has its own
+        # refusal for every other name
+        name = kernel_name(accepted=("f32p", "f32"), refusal=self._refusal)
+        if name == "f32":
+            sharded = ed25519_f32p.ShardedVerify(mesh, ed25519_f32.verify_rows, ed25519_f32.sharded_bucket)
+        else:
+            sharded = ed25519_f32p.ShardedVerify(mesh)
         # the base's own device (aggregate verifies) is the mesh's first
         super().__init__(min_tpu_batch=min_tpu_batch, device=sharded.devices[0])
         self.mesh = list(mesh)

@@ -87,6 +87,10 @@ _ENTRIES = {
     "ed25519_verify_b2": ("tm_ed25519_verify_b2", [_vp] * 7 + [_i32, _vp]),
     # px, py, qx, qy, a8, b8, x8, y8, n, stream
     "ed25519_dsm": ("tm_ed25519_dsm", [_vp] * 8 + [_i32, _vp]),
+    # pool, btab, slots, ry, rsign, s8, h8, out, n, pool_slots, stream
+    "ed25519_comb": ("tm_ed25519_comb", [_vp] * 8 + [_i32, _i32, _vp]),
+    # qx, qy, slots, pool, scratch, k, pool_slots, stream
+    "ed25519_comb_tables": ("tm_ed25519_comb_tables", [_vp] * 5 + [_i32, _i32, _vp]),
     # wide, chains, out, iters, blocks, threads, stream: the multiply-rate probe
     "imad_rate": ("tm_imad_rate", [_i32, _i32, _vp, _i32, _i32, _i32, _vp]),
 }

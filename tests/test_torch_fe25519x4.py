@@ -14,14 +14,17 @@ the kernels' own Z inversion (`block_invert`, one lane a block here) runs
 as written. g++ builds with UBSan, so a signed overflow in the limb
 arithmetic fails the run.
 
-`verify_lane` (B1) and `verify_lane_b2` (B2) are each held against their
-own plain version (`ed25519_f32.verify_plain`, `ed25519_pallas.verify_plain`;
-raw verdicts lane for lane) and against `crypto.ed25519.verify` of both
+`verify_lane` (B1), `verify_lane_b2` (B2) and `comb_verify_lane` (comb)
+are each held against their own plain version (`ed25519_f32.verify_plain`, `ed25519_pallas.verify_plain`,
+`ed25519_comb.verify_comb_plain`; raw verdicts lane for lane) and against `crypto.ed25519.verify` of both
 packages (masked verdicts) on the RFC 8032 vectors and the tampered,
 malformed and identical-key families of tests/test_ops_f32.py
 `TestVerifyF32`; `dsm_lane` against `dsm_plain` and the pure-Python group
 law on the edge lanes (Q = identity, a = 0, b = 0, P == Q, P == -Q) and on
-random lanes. Every comparison is exact equality.
+random lanes; one comb step (`ge4_add<true>` on a loaded niels row)
+against `ed25519_comb._niels_add`, and the comb table build
+(`comb_bases_lane`, `comb_position`) against `build_tables_plain`, byte for
+byte. Every comparison is exact equality.
 """
 
 from __future__ import annotations
@@ -101,6 +104,12 @@ void run_group(Body body) {
 @DSM@
 }  // namespace
 
+@COMB@
+}  // namespace
+
+@COMB_TABLES@
+}  // namespace
+
 extern "C" int host_verify_lane(const uint32_t* axw, const uint32_t* ayw, const uint32_t* ryw,
                                 int rsign, const uint32_t* sw, const uint32_t* hw) {
   int32_t out[4];
@@ -141,6 +150,39 @@ extern "C" void host_field_op(int op, const int32_t* a, const int32_t* b, const 
   for (int i = 0; i < 10; ++i) out[i] = r.v[i];
 }
 
+// The comb kernel's lane on one slot's table and the B table.
+extern "C" int host_comb_lane(const uint8_t* a_tab, const uint8_t* b_tab, const uint32_t* ryw,
+                              int rsign, const uint32_t* sw, const uint32_t* hw) {
+  int32_t out[4];
+  Fe zs[1];
+  run_group([&](int t) { out[t] = comb_verify_lane<1>(t, a_tab, b_tab, ryw, rsign, sw, hw, zs); });
+  return out[0];
+}
+
+// One comb step: the extended point acc (X, Y, Z, T; 4 x 10 limbs) plus the
+// niels row `row`, each thread loading its coordinate as the kernel does.
+extern "C" void host_comb_step(const int32_t* acc, const uint8_t* row, int32_t* out) {
+  Fe res[4];
+  run_group([&](int t) {
+    Fe p;
+    for (int i = 0; i < 10; ++i) p.v[i] = acc[10 * t + i];
+    uint32_t w[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    if (t != 2) load_coord_words(row, t == 3 ? 2 : t, w);
+    res[t] = ge4_add<true>(t, p, fe_from_words(w));
+  });
+  for (int t = 0; t < 4; ++t)
+    for (int i = 0; i < 10; ++i) out[10 * t + i] = res[t].v[i];
+}
+
+// The table build of one key: pass 1 on four threads, then pass 2 for each
+// of the 64 positions, into 1024 rows of 96 bytes.
+extern "C" void host_comb_table(const uint32_t* qxw, const uint32_t* qyw, uint8_t* rows) {
+  static Fe bases[4 * kCombPositions];
+  run_group([&](int t) { comb_bases_lane(t, qxw, qyw, bases, true); });
+  for (int p = 0; p < kCombPositions; ++p)
+    comb_position(bases + 4 * p, rows + p * kCombEntries * kRowBytes);
+}
+
 extern "C" void host_dsm_lane(const uint32_t* pxw, const uint32_t* pyw, const uint32_t* qxw,
                               const uint32_t* qyw, const uint32_t* aw, const uint32_t* bw,
                               uint32_t* xw, uint32_t* yw) {
@@ -170,7 +212,9 @@ def lib(tmp_path_factory):
     (d / "cuda_runtime.h").write_text(STUB_CUDA_RUNTIME)
     src = (HARNESS.replace("@VERIFY@", _cut("ed25519_verify.cu"))
            .replace("@VERIFY_B2@", _cut("ed25519_verify_b2.cu"))
-           .replace("@DSM@", _cut("ed25519_dsm.cu")))
+           .replace("@DSM@", _cut("ed25519_dsm.cu"))
+           .replace("@COMB@", _cut("ed25519_comb.cu"))
+           .replace("@COMB_TABLES@", _cut("ed25519_comb_tables.cu")))
     (d / "harness.cpp").write_text(src)
     so = d / "libharness.so"
     proc = subprocess.run(
@@ -187,6 +231,13 @@ def lib(tmp_path_factory):
     lib.host_verify_lane_b2.restype = ctypes.c_int
     lib.host_dsm_lane.argtypes = [words] * 8
     lib.host_dsm_lane.restype = None
+    u8 = ctypes.POINTER(ctypes.c_uint8)
+    lib.host_comb_lane.argtypes = [u8, u8, words, ctypes.c_int, words, words]
+    lib.host_comb_lane.restype = ctypes.c_int
+    lib.host_comb_step.argtypes = [ctypes.POINTER(ctypes.c_int32), u8, ctypes.POINTER(ctypes.c_int32)]
+    lib.host_comb_step.restype = None
+    lib.host_comb_table.argtypes = [words, words, u8]
+    lib.host_comb_table.restype = None
     limbs = ctypes.POINTER(ctypes.c_int32)
     lib.host_field_op.argtypes = [ctypes.c_int] + [limbs] * 5
     lib.host_field_op.restype = None
@@ -361,3 +412,117 @@ def test_field_helpers_hold_their_bounds_at_the_extremes(lib, seed):
         assert all(v >= 0 for v in got)
         bound = CARRIED_MAX if op >= 5 else [b - 1 for b in light_bound]
         assert all(v <= b for v, b in zip(got, bound)), (op, got)
+
+
+# -- the comb kernels ---------------------------------------------------------
+
+
+def _fe_limbs(v: int) -> list[int]:
+    """A value below p as carried radix-2^25.5 limbs."""
+    return [(v >> o) & ((1 << w) - 1) for o, w in zip(OFFSETS, WIDTHS)]
+
+
+def _f32_int(limbs) -> int:
+    """The value of (32,) radix-2^8 limbs, loose or not."""
+    return sum(int(x) << (8 * k) for k, x in enumerate(limbs))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_comb_step_matches_niels_add(lib, seed):
+    """One comb step on four threads, each loading its coordinate of a
+    niels row of the B table: the same X, Y, Z, T mod p as the plain
+    version's `_niels_add` on the same point and row."""
+    from tendermint_tpu_torch.ops import ed25519_comb as tcomb
+
+    rng = np.random.default_rng(seed)
+    tab = tcomb.b_table().astype(np.uint8)
+    for p, v in ((0, 0), (int(rng.integers(64)), int(rng.integers(1, 16))), (63, 15)):
+        row = np.ascontiguousarray(tab[p, v])
+        acc = [int.from_bytes(rng.bytes(32), "little") % P25519 for _ in range(4)]
+        acc_limbs = np.array([_fe_limbs(c) for c in acc], dtype=np.int32)
+        out = np.zeros((4, 10), dtype=np.int32)
+        ptr = ctypes.POINTER(ctypes.c_int32)
+        lib.host_comb_step(acc_limbs.ctypes.data_as(ptr),
+                           row.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), out.ctypes.data_as(ptr))
+        got = [_limb_value(out[c]) % P25519 for c in range(4)]
+        cols = [torch.from_numpy(np.frombuffer(c.to_bytes(32, "little"), dtype=np.uint8)
+                                 .astype(np.float32))[:, None] for c in acc]
+        rowf = torch.from_numpy(row.astype(np.float32))[:, None]
+        want = tcomb._niels_add(tuple(cols), rowf[:32], rowf[32:64], rowf[64:])
+        assert got == [_f32_int(w[:, 0].numpy()) % P25519 for w in want]
+
+
+def _comb_pool(items):
+    """The lanes' keys built into a pool by the plain version: (pool rows
+    (C*1024, 96) uint8, slot per lane (0 where the host rejected the
+    lane), host planes, rsign, valid)."""
+    from tendermint_tpu_torch.ops import ed25519_comb as tcomb
+
+    planes, rs, valid = tf32p.host_planes(items, len(items))
+    keys = {}
+    slots = np.zeros(len(items), dtype=np.int32)
+    for i, (pub, _, _) in enumerate(items):
+        if valid[i]:
+            slots[i] = keys.setdefault(pub, (len(keys) + 1, i))[0]
+    firsts = [i for _, i in keys.values()]
+    qx = np.stack([np.frombuffer(tcomb._neg_x_bytes(planes[0, :, i].tobytes()), dtype=np.uint8)
+                   for i in firsts], axis=1)
+    qy = planes[1][:, firsts]
+    tables = tcomb.build_tables_plain(torch.from_numpy(qx.astype(np.float32)),
+                                      torch.from_numpy(qy.astype(np.float32)))
+    pool = np.zeros((len(keys) + 1, tcomb.ROWS_PER_SLOT, tcomb.COORD_ROWS), dtype=np.uint8)
+    pool[1:] = tables.numpy().astype(np.uint8)
+    return pool.reshape(-1, tcomb.COORD_ROWS), slots, planes, rs, valid
+
+
+@pytest.mark.parametrize("family", ["identical_keys", "odd", "rfc8032", "tampered"])
+def test_comb_lane_matches_plain_and_reference(lib, family):
+    """The comb kernel's lane (`comb_verify_lane`) on four threads, its
+    tables built by the plain version: raw verdicts equal to
+    `verify_comb_plain`'s on the same pool, masked verdicts equal to both
+    packages' crypto.ed25519.verify."""
+    from tendermint_tpu.crypto import ed25519 as jed
+    from tendermint_tpu_torch.ops import ed25519_comb as tcomb
+
+    items = _verify_families()[family]()
+    pool, slots, planes, rs, valid = _comb_pool(items)
+    btab = np.ascontiguousarray(tcomb.b_table().astype(np.uint8))
+    u8 = ctypes.POINTER(ctypes.c_uint8)
+    got = []
+    for i in range(len(items)):
+        slot_rows = np.ascontiguousarray(pool.reshape(-1, tcomb.ROWS_PER_SLOT, 96)[slots[i]])
+        keep = [_words(planes[k, :, i]) for k in (2, 3, 4)]  # ry, s8, h8
+        ry, s8, h8 = (p for _, p in keep)
+        got.append(lib.host_comb_lane(slot_rows.ctypes.data_as(u8), btab.ctypes.data_as(u8),
+                                      ry, int(rs[i]), s8, h8))
+    got = np.array(got, dtype=np.int32)
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (pool, btab.reshape(-1, 96), slots,
+                                                                 planes[2], rs, planes[3], planes[4])]
+    assert np.array_equal(got, tcomb.comb_lanes(*args).numpy())
+    verdicts = tf32p.materialize_verdicts(got, valid, len(items))
+    assert list(verdicts) == [ted.verify(*it) for it in items]
+    assert list(verdicts) == [jed.verify(*it) for it in items]
+
+
+def test_comb_table_build_matches_plain(lib):
+    """Both passes of the table-build kernel for three keys and the
+    small-order identity key: every row byte for byte the plain version's."""
+    from tendermint_tpu_torch.ops import ed25519_comb as tcomb
+
+    pubs = [ted.public_key(bytes([i + 5]) * 32) for i in range(3)] + [(1).to_bytes(32, "little")]
+    cols = []
+    for pub in pubs:  # Q = -A, affine
+        pt = ted.point_decompress(pub)
+        zi = pow(pt[2], P25519 - 2, P25519)
+        x, y = pt[0] * zi % P25519, pt[1] * zi % P25519
+        cols.append([np.frombuffer(v.to_bytes(32, "little"), dtype=np.uint8) for v in ((-x) % P25519, y)])
+    qx = np.stack([c[0] for c in cols], axis=1)
+    qy = np.stack([c[1] for c in cols], axis=1)
+    want = tcomb.build_tables_plain(torch.from_numpy(qx.astype(np.float32)),
+                                    torch.from_numpy(qy.astype(np.float32))).numpy().astype(np.uint8)
+    for j in range(len(pubs)):
+        rows = np.zeros((tcomb.ROWS_PER_SLOT, tcomb.COORD_ROWS), dtype=np.uint8)
+        _, xw = _words(qx[:, j])
+        _, yw = _words(qy[:, j])
+        lib.host_comb_table(xw, yw, rows.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+        assert np.array_equal(rows, want[j]), j

@@ -61,22 +61,97 @@ def test_pallas_selects_b2_once_per_verifier(monkeypatch, routes):
     assert v.stats()["tpu_batches"] == 1 and v.stats()["tpu_sigs"] == len(items)
 
 
+PORTED = r"\['comb', 'f32', 'f32p', 'int32', 'pallas'\]"
+
+
 @pytest.mark.parametrize("name", ["comb", "f32", "int32", "devd"])
 def test_jax_only_kernels_raise_naming_the_ported_ones(monkeypatch, name):
-    monkeypatch.setenv("TENDERMINT_TPU_KERNEL", name)
-    with pytest.raises(ValueError, match=r"not ported.*\['f32p', 'pallas'\]"):
+    """devd is the one name of the JAX registry the port lacks: it raises,
+    naming the ported kernels, `name` among them unless it is devd."""
+    assert gateway._NOT_PORTED == ("devd",)
+    monkeypatch.setenv("TENDERMINT_TPU_KERNEL", "devd")
+    with pytest.raises(ValueError, match=r"not ported.*" + PORTED) as exc:
         Verifier(device="cpu")
+    assert (f"'{name}'" in str(exc.value).split("the port has")[1]) == (name != "devd")
 
 
 def test_unknown_kernel_raises_as_in_jax(monkeypatch):
     from tendermint_tpu.ops import gateway as jgateway
 
     monkeypatch.setenv("TENDERMINT_TPU_KERNEL", "cuda")
-    with pytest.raises(ValueError, match=r"expected one of \['f32p', 'pallas'\]") as mine:
+    with pytest.raises(ValueError, match=r"expected one of " + PORTED) as mine:
         gateway.kernel_name()
     with pytest.raises(ValueError) as theirs:
         jgateway.kernel_name()
     assert str(mine.value).split(":")[0] == str(theirs.value).split(":")[0]
+
+
+def _families() -> list:
+    """Every verify family of tests/test_torch_verify.py in one batch."""
+    return [it for name in sorted(FAMILIES) for it in FAMILIES[name]()]
+
+
+def test_f32_selects_b3_on_the_verifier_device(monkeypatch, routes):
+    """`f32` runs B3's verify_plain on the verifier's device, with the JAX
+    package's f32 kernel's verdicts, and pipelines like f32p."""
+    from tendermint_tpu.ops import ed25519_f32 as jf32
+    from tendermint_tpu_torch.ops import ed25519_f32 as tf32
+
+    _spy(monkeypatch, tf32, "verify_batch_async", routes)
+    monkeypatch.setenv("TENDERMINT_TPU_KERNEL", "f32")
+    v = Verifier(min_tpu_batch=1, device="cpu")
+    items = FAMILIES["tampered"]()
+    assert v.kernel == "f32"
+    got = v.verify_batch_async(items)()
+    assert routes == ["ed25519_f32.verify_batch_async"]
+    assert got == [bool(b) for b in jf32.verify_batch(items)] == [ted.verify(*it) for it in items]
+    # the two bad-length lanes verify on the CPU (the key-type split)
+    assert v.stats() | {"tpu_batches": 1, "tpu_sigs": 8, "cpu_sigs": 2} == v.stats()
+
+
+def test_int32_selects_the_int32_verify(monkeypatch, routes):
+    """`int32` runs verify_int32_plain synchronously, as JAX's int32 module
+    does; its verdicts against the JAX int32 kernel are
+    tests/test_torch_int32.py's."""
+    from tendermint_tpu_torch.ops import ed25519 as ted32
+
+    _spy(monkeypatch, ted32, "verify_batch", routes)
+    monkeypatch.setenv("TENDERMINT_TPU_KERNEL", "int32")
+    v = Verifier(min_tpu_batch=1, device="cpu")
+    items = _families()
+    resolve = v.verify_batch_async(items)
+    assert routes == ["ed25519.verify_batch"]
+    assert resolve() == [ted.verify(*it) for it in items]
+    ed_lanes = sum(gateway._ed25519_lane(it) for it in items)
+    assert v.kernel == "int32" and v.stats()["tpu_sigs"] == ed_lanes < len(items)
+
+
+def test_comb_selects_b4_with_the_jax_routing(monkeypatch, routes):
+    """`comb` under the default second-sight policy: a commit's first block
+    rides the ladder (B1), its second the comb kernel, with the JAX comb
+    kernel's verdicts and pool stats on the same call sequence."""
+    from tendermint_tpu.ops import ed25519_comb as jcomb
+    from tendermint_tpu_torch.ops import ed25519_comb as tcomb
+
+    _spy(monkeypatch, tcomb, "_dispatch_comb", routes)
+    monkeypatch.delenv("TENDERMINT_TPU_COMB_MIN_SIGHT", raising=False)
+    monkeypatch.setenv("TENDERMINT_TPU_KERNEL", "comb")
+    tcomb.reset_default_pool()
+    jcomb.reset_default_pool()
+    try:
+        v = Verifier(min_tpu_batch=1, device="cpu")
+        for block in (FAMILIES["tampered"](), FAMILIES["tampered"]()):
+            got = v.verify_batch(block)
+            assert got == [bool(b) for b in jcomb.verify_batch(block)]
+            assert got == [ted.verify(*it) for it in block]
+        # the bad-length lanes never reach the kernel (the key-type split)
+        assert routes == ["ed25519_f32p.verify_batch_async", "ed25519_comb._dispatch_comb"]
+        assert tcomb.default_pool("cpu").stats == jcomb.default_pool().stats
+        # the keys of the lanes the host marshal accepts: pubs 0-3 and 01..01
+        assert tcomb.default_pool("cpu").stats["build_keys"] == 5
+    finally:
+        tcomb.reset_default_pool()
+        jcomb.reset_default_pool()
 
 
 def _signed(n, salt):

@@ -1,7 +1,10 @@
 """The port's int32 radix-2^15 family against the JAX package's, on the CPU:
 the field and point ops of `ops.ed25519` and the row ops of
 `ops.ed25519_pallas` (eager JAX on the same numpy inputs), the host
-marshal and limb codecs, B2's plain version and the dual scalar multiply.
+marshal and limb codecs, B2's plain version, the dual scalar multiply,
+and the registry kernel `int32` (`verify_batch`, against the JAX int32
+kernel, one compile of it for every family at once) with `decompress_batch`
+(against JAX's on tests/test_ops.py::test_decompress_batch's family).
 
 Every quantity is an integer, a byte or a bool, so every comparison is
 exact equality. Inputs are tests/test_ops.py's random field elements and
@@ -324,6 +327,91 @@ def test_dsm_wrapper_checks_arguments():
         ted32.dsm_lanes(rows[0].int(), *rows[1:])
     with pytest.raises(ValueError, match="contiguous"):
         ted32.dsm_lanes(*rows[:5], torch.zeros((2, 32), dtype=torch.uint8).t())
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_feq_and_select4_match_jax(case):
+    import jax.numpy as jnp
+
+    from tendermint_tpu.ops import ed25519 as jed32
+
+    a, b = _field_inputs()[case]
+    for x, y in ((a, b), (a, a), (a, ted32.int_to_limbs_np([ted32.limbs_to_int(a[:, i]) % P
+                                                          for i in range(LANES)]))):
+        _same(ted32.feq(torch.from_numpy(x), torch.from_numpy(y)), jed32.feq(jnp.asarray(x), jnp.asarray(y)))
+    pts = _points(5) + _points(6)
+    sel = np.arange(LANES, dtype=np.int32) % 4
+    got = ted32._select4(torch.from_numpy(sel), [tuple(torch.from_numpy(c) for c in p) for p in pts])
+    want = jed32._select4(jnp.asarray(sel), [tuple(jnp.asarray(c) for c in p) for p in pts])
+    for g, w in zip(got, want):
+        _same(g, w)
+
+
+def test_int32_verify_matches_the_jax_int32_kernel():
+    """verify_batch (the registry's `int32`) against the JAX package's
+    int32 verify_batch on every verify family in one batch, lane for lane,
+    and the plain version's raw verdicts against JAX's `_verify_jit` on
+    the same marshalled limbs."""
+    import jax.numpy as jnp
+
+    from tendermint_tpu.ops import ed25519 as jed32
+
+    items = _all_families()
+    want = jed32.verify_batch(items)
+    assert list(ted32.verify_batch(items, "cpu")) == list(want) == [ted.verify(*it) for it in items]
+    bucket = 64  # JAX's bucket for these lanes: the compile above
+    arrays = ted32.prepare_batch_limbs(items, bucket)[:6]
+    raw = jed32._verify_jit(*(jnp.asarray(a) for a in arrays))
+    assert np.array_equal(ted32.verify_int32_plain(*(torch.from_numpy(a) for a in arrays)).numpy(),
+                          np.asarray(raw))
+    assert list(ted32.verify_batch([], "cpu")) == []
+
+
+def _decompress_family():
+    """tests/test_ops.py::test_decompress_batch's keys and 0xff..ff, then
+    edge encodings: y = 1 with the sign bit (x = 0, sign 1: invalid), the
+    identity, y = p (non-canonical), y = p - 1 with either sign, and a y
+    with no square root."""
+    import hashlib
+
+    pubs = [ted.public_key(hashlib.sha256(b"d%d" % i).digest()) for i in range(6)]
+    edges = [(1 | (1 << 255)).to_bytes(32, "little"), (1).to_bytes(32, "little"),
+             P.to_bytes(32, "little"), (P - 1).to_bytes(32, "little"),
+             (P - 1 | (1 << 255)).to_bytes(32, "little"), (2).to_bytes(32, "little")]
+    return pubs + [b"\xff" * 32] + edges
+
+
+def test_decompress_batch_matches_jax():
+    from tendermint_tpu.ops import ed25519 as jed32
+
+    keys = _decompress_family()
+    x, y, valid = ted32.decompress_batch(keys, "cpu")
+    jx, jy, jvalid = jed32.decompress_batch(keys)
+    assert x.dtype == jx.dtype and np.array_equal(x, jx)
+    assert np.array_equal(y, jy) and np.array_equal(valid, jvalid)
+    for i, key in enumerate(keys):
+        pt = ted.point_decompress(key)
+        assert bool(valid[i]) == (pt is not None)
+        if pt is not None:
+            assert (ted32.limbs_to_int(x[:, i]), ted32.limbs_to_int(y[:, i])) == (pt[0], pt[1])
+    assert valid[:6].all() and not valid[6]
+    x0, y0, v0 = ted32.decompress_batch([], "cpu")
+    assert x0.shape == y0.shape == (17, 0) and v0.shape == (0,)
+
+
+@pytest.mark.cuda
+def test_int32_verify_and_decompress_on_the_card_equal_the_cpu():
+    """The torch CUDA int32 multiply and add of verify_int32_plain and
+    decompress_plain wrap as the CPU's do: the same verdicts, limbs and
+    masks on the RFC 8032 and tampered families."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    items = FAMILIES["rfc8032"]() + FAMILIES["tampered"]()
+    assert list(ted32.verify_batch(items, "cuda")) == list(ted32.verify_batch(items, "cpu"))
+    assert list(ted32.verify_batch(items, "cuda")) == [ted.verify(*it) for it in items]
+    keys = _decompress_family()
+    for a, b in zip(ted32.decompress_batch(keys, "cuda"), ted32.decompress_batch(keys, "cpu")):
+        assert np.array_equal(a, b)
 
 
 @pytest.mark.cuda

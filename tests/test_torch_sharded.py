@@ -1,6 +1,7 @@
 """The port's sharded verify path (B1' and ShardedVerifier) against the
 JAX package's ShardedVerifier on the 8-device CPU mesh of
-tests/conftest.py, under TENDERMINT_TPU_KERNEL=f32p.
+tests/conftest.py, under TENDERMINT_TPU_KERNEL=f32p and, for the sharded
+B3 backend, f32.
 
 The port's CPU mesh is a list of "cpu" shards, each running the
 kernel's plain version; verdicts and stats must equal JAX's exactly.
@@ -125,15 +126,53 @@ def test_sharded_refuses_other_kernels(monkeypatch, name):
     from tendermint_tpu.ops import gateway
 
     monkeypatch.setenv("TENDERMINT_TPU_KERNEL", name)
-    with pytest.raises(ValueError, match="shards the f32/f32p") as mine:
-        ShardedVerifier(["cpu"] * 2)
     if name == "f32":
-        assert "not ported" in str(mine.value)
+        # the sharded f32 backend is ported: both packages accept the name
+        assert ShardedVerifier(["cpu"] * 2).kernel == "f32"
+        assert gateway.ShardedVerifier(Mesh(np.array(jax.devices()), ("batch",)))._kernel == "f32"
         return
+    with pytest.raises(ValueError, match="shards the f32/f32p"):
+        ShardedVerifier(["cpu"] * 2)
     # the JAX package refuses the same names, with the same words except a
     # name it does not know, which its base class refuses first
     with pytest.raises(ValueError, match="shards the f32/f32p" if name != "typo" else "expected one of"):
         gateway.ShardedVerifier(Mesh(np.array(jax.devices()), ("batch",)))
+
+
+@pytest.mark.parametrize("route", ["sync", "async"])
+def test_sharded_f32_equal_to_jax(route, monkeypatch):
+    """Under TENDERMINT_TPU_KERNEL=f32 each shard runs B3's verify_plain
+    (the JAX package's pjit backend): verdicts and stats equal JAX's, the
+    bucket is JAX's (the next power of two, a multiple of the mesh) split
+    evenly, and B1 never launches."""
+    monkeypatch.setenv("TENDERMINT_TPU_KERNEL", "f32")
+    items = _mk_items(12, corrupt=[(3, "sig"), (7, "msg")])
+    jv = _jax_sharded()
+    tv = ShardedVerifier(["cpu"] * 2, min_tpu_batch=1)
+    assert tv.kernel == jv._kernel == "f32"
+    before = tf32p.launches
+    if route == "async":
+        want, got = jv.verify_batch_async(items)(), tv.verify_batch_async(items)()
+    else:
+        want, got = jv.verify_batch(items), tv.verify_batch(items)
+    assert got == want == [i not in (3, 7) for i in range(12)]
+    assert tv.stats() == jv.stats()
+    assert tv.last_shard_layout == [("cpu", 8), ("cpu", 8)]
+    assert tf32p.launches == before
+
+
+def test_sharded_f32_mixed_key_batch_and_cpu_floor(monkeypatch):
+    """secp256k1 lanes verify on the CPU under f32 too, and a batch below
+    the size gate never reaches a shard."""
+    from tests.test_torch_secp256k1 import mixed_batch
+
+    monkeypatch.setenv("TENDERMINT_TPU_KERNEL", "f32")
+    items, expect = mixed_batch()
+    tv = ShardedVerifier(["cpu"] * 2, min_tpu_batch=1)
+    assert tv.verify_batch(items) == expect
+    assert tv.stats()["tpu_batches"] == 1 and tv.stats()["cpu_sigs"] == 3
+    floor = ShardedVerifier(["cpu"] * 2, min_tpu_batch=64)
+    assert floor.verify_batch(items) == expect and floor.last_shard_layout is None
 
 
 def test_sharded_fast_sync_group_equal_to_jax(f32p_knob):
