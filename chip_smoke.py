@@ -82,9 +82,10 @@ Phases, in order; any failure raises and exits non-zero:
 
 13. The comb kernels (`ed25519_comb`: B4's verify against per-key tables;
    `ed25519_comb_tables`: the table build) against their plain versions on
-   the card: 64 keys' tables, bytes exactly; every table of the
-   10,000-validator set built in one launch, 8 sampled keys' rows equal
-   to a pure-Python niels table; the comb verdicts on every lane set of
+   the card: the tables of 1, 7, 33, 64, 65 and 1000 keys, bytes exactly;
+   every table of the 10,000-validator set built in one launch, bytes
+   exactly too, and 8 sampled keys' rows equal to a pure-Python niels
+   table; the comb verdicts on every lane set of
    phase 2 and at the ragged lane counts equal `verify_comb_plain`'s raw
    verdicts and B1's masked ones.
 14. The main path through comb: the phase-3 commits under
@@ -150,6 +151,8 @@ KERNEL_NAMES = ("ed25519_verify", "ed25519_verify_b2", "ed25519_dsm")
 COMB_NAMES = ("ed25519_comb", "ed25519_comb_tables")  # phases 13-17
 COMB_TABLE_KEYS = (1, 100, 1000, 10_000)  # table builds timed in phase 17
 COMB_JSON_KEYS = 100  # the table build of the kernels line: the 100-validator commit's
+COMB_RAGGED_KEYS = (1, 7, 33, 64, 65, 1000)  # table builds held against the plain version in phase 13
+COMB_PLAIN_CHUNK = 2500  # keys a plain build of phase 13's 10,000-key check
 SMALL_POOL = 64  # phase 15's pool: 63 usable slots
 # int32 decompress_plain's work a key, counted from its code (19
 # multiplications, 255 squarings), in radix-2^25.5 limb products: the
@@ -214,7 +217,8 @@ def bound_ms(module, lanes: int) -> tuple[float, str]:
 
 def ptxas_summary(build_log: str) -> list[dict]:
     """Per entry function of a build's `-Xptxas -v` output: registers,
-    stack frame, spill stores and spill loads (bytes)."""
+    stack frame, spill stores and spill loads, static shared memory
+    (bytes)."""
     import re
 
     out, cur = [], None
@@ -230,6 +234,9 @@ def ptxas_summary(build_log: str) -> list[dict]:
         m = re.search(r"Used (\d+) registers", line)
         if m and cur is not None:
             cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m and cur is not None:
+            cur["static_smem_bytes"] = int(m.group(1))
     return out
 
 
@@ -475,7 +482,7 @@ def main() -> int:
         for entry in ptxas[kname]:
             log({"phase": "ptxas", "kernel": kname, **entry})
     check_multiply_rate(name, power)
-    for kname in COMB_NAMES:  # IMAD.WIDE a comb step (two stages: 200 a thread) and a table position
+    for kname in COMB_NAMES:  # IMAD.WIDE a comb step (two stages: 200 a thread) and a table addition
         log({"phase": "sass", "kernel": kname,
              "functions": sass_counts(os.path.join(kernels.BUILD_DIR, f"lib{kname}.so"))})
     t0 = time.perf_counter()
@@ -1348,22 +1355,24 @@ def check_comb(shapes, whole, pubs, rng):
     from tendermint_tpu_torch.ops import ed25519_f32p as f32p
 
     err = {"ed25519_comb_tables": 0, "ed25519_comb": 0}
-    # 64 keys' tables, bytes exactly
-    k = min(64, len(pubs))
-    qx, qy = comb_key_rows(pubs[:k])
-    pool = torch.zeros(((k + 1) * comb.ROWS_PER_SLOT, comb.COORD_ROWS), dtype=torch.uint8, device=DEVICE)
-    comb.build_lanes(pool, torch.from_numpy(qx).to(DEVICE), torch.from_numpy(qy).to(DEVICE),
-                     torch.arange(1, k + 1, dtype=torch.int32, device=DEVICE))
-    want = comb.build_tables_plain(torch.from_numpy(qx).to(DEVICE).float(),
-                                   torch.from_numpy(qy).to(DEVICE).float()).to(torch.uint8)
-    got = pool.view(k + 1, comb.ROWS_PER_SLOT, comb.COORD_ROWS)
-    torch.cuda.synchronize()
-    e = int((got[1:].int() - want.int()).abs().max().item())
-    err["ed25519_comb_tables"] = max(e, int(got[0].int().abs().max().item()))
-    log({"phase": "comb_tables_vs_plain", "keys": k, "max_abs_err": e, "slot0_zero": not got[0].any().item()})
-    if err["ed25519_comb_tables"]:
-        bad = torch.nonzero((got[1:] != want).any(dim=(1, 2))).flatten()[:10].tolist()
-        raise AssertionError(f"table kernel disagrees with build_tables_plain at keys {bad} (or slot 0 written)")
+    # the tables of 1 to 1000 keys (two 32-position blocks a key), bytes
+    # exactly, slot 0 untouched
+    for k in COMB_RAGGED_KEYS:
+        qx, qy = comb_key_rows(pubs[:k])
+        pool = torch.zeros(((k + 1) * comb.ROWS_PER_SLOT, comb.COORD_ROWS), dtype=torch.uint8, device=DEVICE)
+        kx, ky = torch.from_numpy(qx).to(DEVICE), torch.from_numpy(qy).to(DEVICE)
+        comb.build_lanes(pool, kx, ky, torch.arange(1, k + 1, dtype=torch.int32, device=DEVICE))
+        want = comb.build_tables_plain(kx.float(), ky.float()).to(torch.uint8)
+        got = pool.view(k + 1, comb.ROWS_PER_SLOT, comb.COORD_ROWS)
+        torch.cuda.synchronize()
+        e = int((got[1:].int() - want.int()).abs().max().item())
+        err["ed25519_comb_tables"] = max(err["ed25519_comb_tables"], e, int(got[0].int().abs().max().item()))
+        log({"phase": "comb_tables_vs_plain", "keys": k, "max_abs_err": e, "slot0_zero": not got[0].any().item()})
+        if err["ed25519_comb_tables"]:
+            bad = torch.nonzero((got[1:] != want).any(dim=(1, 2))).flatten()[:10].tolist()
+            raise AssertionError(f"table kernel disagrees with build_tables_plain at {k} keys: keys {bad} "
+                                 "(or slot 0 written)")
+        del pool, want, got
 
     # every validator's table in one launch, in the pool the verdicts use
     cpool = comb.CombPool(capacity=len(pubs) + 128, max_capacity=len(pubs) + 128, device=DEVICE)
@@ -1379,6 +1388,21 @@ def check_comb(shapes, whole, pubs, rng):
          "equal": equal, "ensure_and_build_s": build_s, "stats": cpool.stats})
     if not all(equal):
         raise AssertionError("the 10,000-key table build disagrees with the pure-Python niels table")
+    # and every one of its tables byte for byte the plain version's, in
+    # chunks the plain version's intermediates fit
+    qx, qy = comb_key_rows(pubs)
+    slot_of = torch.from_numpy(np.asarray(leased, dtype=np.int64)).to(DEVICE)
+    e = 0
+    for lo in range(0, len(pubs), COMB_PLAIN_CHUNK):
+        hi = min(lo + COMB_PLAIN_CHUNK, len(pubs))
+        want = comb.build_tables_plain(*(torch.from_numpy(np.ascontiguousarray(a[:, lo:hi])).to(DEVICE).float()
+                                         for a in (qx, qy))).to(torch.uint8)
+        e = max(e, int((rows[slot_of[lo:hi]].int() - want.int()).abs().max().item()))
+        del want
+    err["ed25519_comb_tables"] = max(err["ed25519_comb_tables"], e)
+    log({"phase": "comb_tables_vs_plain", "keys": len(pubs), "max_abs_err": e})
+    if e:
+        raise AssertionError(f"the {len(pubs)}-key table build disagrees with build_tables_plain")
 
     # verdicts: every phase-2 lane set and the ragged counts
     cases = [(label, items, whole[label]["b1"]) for label, items in shapes.items()]

@@ -1,20 +1,22 @@
-"""Time the port's B1 (csrc/ed25519_verify.cu), B2 (csrc/ed25519_verify_b2.cu)
-and dsm (csrc/ed25519_dsm.cu) kernels beside the same kernels of other
-checkouts, on one NVIDIA GPU.
+"""Time the port's B1 (csrc/ed25519_verify.cu), B2 (csrc/ed25519_verify_b2.cu),
+dsm (csrc/ed25519_dsm.cu), comb verify (csrc/ed25519_comb.cu) and comb
+table-build (csrc/ed25519_comb_tables.cu) kernels beside the same kernels
+of other checkouts, on one NVIDIA GPU.
 
 Run from the repository root on a machine with a card:
 
     python3 scripts/torch_kernel_compare.py --against LABEL=DIR [--against LABEL=DIR ...]
 
-Each `--against LABEL=DIR` adds the three sources of another checkout DIR
+Each `--against LABEL=DIR` adds the five sources of another checkout DIR
 (for example the parent commit, unpacked with `git archive`). This
 checkout's kernels and every other one are built at once into
 build/kernels/compare/ and ptxas's registers and spills are printed; every
-other checkout's output must equal this one's on the same inputs. Each is
+other checkout's output must equal this one's on the same inputs (the
+verdicts, the dsm points, the comb pool's rows byte for byte). Each is
 timed with CUDA events (median of 7 after 2 warm-ups) at the main path's
-lane counts, the checkouts taking turns, twice in opposite orders. One
-JSON line per measurement; the card's name and power limit on the first
-line.
+lane counts (the table build at COMB_KEYS keys), the checkouts taking
+turns, twice in opposite orders. One JSON line per measurement; the card's
+name and power limit on the first line.
 """
 
 from __future__ import annotations
@@ -29,12 +31,17 @@ import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
+
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 VERIFY_LANES = (100, 1024, 4096, 10_000, 16_384)
 DSM_LANES = (101, 401, 1025, 4096)
+COMB_KEYS = (1, 100, 1000, 10_000)
+COMB_DISTINCT_KEYS = 256  # keys made and signed here; larger key counts repeat them
 ENTRIES = {"ed25519_verify": "tm_ed25519_verify", "ed25519_verify_b2": "tm_ed25519_verify_b2",
-           "ed25519_dsm": "tm_ed25519_dsm"}
+           "ed25519_dsm": "tm_ed25519_dsm", "ed25519_comb": "tm_ed25519_comb",
+           "ed25519_comb_tables": "tm_ed25519_comb_tables"}
 HERE = "this"
 
 
@@ -82,9 +89,28 @@ def cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_times(fn) -> dict[str, float]:
+    """Device ms of each CUDA kernel one call of fn() launches, by kernel
+    name (torch.profiler, after a warm-up call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+        if dev_us and "kernel" in evt.key.lower():
+            out[evt.key] = dev_us / 1e3
+    return out
+
+
 def verify_args(n: int):
     """n lanes over 64 keys, every fourth signature tampered, on the card,
-    and the verdict buffer."""
+    the verdict buffer, and no count after n."""
     import torch
 
     from tendermint_tpu_torch.crypto import ed25519 as ed
@@ -97,12 +123,12 @@ def verify_args(n: int):
         sig = ed.sign(s, msg)
         base.append((ed.public_key(s), msg if k % 4 else msg + b"!", sig))
     args, _, _ = f32p.marshal_device_args((base * (n // 64 + 1))[:n], "cuda")
-    return list(args), [torch.empty(n, dtype=torch.int32, device="cuda")]
+    return list(args), [torch.empty(n, dtype=torch.int32, device="cuda")], []
 
 
 def dsm_args(n: int):
-    """n lanes of 32 distinct (a, P, b, Q) terms on the card, and the two
-    output rows."""
+    """n lanes of 32 distinct (a, P, b, Q) terms on the card, the two
+    output rows, and no count after n."""
     import torch
 
     from tendermint_tpu_torch.crypto import ed25519 as ed
@@ -117,7 +143,76 @@ def dsm_args(n: int):
 
     base = [(rnd.randrange(ed.L), affine(), rnd.randrange(ed.L), affine()) for _ in range(32)]
     rows = ed32.marshal_dsm_args((base * (n // 32 + 1))[:n], "cuda")
-    return list(rows), [torch.empty((32, n), dtype=torch.uint8, device="cuda") for _ in range(2)]
+    return list(rows), [torch.empty((32, n), dtype=torch.uint8, device="cuda") for _ in range(2)], []
+
+
+_comb_keys: list = []
+
+
+def comb_keys():
+    """COMB_DISTINCT_KEYS signed items (every fourth tampered), one key
+    each, and (32, k) uint8 rows of each key's Q = -A, made once."""
+    from tendermint_tpu_torch.crypto import ed25519 as ed
+    from tendermint_tpu_torch.ops import ed25519_comb as comb
+    from tendermint_tpu_torch.ops import ed25519_f32p as f32p
+
+    if not _comb_keys:
+        items = []
+        for k in range(COMB_DISTINCT_KEYS):
+            seed = k.to_bytes(2, "little") * 16
+            msg = b"comb-compare-%d" % k
+            items.append((ed.public_key(seed), msg if k % 4 else msg + b"!", ed.sign(seed, msg)))
+        planes, _, _ = f32p.host_planes(items, len(items))
+        qx = np.stack([np.frombuffer(comb._neg_x_bytes(planes[0, :, i].tobytes()), dtype=np.uint8)
+                       for i in range(len(items))], axis=1)
+        _comb_keys.extend([items, np.ascontiguousarray(qx), np.ascontiguousarray(planes[1])])
+    return _comb_keys
+
+
+def comb_args(n: int):
+    """n lanes of comb_keys()' items (lane i the key i mod 256, in slot
+    i mod 256 + 1 of a pool the plain version built), the verdict buffer,
+    and the pool's slot count after n."""
+    import torch
+
+    from tendermint_tpu_torch.ops import ed25519_comb as comb
+    from tendermint_tpu_torch.ops import ed25519_f32p as f32p
+
+    items, qx, qy = comb_keys()[:3]
+    k = len(items)
+    if len(_comb_keys) == 3:  # the pool, built once
+        pool = torch.zeros(((k + 1) * comb.ROWS_PER_SLOT, comb.COORD_ROWS), dtype=torch.uint8, device="cuda")
+        tables = comb.build_tables_plain(torch.from_numpy(qx).cuda().float(), torch.from_numpy(qy).cuda().float())
+        pool.view(k + 1, comb.ROWS_PER_SLOT, comb.COORD_ROWS)[1:] = tables.to(torch.uint8)
+        _comb_keys.append(pool)
+    pool = _comb_keys[3]
+    lanes = [items[i % k] for i in range(n)]
+    planes, rs, valid = f32p.host_planes(lanes, n)
+    slots = np.where(valid, np.arange(n) % k + 1, 0).astype(np.int32)
+    btab = torch.from_numpy(comb.b_table().reshape(-1, comb.COORD_ROWS).astype(np.uint8)).cuda()
+    ins = [pool, btab] + [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                          for a in (slots, planes[2], rs, planes[3], planes[4])]
+    return ins, [torch.empty(n, dtype=torch.int32, device="cuda")], [k + 1]
+
+
+def comb_tables_args(n: int):
+    """n keys (comb_keys()' repeated) into slots 1..n of a zero pool: the
+    keys' rows, the slots, the pool and the scratch (the larger of every
+    checkout's: this one's ed25519_comb.TABLE_SCRATCH_FE_PER_KEY Fe a key,
+    the 64 x 4 of the kernels before it), and the pool's slot count after
+    n. The pool is the output."""
+    import torch
+
+    from tendermint_tpu_torch.ops import ed25519_comb as comb
+
+    _, qx, qy = comb_keys()[:3]
+    reps = n // qx.shape[1] + 1
+    kx, ky = (torch.from_numpy(np.ascontiguousarray(np.tile(a, reps)[:, :n])).cuda() for a in (qx, qy))
+    slots = torch.arange(1, n + 1, dtype=torch.int32, device="cuda")
+    pool = torch.zeros(((n + 1) * comb.ROWS_PER_SLOT, comb.COORD_ROWS), dtype=torch.uint8, device="cuda")
+    scratch = torch.empty((n, max(comb.TABLE_SCRATCH_FE_PER_KEY, 4 * comb.W_POS), 10), dtype=torch.int32,
+                          device="cuda")
+    return [kx, ky, slots], [pool, scratch], [n + 1]
 
 
 def main() -> int:
@@ -125,7 +220,11 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", action="append", default=[], metavar="LABEL=DIR",
-                    help="another checkout whose B1, B2 and dsm sources to time beside these")
+                    help="another checkout whose kernel sources to time beside these")
+    ap.add_argument("--profile", action="store_true",
+                    help="also trace one launch of each comb kernel at its largest count per "
+                         "checkout (torch.profiler) and print each device kernel's time: the "
+                         "table build's passes one by one")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_compare: needs an NVIDIA GPU", file=sys.stderr)
@@ -148,32 +247,43 @@ def main() -> int:
         fn.restype = ctypes.c_int
         fns[name, label] = fn
 
-    def launch(fn, ptrs, n):
-        rc = fn(*ptrs, n, torch.cuda.current_stream().cuda_stream)
+    def launch(fn, ptrs, n, after):
+        rc = fn(*ptrs, n, *after, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"launch failed: cudaError {rc}")
 
-    for name, lane_counts, make in (("ed25519_verify", VERIFY_LANES, verify_args),
-                                    ("ed25519_verify_b2", VERIFY_LANES, verify_args),
-                                    ("ed25519_dsm", DSM_LANES, dsm_args)):
-        for n in lane_counts:
-            ins, outs = make(n)
+    for name, counts, make in (("ed25519_verify", VERIFY_LANES, verify_args),
+                               ("ed25519_verify_b2", VERIFY_LANES, verify_args),
+                               ("ed25519_dsm", DSM_LANES, dsm_args),
+                               ("ed25519_comb", VERIFY_LANES, comb_args),
+                               ("ed25519_comb_tables", COMB_KEYS, comb_tables_args)):
+        for n in counts:
+            ins, outs, after = make(n)
             ptrs = [t.data_ptr() for t in ins + outs]
             results = {}
             for label in vs:
-                launch(fns[name, label], ptrs, n)
+                for o in outs:
+                    o.zero_()
+                launch(fns[name, label], ptrs, n, after)
                 torch.cuda.synchronize()
-                results[label] = [o.clone() for o in outs]
+                # the outputs compared: every one, but the table build's scratch
+                results[label] = [o.clone() for o in outs[:1 if name == "ed25519_comb_tables" else None]]
             for label, res in results.items():
                 if not all(torch.equal(a, b) for a, b in zip(res, results[HERE])):
                     raise AssertionError(f"{name} of {label} disagrees with {HERE} at {n} lanes")
+            del results
             ms = {label: [] for label in vs}
             for order in (list(vs), list(vs)[::-1]):
                 for label in order:
-                    ms[label].append(cuda_ms(lambda: launch(fns[name, label], ptrs, n)))
+                    ms[label].append(cuda_ms(lambda: launch(fns[name, label], ptrs, n, after)))
             for label in vs:
-                log({"phase": "time", "kernel": name, "card": card, "lanes": n, "checkout": label,
+                log({"phase": "time", "kernel": name, "card": card,
+                     "keys" if name == "ed25519_comb_tables" else "lanes": n, "checkout": label,
                      "ms": ms[label]})
+            if opts.profile and name.startswith("ed25519_comb") and n == counts[-1]:
+                for label in vs:
+                    log({"phase": "profile", "kernel": name, "card": card, "count": n, "checkout": label,
+                         "device_ms": device_times(lambda: launch(fns[name, label], ptrs, n, after))})
     return 0
 
 

@@ -39,19 +39,22 @@ TM_DEV void load_coord_words(const uint8_t* __restrict__ row, int c, uint32_t w[
 #endif
 }
 
-// The three canonical coordinates of a niels row into `row`.
+// The three canonical coordinates of a niels row into `row`: six 16-byte
+// stores on the card (rows lie on 16-byte boundaries: the wrappers check
+// the pool's base address).
 TM_DEV void store_row(uint8_t* __restrict__ row, const Fe& my, const Fe& py, const Fe& t2) {
-  uint32_t* out = reinterpret_cast<uint32_t*>(row);
-  uint32_t w[8];
+  uint32_t w[24];
   fe_to_words(my, w);
+  fe_to_words(py, w + 8);
+  fe_to_words(t2, w + 16);
+#ifdef __CUDA_ARCH__
+  uint4* out = reinterpret_cast<uint4*>(row);
 #pragma unroll
-  for (int k = 0; k < 8; ++k) out[k] = w[k];
-  fe_to_words(py, w);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) out[8 + k] = w[k];
-  fe_to_words(t2, w);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) out[16 + k] = w[k];
+  for (int k = 0; k < 6; ++k) out[k] = make_uint4(w[4 * k], w[4 * k + 1], w[4 * k + 2], w[4 * k + 3]);
+#else
+  uint32_t* out = reinterpret_cast<uint32_t*>(row);
+  for (int k = 0; k < 24; ++k) out[k] = w[k];
+#endif
 }
 
 }  // namespace

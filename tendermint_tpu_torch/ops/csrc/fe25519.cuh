@@ -1,6 +1,7 @@
 // GF(2^255 - 19) arithmetic for the port's Ed25519 kernels. B1
-// (ed25519_verify.cu), B2 (ed25519_verify_b2.cu) and the dual scalar
-// multiply (ed25519_dsm.cu) use the field code here under fe25519x4.cuh's
+// (ed25519_verify.cu), B2 (ed25519_verify_b2.cu), the dual scalar
+// multiply (ed25519_dsm.cu) and the comb pair (ed25519_comb.cu,
+// ed25519_comb_tables.cu) use the field code here under fe25519x4.cuh's
 // four-threads-per-lane point layer.
 //
 // Field elements are 10 signed 32-bit limbs of radix 2^25.5 (26/25 bits
@@ -135,11 +136,12 @@ TM_DEV Fe fe_sq_n(Fe f, int n) {
   return f;
 }
 
-TM_DEV Fe fe_invert(const Fe& z) {
-  // z^(p-2): the standard 254-squaring, 11-multiplication chain
+// z^(2^250 - 1), and z^11 on the side: the common head of fe_invert's and
+// fe_pow22523's chains (249 squarings, 10 multiplications).
+TM_DEV Fe fe_pow_2_250_1(const Fe& z, Fe& z11) {
   const Fe z2 = fe_sq(z);
   const Fe z9 = fe_mul(fe_sq_n(z2, 2), z);
-  const Fe z11 = fe_mul(z9, z2);
+  z11 = fe_mul(z9, z2);
   const Fe z_5_0 = fe_mul(fe_sq(z11), z9);
   const Fe z_10_0 = fe_mul(fe_sq_n(z_5_0, 5), z_5_0);
   const Fe z_20_0 = fe_mul(fe_sq_n(z_10_0, 10), z_10_0);
@@ -147,8 +149,21 @@ TM_DEV Fe fe_invert(const Fe& z) {
   const Fe z_50_0 = fe_mul(fe_sq_n(z_40_0, 10), z_10_0);
   const Fe z_100_0 = fe_mul(fe_sq_n(z_50_0, 50), z_50_0);
   const Fe z_200_0 = fe_mul(fe_sq_n(z_100_0, 100), z_100_0);
-  const Fe z_250_0 = fe_mul(fe_sq_n(z_200_0, 50), z_50_0);
+  return fe_mul(fe_sq_n(z_200_0, 50), z_50_0);
+}
+
+TM_DEV Fe fe_invert(const Fe& z) {
+  // z^(p-2): the standard 254-squaring, 11-multiplication chain
+  Fe z11;
+  const Fe z_250_0 = fe_pow_2_250_1(z, z11);
   return fe_mul(fe_sq_n(z_250_0, 5), z11);
+}
+
+// z^((p-5)/8) = z^(2^252 - 3), the exponent of RFC 8032's square root
+// (251 squarings, 11 multiplications).
+TM_DEV Fe fe_pow22523(const Fe& z) {
+  Fe z11;
+  return fe_mul(fe_sq_n(fe_pow_2_250_1(z, z11), 2), z);
 }
 
 // Canonical limbs of the value mod p. Three carry passes leave every limb
@@ -229,8 +244,9 @@ TM_DEV void store_words(uint8_t* __restrict__ p, int n, int lane, const uint32_t
   }
 }
 
-// 2d, and the affine coordinates of B, 2B and 3B, as limbs.
-__constant__ int32_t kConst[7][10] = {
+// 2d, the affine coordinates of B, 2B and 3B, d and sqrt(-1) (2^((p-1)/4)),
+// as limbs.
+__constant__ int32_t kConst[9][10] = {
     {45281625, 27714825, 36363642, 13898781, 229458, 15978800, 54557047, 27058993, 29715967, 9444199},
     {52811034, 25909283, 16144682, 17082669, 27570973, 30858332, 40966398, 8378388, 20764389, 8758491},
     {40265304, 26843545, 13421772, 20132659, 26843545, 6710886, 53687091, 13421772, 40265318, 26843545},
@@ -238,6 +254,8 @@ __constant__ int32_t kConst[7][10] = {
     {49849289, 30518170, 36356555, 9118146, 39642173, 27402070, 19887204, 20464564, 53514802, 9012023},
     {66642524, 9574388, 17880460, 13372178, 26021472, 14338106, 39270943, 32056318, 10627368, 27179633},
     {16102612, 14291486, 6324312, 12269856, 41704368, 2531063, 55625520, 20280356, 18317030, 4824775},
+    {56195235, 13857412, 51736253, 6949390, 114729, 24766616, 60832955, 30306712, 48412415, 21499315},
+    {34513072, 25610706, 9377949, 3500415, 12389472, 33281959, 41962654, 31548777, 326685, 11406482},
 };
 
 TM_DEV Fe fe_const(int row) {

@@ -32,11 +32,13 @@
 // early: a group past the last lane computes on a clamped lane and skips
 // its store.
 //
-// fe_shfl is the only exchange, and block_invert the only code that sees
-// the block (threadIdx.x, __syncthreads). Defining TM_HOST_EXCHANGE before
-// this header (with fe25519.cuh, an fe_shfl of the same signature, a
+// fe_shfl and fe_shfl_xor are the only exchanges, and block_invert,
+// block_product_tree and block_tree_unwind the only code that sees the
+// block (threadIdx.x,
+// __syncthreads). Defining TM_HOST_EXCHANGE before this header (with
+// fe25519.cuh, an fe_shfl and an fe_shfl_xor of the same signatures, a
 // threadIdx and a __syncthreads declared first) compiles the point layer
-// as host C++, four std::threads standing in for a block of one group;
+// as host C++, one std::thread standing in for each thread of a block;
 // tests/test_torch_fe25519x4.py does that.
 
 #pragma once
@@ -51,6 +53,15 @@ TM_DEV Fe fe_shfl(const Fe& f, int src) {
   Fe r;
 #pragma unroll
   for (int i = 0; i < 10; ++i) r.v[i] = __shfl_sync(0xffffffffu, f.v[i], src, 4);
+  return r;
+}
+
+// The f of the thread whose index in the warp is the caller's XOR `mask`
+// (4: the same rank in the neighbouring group, the comb verify's join).
+TM_DEV Fe fe_shfl_xor(const Fe& f, int mask) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) r.v[i] = __shfl_xor_sync(0xffffffffu, f.v[i], mask);
   return r;
 }
 #endif
@@ -274,6 +285,55 @@ TM_DEV Fe ge4_to_affine(int t, const Fe& p, Fe* zs) {
   Fe r = p;
   if (t < 2) r = fe_canon(fe_mul(p, zinv));
   return r;
+}
+
+// Montgomery's batch inversion of one value a thread across a block of
+// THREADS threads (a power of two), in two halves around the inversion of
+// their product, so that the inversion can run elsewhere: the table build
+// inverts every block's product in a launch of its own, 32 a warp, where
+// inside the block it would leave the block's other threads idle through
+// its 265 operations. The values are the leaves of a binary product tree
+// in `tree` (2 * THREADS - 1 shared Fe, heap order: node m's children are
+// 2m + 1 and 2m + 2).
+//
+// block_product_tree multiplies the tree up: on return (after a barrier)
+// tree[0] is the product of every thread's `leaf`. The caller replaces
+// tree[0] by its inverse and passes a barrier; block_tree_unwind then
+// multiplies each node's inverse by its sibling's product for a child's
+// inverse down the tree and returns 1 / leaf to each thread. Work: 3
+// multiplications a value beside the one inversion, as a chain-long
+// Montgomery batch; depth: 2 log2(THREADS) multiplications, where one chain
+// would take 2 THREADS. Zero has no inverse: a zero leaf turns every
+// result to zero (curve points' Z never is).
+template <int THREADS>
+TM_DEV void block_product_tree(const Fe& leaf, Fe* tree) {
+  const int i = threadIdx.x;
+  tree[THREADS - 1 + i] = leaf;
+  __syncthreads();
+#pragma unroll 1
+  for (int width = THREADS / 2; width >= 1; width >>= 1) {
+    if (i < width) {
+      const int m = width - 1 + i;
+      tree[m] = fe_mul(tree[2 * m + 1], tree[2 * m + 2]);
+    }
+    __syncthreads();
+  }
+}
+
+template <int THREADS>
+TM_DEV Fe block_tree_unwind(Fe* tree) {
+  const int i = threadIdx.x;
+#pragma unroll 1
+  for (int width = 1; width < THREADS; width <<= 1) {
+    if (i < width) {
+      const int m = width - 1 + i;
+      const Fe inv = tree[m], l = tree[2 * m + 1], r = tree[2 * m + 2];
+      tree[2 * m + 1] = fe_mul(inv, r);
+      tree[2 * m + 2] = fe_mul(inv, l);
+    }
+    __syncthreads();
+  }
+  return tree[THREADS - 1 + i];
 }
 
 }  // namespace

@@ -16,12 +16,16 @@ Two hand-written CUDA kernels carry it on the card, each behind a wrapper
 that runs its plain PyTorch version for a CPU tensor:
 
 - `comb_lanes` (`csrc/ed25519_comb.cu`; plain version `verify_comb_plain`,
-  JAX `_verify_comb_impl`): 64 gathers from the pool, 64 from the B table,
-  128 mixed additions on the four-thread point layer, one inversion.
+  JAX `_verify_comb_impl`): 64 gathers from the pool and 64 from the B
+  table, summed as two chains of mixed additions on two groups of four
+  threads and joined, while a ninth thread decodes R; the compare with R
+  is projective, with no inversion.
 - `build_lanes` (`csrc/ed25519_comb_tables.cu`; plain version
   `build_tables_plain`, JAX `_build_tables_impl` and `_scatter_tables`):
-  the 64 x 16 niels entries of each new key, written straight into its
-  pool slot as canonical bytes.
+  the 64 x 16 niels entries of each new key, one thread a (key, position),
+  one Montgomery batch a block of two keys whose inversion runs in a
+  launch of its own, written straight into its pool slot as canonical
+  bytes.
 
 The pool (`CombPool`) is the JAX package's with the dtype changed: rows
 of 96 canonical radix-2^8 limbs ((y-x, y+x, 2dxy), 32 each), stored as
@@ -81,21 +85,28 @@ table_launches = 0  # the table-build kernel
 # squarings 55. Each kernel's own count, in its source's note, is larger.
 # A verify: 127 mixed additions x 7 (the first entry, added to the
 # identity, needs only its T: 1), the inversion (11, 254 squarings),
-# affine x and y (2). The kernel adds all 128 entries: 909.
+# affine x and y (2). The kernel does 934 and 255: all 128 entries as two
+# chains and their join, R's decoding in place of the inversion.
 MULS_PER_LANE = 903
 SQS_PER_LANE = 254
 PRODUCTS_PER_LANE = 100 * MULS_PER_LANE + 55 * SQS_PER_LANE
 # A key's table: the 64 bases 16^p * Q (820, 1,008 squarings); 64 x 14
 # additions of the base's cached form (8 each, 1 for its 2dT); one
-# Montgomery batch inversion over the key's 960 Z values (3 x 959, and
-# the inversion's 11 and 254 squarings), as the JAX package's
-# `_build_tables_impl`; each entry's affine x, y, x*y and 2dxy (4 x 960).
-MULS_PER_KEY = 14_780
-SQS_PER_KEY = 1_262
+# Montgomery batch over the key's 960 Z values (3 x 959), as the JAX
+# package's `_build_tables_impl`, whose inversion the table-build kernel
+# shares between keys (one for two), so none is counted here; each entry's
+# affine x, y, x*y and 2dxy (4 x 960).
+MULS_PER_KEY = 14_769
+SQS_PER_KEY = 1_008
 PRODUCTS_PER_KEY = 100 * MULS_PER_KEY + 55 * SQS_PER_KEY
-# The table-build kernel inverts once a position, not once a key: 64
-# batches of 15 (64 x (42 + 11) multiplications, 64 x 254 squarings).
-KERNEL_PRODUCTS_PER_KEY = 100 * 15_284 + 55 * 17_264
+# The table-build kernel's own count (its source's note): 31,471
+# multiplications and 2,270 squarings for two keys.
+KERNEL_PRODUCTS_PER_KEY = (100 * 31_471 + 55 * 2_270) // 2
+# Its scratch a key, in Fe of ten int32 limbs: the 64 bases' four
+# coordinates, the 64 positions' Z products, their 15 entries' three
+# values, and at most one block product: 3,201 Fe, 128,040 bytes, so 1.28
+# GB for a 10,000-key build, which the caching allocator keeps for reuse.
+TABLE_SCRATCH_FE_PER_KEY = 4 * W_POS + W_POS + 3 * (W_ENT - 1) * W_POS + 1
 BYTES_PER_KEY = 2 * NL + ROWS_PER_SLOT * COORD_ROWS + 4  # Q in, the slot's rows out, the slot
 
 
@@ -215,12 +226,12 @@ def build_tables_plain(qx, qy) -> torch.Tensor:
     """qx/qy: (32, n) f32 canonical affine limbs of Q = -A per key.
     Returns (n, W_POS*W_ENT, 96) float32 niels tables (canonical limbs).
 
-    The table-build kernel's algorithm: the 64 bases Q_p = 16^p * Q (four
+    The table-build kernel's points: the 64 bases Q_p = 16^p * Q (four
     doublings apart), then for every (position, key) at once the 15
-    extended multiples v*Q_p (a chain of additions), one Montgomery batch
-    inversion of their 15 Zs, and canonical niels rows. Every entry is
-    canonical, so the bytes equal the JAX package's `_build_tables_impl`
-    (one batch inversion over all 960 entries) whatever the order."""
+    extended multiples v*Q_p (a chain of additions); here one Montgomery
+    batch inversion of each position's 15 Zs (the kernel batches two
+    keys' 1,920, the JAX package a key's 960), and canonical niels rows. Every entry is canonical, so the bytes equal the kernel's
+    and the JAX package's `_build_tables_impl` whatever the batching."""
     n = qx.shape[-1]
     zeros = torch.zeros_like(qx)
     one = zeros.clone()
@@ -345,7 +356,7 @@ def comb_lanes(pool, t_b, slots, ry, rsign, s8, h8) -> torch.Tensor:
 def build_lanes(pool, qx8, qy8, slots) -> None:
     """Write the niels tables of the keys Q = (qx8, qy8) ((32, k) uint8
     canonical affine byte rows of -A) into pool slots `slots` ((k,) int32,
-    each in [1, C)), in place. A CUDA tensor launches the table-build
+    distinct, each in [1, C)), in place. A CUDA tensor launches the table-build
     kernel on the current stream without synchronising; a CPU tensor runs
     `build_tables_plain` and scatters its rows."""
     global table_launches
@@ -360,11 +371,13 @@ def build_lanes(pool, qx8, qy8, slots) -> None:
         tables = build_tables_plain(qx8.float(), qy8.float())
         pool.view(c, ROWS_PER_SLOT, COORD_ROWS)[slots.long()] = tables.to(torch.uint8)
         return
+    if pool.data_ptr() % 16:
+        raise ValueError("the kernel writes table rows 16 bytes at a time: align the pool to 16 bytes")
     if k == 0:
         return
-    # the 64 bases of each key, four Fe of ten int32 limbs each, between
-    # the kernel's two passes
-    scratch = torch.empty((k, W_POS, 4, 10), dtype=torch.int32, device=dev)
+    # the bases, products and entry values of each key (Fe of ten int32
+    # limbs), between the kernel's passes
+    scratch = torch.empty((k, TABLE_SCRATCH_FE_PER_KEY, 10), dtype=torch.int32, device=dev)
     lib = kernels.load("ed25519_comb_tables")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -597,7 +610,7 @@ def reset_default_pool() -> None:
 
 # -- second-sight build policy ------------------------------------------------
 #
-# Building a key's comb table costs the limb products of about nine B1
+# Building a key's comb table costs the limb products of about six B1
 # verifies (KERNEL_PRODUCTS_PER_KEY against ed25519_f32p's), paid off
 # only if the key is seen again (validator keys sign every block; a
 # mempool user key may never recur). Policy: build tables only for keys on

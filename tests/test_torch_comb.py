@@ -368,6 +368,93 @@ def test_verify_comb_plain_on_the_jax_pool(jcomb):
     assert list(want[: len(items)] & valid[: len(items)]) == [ted.verify(*it) for it in items]
 
 
+P25519 = 2**255 - 19
+
+
+def _decode_reference(y: int, sign: int):
+    """RFC 8032 5.1.3 on y < 2^255: x (or None where R does not decode)."""
+    if y >= P25519:
+        return None
+    d = ted.D
+    u, v = (y * y - 1) % P25519, (d * y * y + 1) % P25519
+    x = u * pow(v, 3, P25519) * pow(u * pow(v, 7, P25519), (P25519 - 5) // 8, P25519) % P25519
+    if v * x * x % P25519 == (-u) % P25519:
+        x = x * pow(2, (P25519 - 1) // 4, P25519) % P25519
+    if v * x * x % P25519 != u:
+        return None
+    if x == 0 and sign:
+        return None
+    return (P25519 - x) % P25519 if x & 1 != sign else x
+
+
+def _crafted_comb_lanes():
+    """Lanes the host never hands the kernel, on which both comb forms keep
+    their own rule: (pool, slots, ry, rsign, s8, h8, the kernel's raw
+    verdicts, the plain version's). Slot 0 (zero rows: W = (0 : 0 : Z : 0),
+    affine (0, 0)) with R.y in {0, 1, p, p + 1} and both signs; slot 1, the
+    identity key's table (every entry the identity) with s = 0, so W is the
+    identity (0, 1), with R.y in {1, p + 1, a y with no root} and both
+    signs. The kernel compares R.y unreduced (R.y >= p never equals a
+    canonical y), the plain version reduces it; x = 0 with the sign bit set
+    and a y with no root reject in both."""
+    from tendermint_tpu_torch.ops import ed25519_comb as tcomb
+
+    ident = tcomb.build_tables_plain(torch.zeros(32, 1), torch.eye(32)[:, :1]).numpy().astype(np.uint8)
+    pool = np.zeros((2, tcomb.ROWS_PER_SLOT, 96), dtype=np.uint8)
+    pool[1] = ident[0]
+    no_root = next(y for y in range(2, 100) if _decode_reference(y, 0) is None)
+    rng = np.random.default_rng(9)
+    lanes = []  # (slot, R.y, sign, kernel, plain)
+    for y in (0, 1, P25519, P25519 + 1):
+        for sign in (0, 1):
+            lanes.append((0, y, sign, int(y == 0 and sign == 0), int(y % P25519 == 0 and sign == 0)))
+    for y in (1, P25519 + 1, no_root):
+        for sign in (0, 1):
+            lanes.append((1, y, sign, int(y == 1 and sign == 0), int(y % P25519 == 1 and sign == 0)))
+    n = len(lanes)
+    ry = np.stack([np.frombuffer(y.to_bytes(32, "little"), dtype=np.uint8) for _, y, _, _, _ in lanes], axis=1)
+    h8 = rng.integers(0, 256, size=(32, n), dtype=np.uint8)
+    h8[31] &= 0x0F
+    s8 = np.zeros((32, n), dtype=np.uint8)
+    slots = np.array([s for s, *_ in lanes], dtype=np.int32)
+    rs = np.array([sg for _, _, sg, _, _ in lanes], dtype=np.int32)
+    return (pool.reshape(-1, 96), slots, np.ascontiguousarray(ry), rs, s8, h8,
+            np.array([k for *_, k, _ in lanes], dtype=np.int32), np.array([p for *_, p in lanes], dtype=np.int32))
+
+
+def test_verify_comb_plain_equal_to_jax_on_crafted_lanes(jcomb):
+    """The lanes the host never hands the kernels, on which the comb kernel
+    keeps the affine compare's verdicts (slot 0's zero rows, R.y >= p, x =
+    0 with the sign bit set, R off the curve; tests/test_torch_fe25519x4.py
+    holds the kernel to them): the plain version equals JAX's
+    `_verify_jit` lane for lane, in the shapes of the JAX-pool case above
+    (a 256-slot bf16 pool, 32 lanes: its compile)."""
+    import jax.numpy as jnp
+
+    pool, slots, ry, rs, s8, h8, _, plain = _crafted_comb_lanes()
+    n = len(slots)
+    big = np.zeros((256 * tcomb.ROWS_PER_SLOT, tcomb.COORD_ROWS), dtype=np.uint8)
+    big[: pool.shape[0]] = pool
+
+    def lanes(a, fill=0):
+        out = np.full(a.shape[:-1] + (32,), fill, dtype=a.dtype)
+        out[..., :n] = a
+        return out
+
+    slots32, ry32, rs32, s832, h832 = lanes(slots), lanes(ry, 0), lanes(rs), lanes(s8), lanes(h8)
+    ry32[0, n:] = 1  # padding lanes as the host marshals them: R.y = 1
+    want = np.asarray(jcomb._verify_jit(
+        jnp.asarray(big.astype(np.float32), dtype=jnp.bfloat16), jnp.asarray(tcomb.b_table()),
+        jnp.asarray(slots32), jnp.asarray(ry32.astype(np.float32)), jnp.asarray(rs32),
+        jnp.asarray(s832.astype(np.int32)), jnp.asarray(h832.astype(np.int32))))
+    got = tcomb.verify_comb_plain(torch.from_numpy(big), torch.from_numpy(tcomb.b_table()),
+                                  torch.from_numpy(slots32), torch.from_numpy(ry32.astype(np.float32)),
+                                  torch.from_numpy(rs32), torch.from_numpy(s832.astype(np.int32)),
+                                  torch.from_numpy(h832.astype(np.int32)))
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(want[:n].astype(np.int32), plain)
+
+
 def test_stats_equal_over_one_call_sequence(jcomb, routes, monkeypatch):
     """Second sight, growth, eviction and PoolExhausted in one sequence on
     a 4-slot pool: the routing, verdicts and stats agree after each call."""
@@ -489,3 +576,41 @@ def test_comb_kernels_match_plain_on_the_card():
     b1args, _, _ = tf32p.marshal_device_args(items, "cuda")
     assert np.array_equal(ok, tf32p.verify_lanes(*b1args).cpu().numpy())
     assert list(tf32p.materialize_verdicts(ok, valid, len(items))) == [ted.verify(*it) for it in items]
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keys", [1, 7, 33, 65, 1000])
+def test_table_kernel_matches_plain_at_ragged_key_counts(keys):
+    """The table build on the card at key counts that fill no power of two
+    (two 32-position blocks a key): every row byte for byte the plain
+    version's, slot 0 untouched."""
+    _card()
+    rng = np.random.default_rng(71 + keys)
+    pubs = [ted.public_key(rng.bytes(32)) for _ in range(keys)]
+    qx, qy = _neg_keys(pubs)
+    pool = torch.zeros(((keys + 1) * tcomb.ROWS_PER_SLOT, tcomb.COORD_ROWS), dtype=torch.uint8, device="cuda")
+    before = tcomb.table_launches
+    kx, ky = (torch.from_numpy(a.astype(np.uint8)).cuda() for a in (qx, qy))
+    tcomb.build_lanes(pool, kx, ky, torch.arange(1, keys + 1, dtype=torch.int32, device="cuda"))
+    want = tcomb.build_tables_plain(kx.float(), ky.float()).to(torch.uint8)
+    rows = pool.view(keys + 1, tcomb.ROWS_PER_SLOT, tcomb.COORD_ROWS)
+    assert tcomb.table_launches == before + 1
+    assert torch.equal(rows[1:], want)
+    assert not rows[0].any()
+
+
+@pytest.mark.cuda
+def test_comb_kernel_keeps_its_rules_on_crafted_lanes_on_the_card():
+    """The crafted lanes of tests/test_torch_fe25519x4.py on the card: the
+    kernel's raw verdicts are its stated rules' (R.y unreduced, slot 0's
+    point accepting only y = 0 with the sign bit clear)."""
+    _card()
+    pool, slots, ry, rs, s8, h8, kernel, _ = _crafted_comb_lanes()
+    btab = tcomb.b_table().reshape(-1, 96).astype(np.uint8)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (pool, btab, slots, ry, rs, s8, h8)]
+    assert np.array_equal(tcomb.comb_lanes(*args).cpu().numpy(), kernel)

@@ -1,30 +1,39 @@
-"""The four-threads-per-lane point layer of the B1, B2 and dsm kernels
-(`csrc/fe25519x4.cuh`, `ed25519_verify.cu`, `ed25519_verify_b2.cu`,
-`ed25519_dsm.cu`), compiled as host C++ with g++ and run on the CPU,
-exchange for exchange.
+"""The four-threads-per-lane point layer of the B1, B2, dsm and comb
+kernels (`csrc/fe25519x4.cuh`, `ed25519_verify.cu`, `ed25519_verify_b2.cu`,
+`ed25519_dsm.cu`, `ed25519_comb.cu`, `ed25519_comb_tables.cu`), compiled as
+host C++ with g++ and run on the CPU, exchange for exchange.
 
 The device code is compiled as written: a stub `cuda_runtime.h` defines
 the CUDA qualifiers away, each `.cu` is cut before `constexpr int
-kThreads` (the kernel and its launch need a card), and `fe_shfl`, the one
-exchange, is replaced by a host version. Four `std::thread`s stand in for
-a block of one group of four threads: the stub exchange writes the
-caller's value to a shared slot, waits on a 4-party barrier, reads the
-source's slot and waits again, and `__syncthreads` is the same barrier, so
-the kernels' own Z inversion (`block_invert`, one lane a block here) runs
-as written. g++ builds with UBSan, so a signed overflow in the limb
-arithmetic fails the run.
+kThreads` (the kernel and its launch need a card), and the exchanges
+(`fe_shfl`, `fe_shfl_xor`) are replaced by a host version. One
+`std::thread` stands in for each thread of a block: the stub exchange
+writes the caller's value to a shared slot, waits on the barrier of its
+segment of eight threads (two groups of four; four in a block of one
+group), reads the source's slot and waits again, and `__syncthreads` is a
+barrier over the whole block, so the kernels' own Z inversions
+(`block_invert`, one lane a block here; the table build's product tree,
+`block_product_tree` and `block_tree_unwind`) run as written. g++ builds with UBSan, so a signed overflow
+in the limb arithmetic fails the run.
 
-`verify_lane` (B1), `verify_lane_b2` (B2) and `comb_verify_lane` (comb)
-are each held against their own plain version (`ed25519_f32.verify_plain`, `ed25519_pallas.verify_plain`,
-`ed25519_comb.verify_comb_plain`; raw verdicts lane for lane) and against `crypto.ed25519.verify` of both
-packages (masked verdicts) on the RFC 8032 vectors and the tampered,
-malformed and identical-key families of tests/test_ops_f32.py
-`TestVerifyF32`; `dsm_lane` against `dsm_plain` and the pure-Python group
-law on the edge lanes (Q = identity, a = 0, b = 0, P == Q, P == -Q) and on
-random lanes; one comb step (`ge4_add<true>` on a loaded niels row)
-against `ed25519_comb._niels_add`, and the comb table build
-(`comb_bases_lane`, `comb_position`) against `build_tables_plain`, byte for
-byte. Every comparison is exact equality.
+`verify_lane` (B1), `verify_lane_b2` (B2) and the comb kernel's blocks
+(`comb_verify_block`, 16 lanes on 144 threads, ragged lane counts among
+them) are each held against their own plain version
+(`ed25519_f32.verify_plain`, `ed25519_pallas.verify_plain`,
+`ed25519_comb.verify_comb_plain`; raw verdicts lane for lane) and against
+`crypto.ed25519.verify` of both packages (masked verdicts) on the RFC 8032
+vectors and the tampered, malformed and identical-key families of
+tests/test_ops_f32.py `TestVerifyF32`; the comb kernel also on crafted
+lanes (slot 0, R.y >= p, x = 0 with the sign bit set, R off the curve;
+tests/test_torch_comb.py makes them) against the rules its source states, and R's decoding against RFC 8032;
+`dsm_lane` against `dsm_plain` and the pure-Python group law on the edge
+lanes (Q = identity, a = 0, b = 0, P == Q, P == -Q) and on random lanes;
+one comb step (`ge4_add<true>` on a loaded niels row) against
+`ed25519_comb._niels_add`, and the comb table build (`comb_bases_lane`,
+then `comb_entries_block`, the blocks' inversions and `comb_rows_block`
+block by block, 128 threads each, an odd key count leaving half a block)
+against `build_tables_plain`, byte for byte. Every comparison is exact
+equality.
 """
 
 from __future__ import annotations
@@ -47,6 +56,20 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "tendermint_tpu_torch", "ops", "csrc")
 CUT = "constexpr int kThreads"
 
+
+def _kernel_constant(name: str, pattern: str) -> int:
+    import re
+
+    with open(os.path.join(CSRC, name)) as f:
+        return int(re.search(pattern, f.read()).group(1))
+
+
+# The comb kernels' block geometry, from their sources: lanes a verify
+# block (9 threads a lane: 8 summing, 1 decoding) and (key, position) pairs
+# a table block (one a thread in passes 2 and 4).
+COMB_LANES = _kernel_constant("ed25519_comb.cu", r"constexpr int kLanes = (\d+);")
+TABLE_PAIRS = _kernel_constant("ed25519_comb_tables.cu", r"constexpr int kThreads = (\d+);")
+
 STUB_CUDA_RUNTIME = """#pragma once
 #define __device__
 #define __forceinline__ inline
@@ -56,38 +79,63 @@ STUB_CUDA_RUNTIME = """#pragma once
 HARNESS = r"""
 #include <barrier>
 #include <cstdint>
+#include <memory>
 #include <thread>
+#include <vector>
 
 #include "fe25519.cuh"
 
 namespace {
 
-// A block of one group of four host threads: thread index, shared slots,
-// barrier.
+// A block of host threads: thread index, one shared exchange slot a
+// thread, a barrier for the block (__syncthreads) and one for each segment
+// of eight threads (or four, in a block of four), the threads that
+// exchange with each other: a group of four and its neighbour.
 struct HostThreadIdx {
   int x;
 };
 thread_local HostThreadIdx threadIdx = {0};
-Fe g_slot[4];
-std::barrier<>* g_barrier = nullptr;
+thread_local std::barrier<>* t_segment = nullptr;
+std::vector<Fe> g_slot;
+std::barrier<>* g_block = nullptr;
 
-void __syncthreads() { g_barrier->arrive_and_wait(); }
+void __syncthreads() { g_block->arrive_and_wait(); }
 
-Fe fe_shfl(const Fe& f, int src) {
+Fe host_exchange(const Fe& f, int from) {
   g_slot[threadIdx.x] = f;
-  g_barrier->arrive_and_wait();
-  const Fe r = g_slot[src];
-  g_barrier->arrive_and_wait();
+  t_segment->arrive_and_wait();
+  const Fe r = g_slot[from];
+  t_segment->arrive_and_wait();
   return r;
 }
 
+// rank `src` of the caller's group of four
+Fe fe_shfl(const Fe& f, int src) { return host_exchange(f, (threadIdx.x & ~3) + src); }
+
+Fe fe_shfl_xor(const Fe& f, int mask) { return host_exchange(f, threadIdx.x ^ mask); }
+
+template <typename Body>
+void run_block(int threads, Body body) {
+  const int seg = threads % 8 == 0 ? 8 : 4;
+  std::barrier<> block(threads);
+  std::vector<std::unique_ptr<std::barrier<>>> segments;
+  for (int s = 0; s < threads / seg; ++s) segments.push_back(std::make_unique<std::barrier<>>(seg));
+  g_block = &block;
+  g_slot.assign(threads, Fe{});
+  std::vector<std::thread> pool;
+  for (int x = 0; x < threads; ++x)
+    pool.emplace_back([&body, &segments, x, seg] {
+      threadIdx.x = x;
+      t_segment = segments[x / seg].get();
+      body(x);
+    });
+  for (auto& th : pool) th.join();
+}
+
+// A block of one group of four threads.
 template <typename Body>
 void run_group(Body body) {
-  std::barrier<> barrier(4);
-  g_barrier = &barrier;
-  std::thread threads[4];
-  for (int t = 0; t < 4; ++t) threads[t] = std::thread([&body, t] { threadIdx.x = t; body(t); });
-  for (auto& th : threads) th.join();
+  run_block(4, body);
 }
 
 }  // namespace
@@ -150,13 +198,27 @@ extern "C" void host_field_op(int op, const int32_t* a, const int32_t* b, const 
   for (int i = 0; i < 10; ++i) out[i] = r.v[i];
 }
 
-// The comb kernel's lane on one slot's table and the B table.
-extern "C" int host_comb_lane(const uint8_t* a_tab, const uint8_t* b_tab, const uint32_t* ryw,
-                              int rsign, const uint32_t* sw, const uint32_t* hw) {
-  int32_t out[4];
-  Fe zs[1];
-  run_group([&](int t) { out[t] = comb_verify_lane<1>(t, a_tab, b_tab, ryw, rsign, sw, hw, zs); });
-  return out[0];
+// The comb kernel over n lanes, block by block (LANES lanes, 9 x LANES
+// threads each), as the kernel runs them.
+extern "C" void host_comb_lanes(const uint8_t* pool, const uint8_t* btab, const int32_t* slots,
+                                const uint8_t* ry, const int32_t* rsign, const uint8_t* s8,
+                                const uint8_t* h8, int32_t* out, int n, int pool_slots) {
+  constexpr int kL = @COMB_LANES@;
+  for (int b = 0; b * kL < n; ++b) {
+    Fe rx[kL];
+    int32_t rflags[kL];
+    run_block(9 * kL, [&](int) {
+      comb_verify_block<kL>(b, pool, btab, slots, ry, rsign, s8, h8, out, n, pool_slots, rx, rflags);
+    });
+  }
+}
+
+// R's decoding on its own: x (canonical limbs) and the flags.
+extern "C" int host_decode_r(const uint32_t* ryw, int sign, int32_t* x) {
+  int32_t flags;
+  const Fe r = comb_decode_r(ryw, sign, flags);
+  for (int i = 0; i < 10; ++i) x[i] = r.v[i];
+  return flags;
 }
 
 // One comb step: the extended point acc (X, Y, Z, T; 4 x 10 limbs) plus the
@@ -174,13 +236,35 @@ extern "C" void host_comb_step(const int32_t* acc, const uint8_t* row, int32_t* 
     for (int i = 0; i < 10; ++i) out[10 * t + i] = res[t].v[i];
 }
 
-// The table build of one key: pass 1 on four threads, then pass 2 for each
-// of the 64 positions, into 1024 rows of 96 bytes.
-extern "C" void host_comb_table(const uint32_t* qxw, const uint32_t* qyw, uint8_t* rows) {
-  static Fe bases[4 * kCombPositions];
-  run_group([&](int t) { comb_bases_lane(t, qxw, qyw, bases, true); });
-  for (int p = 0; p < kCombPositions; ++p)
-    comb_position(bases + 4 * p, rows + p * kCombEntries * kRowBytes);
+// The table build of k keys ((32, k) byte rows qx, qy) into their pool
+// slots, pass by pass as the kernels run them: pass 1 on four threads a
+// key, passes 2 and 4 block by block (PAIRS threads each), pass 3 (one
+// inversion a block) in between.
+extern "C" void host_comb_tables(const uint8_t* qx, const uint8_t* qy, const int32_t* slots,
+                                 uint8_t* pool, int k, int pool_slots) {
+  constexpr int kP = @TABLE_PAIRS@;
+  using TB = TableBlock<kP>;
+  const int pairs = k * kCombPositions;
+  std::vector<Fe> bases(static_cast<size_t>(pairs) * 4), leaves(pairs);
+  for (int key = 0; key < k; ++key) {
+    uint32_t xw[8], yw[8];
+    load_words(qx, k, key, xw);
+    load_words(qy, k, key, yw);
+    run_group([&](int t) { comb_bases_lane(t, xw, yw, bases.data() + key * kCombPositions * 4, true); });
+  }
+  const int blocks = (pairs + kP - 1) / kP;
+  std::vector<Fe> roots(blocks), tree(2 * kP - 1);
+  std::vector<int32_t> cached(40 * kP);
+  std::vector<int32_t> ent(static_cast<size_t>(pairs) * 3 * (kCombEntries - 1) * 10);
+  for (int b = 0; b < blocks; ++b) {
+    const TB tb{b, pairs, pool_slots, slots, pool, ent.data()};
+    run_block(kP, [&](int) { comb_entries_block<kP>(tb, bases.data(), leaves.data(), tree.data(), cached.data(), &roots[b]); });
+  }
+  for (auto& r : roots) r = fe_invert(r);
+  for (int b = 0; b < blocks; ++b) {
+    const TB tb{b, pairs, pool_slots, slots, pool, ent.data()};
+    run_block(kP, [&](int) { comb_rows_block<kP>(tb, leaves.data(), roots[b], tree.data()); });
+  }
 }
 
 extern "C" void host_dsm_lane(const uint32_t* pxw, const uint32_t* pyw, const uint32_t* qxw,
@@ -214,7 +298,9 @@ def lib(tmp_path_factory):
            .replace("@VERIFY_B2@", _cut("ed25519_verify_b2.cu"))
            .replace("@DSM@", _cut("ed25519_dsm.cu"))
            .replace("@COMB@", _cut("ed25519_comb.cu"))
-           .replace("@COMB_TABLES@", _cut("ed25519_comb_tables.cu")))
+           .replace("@COMB_TABLES@", _cut("ed25519_comb_tables.cu"))
+           .replace("@COMB_LANES@", str(COMB_LANES))
+           .replace("@TABLE_PAIRS@", str(TABLE_PAIRS)))
     (d / "harness.cpp").write_text(src)
     so = d / "libharness.so"
     proc = subprocess.run(
@@ -232,12 +318,15 @@ def lib(tmp_path_factory):
     lib.host_dsm_lane.argtypes = [words] * 8
     lib.host_dsm_lane.restype = None
     u8 = ctypes.POINTER(ctypes.c_uint8)
-    lib.host_comb_lane.argtypes = [u8, u8, words, ctypes.c_int, words, words]
-    lib.host_comb_lane.restype = ctypes.c_int
-    lib.host_comb_step.argtypes = [ctypes.POINTER(ctypes.c_int32), u8, ctypes.POINTER(ctypes.c_int32)]
+    i32 = ctypes.POINTER(ctypes.c_int32)
+    lib.host_comb_lanes.argtypes = [u8, u8, i32, u8, i32, u8, u8, i32, ctypes.c_int, ctypes.c_int]
+    lib.host_comb_lanes.restype = None
+    lib.host_decode_r.argtypes = [words, ctypes.c_int, i32]
+    lib.host_decode_r.restype = ctypes.c_int
+    lib.host_comb_step.argtypes = [i32, u8, i32]
     lib.host_comb_step.restype = None
-    lib.host_comb_table.argtypes = [words, words, u8]
-    lib.host_comb_table.restype = None
+    lib.host_comb_tables.argtypes = [u8, u8, i32, u8, ctypes.c_int, ctypes.c_int]
+    lib.host_comb_tables.restype = None
     limbs = ctypes.POINTER(ctypes.c_int32)
     lib.host_field_op.argtypes = [ctypes.c_int] + [limbs] * 5
     lib.host_field_op.restype = None
@@ -475,38 +564,110 @@ def _comb_pool(items):
     return pool.reshape(-1, tcomb.COORD_ROWS), slots, planes, rs, valid
 
 
-@pytest.mark.parametrize("family", ["identical_keys", "odd", "rfc8032", "tampered"])
-def test_comb_lane_matches_plain_and_reference(lib, family):
-    """The comb kernel's lane (`comb_verify_lane`) on four threads, its
-    tables built by the plain version: raw verdicts equal to
-    `verify_comb_plain`'s on the same pool, masked verdicts equal to both
-    packages' crypto.ed25519.verify."""
-    from tendermint_tpu.crypto import ed25519 as jed
+def _host_comb(lib, pool, slots, ry, rs, s8, h8) -> np.ndarray:
+    """The host-compiled comb kernel's raw verdicts over all lanes, block by
+    block."""
     from tendermint_tpu_torch.ops import ed25519_comb as tcomb
 
-    items = _verify_families()[family]()
+    btab = np.ascontiguousarray(tcomb.b_table().reshape(-1, 96).astype(np.uint8))
+    arrs = [np.ascontiguousarray(a) for a in (pool, btab, slots, ry, rs, s8, h8)]
+    n = len(slots)
+    out = np.full(n, -1, dtype=np.int32)
+    u8, i32 = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int32)
+    ptrs = [a.ctypes.data_as(i32 if a.dtype == np.int32 else u8) for a in arrs]
+    lib.host_comb_lanes(*ptrs, out.ctypes.data_as(i32), n, pool.shape[0] // tcomb.ROWS_PER_SLOT)
+    return out
+
+
+def _comb_lanes_agree(lib, items):
+    """Raw verdicts of the host-compiled kernel on items' lanes (tables
+    built by the plain version) equal `verify_comb_plain`'s through the
+    wrapper; returns them with `valid`."""
+    from tendermint_tpu_torch.ops import ed25519_comb as tcomb
+
     pool, slots, planes, rs, valid = _comb_pool(items)
-    btab = np.ascontiguousarray(tcomb.b_table().astype(np.uint8))
-    u8 = ctypes.POINTER(ctypes.c_uint8)
-    got = []
-    for i in range(len(items)):
-        slot_rows = np.ascontiguousarray(pool.reshape(-1, tcomb.ROWS_PER_SLOT, 96)[slots[i]])
-        keep = [_words(planes[k, :, i]) for k in (2, 3, 4)]  # ry, s8, h8
-        ry, s8, h8 = (p for _, p in keep)
-        got.append(lib.host_comb_lane(slot_rows.ctypes.data_as(u8), btab.ctypes.data_as(u8),
-                                      ry, int(rs[i]), s8, h8))
-    got = np.array(got, dtype=np.int32)
-    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (pool, btab.reshape(-1, 96), slots,
+    got = _host_comb(lib, pool, slots, planes[2], rs, planes[3], planes[4])
+    btab = tcomb.b_table().reshape(-1, 96).astype(np.uint8)
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (pool, btab, slots,
                                                                  planes[2], rs, planes[3], planes[4])]
     assert np.array_equal(got, tcomb.comb_lanes(*args).numpy())
+    return got, valid
+
+
+@pytest.mark.parametrize("family", ["identical_keys", "odd", "rfc8032", "tampered"])
+def test_comb_lane_matches_plain_and_reference(lib, family):
+    """The comb kernel's blocks (two partial sums and R's decoding a lane,
+    `comb_verify_block`) on host threads, its tables built by the plain
+    version: raw verdicts equal to `verify_comb_plain`'s on the same pool,
+    masked verdicts equal to both packages' crypto.ed25519.verify."""
+    from tendermint_tpu.crypto import ed25519 as jed
+
+    items = _verify_families()[family]()
+    got, valid = _comb_lanes_agree(lib, items)
     verdicts = tf32p.materialize_verdicts(got, valid, len(items))
     assert list(verdicts) == [ted.verify(*it) for it in items]
     assert list(verdicts) == [jed.verify(*it) for it in items]
 
 
+@pytest.mark.parametrize("lanes", [1, 7, COMB_LANES + 1, 2 * COMB_LANES + 5])
+def test_comb_lanes_at_ragged_counts(lib, lanes):
+    """Lane counts that leave the last block partial (its clamped lanes
+    compute on the last lane and store nothing): every lane written, raw
+    verdicts equal to the plain version's."""
+    fam = _verify_families()
+    items = (fam["tampered"]() + fam["identical_keys"]()) * 4
+    got, valid = _comb_lanes_agree(lib, items[:lanes])
+    assert (got >= 0).all()
+    assert list(tf32p.materialize_verdicts(got, valid, lanes)) == [ted.verify(*it) for it in items[:lanes]]
+
+
+def test_decode_r_matches_rfc8032(lib):
+    """comb_decode_r on random y, both signs, and the edges: y = 0 (x =
+    sqrt(-1)), y = 1 and p - 1 (x = 0, so sign 1 fails), y = p and beyond
+    (no canonical y), y with no root. Flag bit 1 only for y = 0, sign 0."""
+    from tests.test_torch_comb import _decode_reference
+
+    rng = np.random.default_rng(5)
+    ys = [0, 1, 2, P25519 - 1, P25519, P25519 + 1, 2**255 - 1]
+    ys += [int.from_bytes(rng.bytes(32), "little") % P25519 for _ in range(12)]
+    kinds = set()
+    for y in ys:
+        for sign in (0, 1):
+            _, yw = _words(np.frombuffer(y.to_bytes(32, "little"), dtype=np.uint8))
+            x = np.zeros(10, dtype=np.int32)
+            flags = lib.host_decode_r(yw, sign, x.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+            want = _decode_reference(y, sign)
+            assert flags & 1 == (want is not None), (y, sign)
+            assert flags >> 1 == (y == 0 and sign == 0), (y, sign)
+            if want is not None:
+                assert _limb_value(x) == want
+            kinds.add(want is not None)
+    assert kinds == {True, False}
+
+
+def test_comb_lane_keeps_its_rules_on_crafted_lanes(lib):
+    """Slot-0 lanes, R.y >= p, x = 0 with the sign bit set and R off the
+    curve: the kernel's raw verdicts are the inversion-based compare's
+    (R.y unreduced), the plain version's its own (R.y reduced), and the two
+    differ exactly on the R.y = p (+ 1) lanes that W's y matches mod p."""
+    from tendermint_tpu_torch.ops import ed25519_comb as tcomb
+    from tests.test_torch_comb import _crafted_comb_lanes
+
+    pool, slots, ry, rs, s8, h8, kernel, plain = _crafted_comb_lanes()
+    assert np.array_equal(_host_comb(lib, pool, slots, ry, rs, s8, h8), kernel)
+    btab = tcomb.b_table().reshape(-1, 96).astype(np.uint8)
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (pool, btab, slots, ry, rs, s8, h8)]
+    assert np.array_equal(tcomb.comb_lanes(*args).numpy(), plain)
+    assert (kernel != plain).sum() == 2
+
+
 def test_comb_table_build_matches_plain(lib):
-    """Both passes of the table-build kernel for three keys and the
-    small-order identity key: every row byte for byte the plain version's."""
+    """The four passes of the table-build kernel for three keys and the
+    small-order identity key, and three of them again, written into
+    shuffled slots of a pool with a slot-0 key and one past the pool among
+    them (nothing stored for those; seven keys leave the last block half
+    full): every row of a built slot byte for byte the plain version's,
+    slot 0 and the unleased slots still zero."""
     from tendermint_tpu_torch.ops import ed25519_comb as tcomb
 
     pubs = [ted.public_key(bytes([i + 5]) * 32) for i in range(3)] + [(1).to_bytes(32, "little")]
@@ -516,13 +677,19 @@ def test_comb_table_build_matches_plain(lib):
         zi = pow(pt[2], P25519 - 2, P25519)
         x, y = pt[0] * zi % P25519, pt[1] * zi % P25519
         cols.append([np.frombuffer(v.to_bytes(32, "little"), dtype=np.uint8) for v in ((-x) % P25519, y)])
+    cols += [cols[0], cols[1], cols[2]]  # seven keys: the last block half full
     qx = np.stack([c[0] for c in cols], axis=1)
     qy = np.stack([c[1] for c in cols], axis=1)
+    slots = np.array([3, 1, 5, 2, 0, 9, 7], dtype=np.int32)  # key 4 to slot 0, key 5 past the pool
     want = tcomb.build_tables_plain(torch.from_numpy(qx.astype(np.float32)),
                                     torch.from_numpy(qy.astype(np.float32))).numpy().astype(np.uint8)
-    for j in range(len(pubs)):
-        rows = np.zeros((tcomb.ROWS_PER_SLOT, tcomb.COORD_ROWS), dtype=np.uint8)
-        _, xw = _words(qx[:, j])
-        _, yw = _words(qy[:, j])
-        lib.host_comb_table(xw, yw, rows.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
-        assert np.array_equal(rows, want[j]), j
+    pool = np.zeros((8 * tcomb.ROWS_PER_SLOT, tcomb.COORD_ROWS), dtype=np.uint8)
+    u8, i32 = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int32)
+    qx, qy = np.ascontiguousarray(qx), np.ascontiguousarray(qy)
+    lib.host_comb_tables(qx.ctypes.data_as(u8), qy.ctypes.data_as(u8), slots.ctypes.data_as(i32),
+                         pool.ctypes.data_as(u8), len(slots), 8)
+    got = pool.reshape(8, tcomb.ROWS_PER_SLOT, tcomb.COORD_ROWS)
+    for j, s in enumerate(slots):
+        if 0 < s < 8:
+            assert np.array_equal(got[s], want[j]), j
+    assert not got[0].any() and not got[4].any() and not got[6].any()
