@@ -7,7 +7,7 @@ Run from the repository root with no arguments:
 Phases, in order; any failure raises and exits non-zero:
 
 1. Card and build: the card's name and power limit, the torch and CUDA
-   versions, the nvcc builds of the three kernels and of the multiply-rate
+   versions, the nvcc builds of every kernel source and of the rate
    probe, all started together (seconds; registers, stack frame and
    spills per kernel). Then the bound's yardstick: the IMAD.WIDE count of
    one field multiplication and one squaring in the SASS (cuobjdump), the
@@ -107,6 +107,43 @@ Phases, in order; any failure raises and exits non-zero:
    the table build at 1, 100, 1000 and 10,000 keys, their plain versions,
    the comb path's commit wall times, and f32 and int32 per batch.
 
+18. The hash kernels against their plain versions on the card: K1
+   (RIPEMD-160) and K2 (SHA-256), `csrc/hash_blocks.cu`, at 1, 7, 33, 100
+   and 1,025 messages whose first lanes have the lengths 0, 55, 56, 63, 64,
+   119, 120, 10,240 and 65,536, digest words equal to the plain version's
+   (run once over the widest batch) and to crypto.hashing.ripemd160 /
+   hashlib.sha256, lane for lane; K3 (the Merkle tree), `csrc/merkle_tree.cu`,
+   at 2 to 10,000 leaves, every node equal to `_run_tree` and to
+   FlatTree.from_leaf_digests, slot for slot.
+19. The main path of the hash plane: `Block.make_block` wired as
+   consensus wires its Hasher (`set_batch_tx_root(h.tx_merkle_root)`, the
+   part hashers and the tree submitter), with a fresh `Hasher()` on the
+   card, for `block_1mb` (BASELINE.json's 1 MB block of 64 KB parts: 4,000
+   transactions of 250 bytes) and `block_cap` (types/params.py's caps:
+   10,000 transactions of 1 to 4,096 bytes, every 1,000th at 10,240; about
+   21 MB, 318 parts), the phase-3 100-validator commit as last commit.
+   Launches reset before and read after each build (K1 2, K3 2, nothing
+   else), `stats()` (one part batch, one tx root, no CPU leaf, one
+   submitted job), the block equal to the same block built under
+   TENDERMINT_TPU_HASHES=0 (bytes, header, data hash, part-set header,
+   every proof), `Block.from_bytes` of its bytes hashing the same, a
+   PartSet from its header accepting every part, and a flipped byte
+   refused. Then K2's path, `ops.hashing.sha256_batch`, once. Every
+   kernel call of these paths is recorded (its inputs and output), and
+   after the counts are read each is held against its plain version on
+   the card: K1 on both blocks' tx leaves and parts, K2 on the
+   transactions, K3 on the four real trees (16, 318, 4,000 and 10,000
+   leaves).
+20. Times: the ALU yardsticks (`imad_rate.cu`'s LOP3/IADD3/SHF rate and
+   one dependent instruction's latency), K1 on both blocks' part and
+   tx-leaf batches, K2 on the tx leaves, K3 on phase 19's four trees
+   (CUDA events around a call, and the kernel's device time from the
+   profiler), each with its bound (`hash_bound`) and the native host
+   library's time on the same input, the plain versions where a run is
+   short (their results held against the kernel's too), and
+   `make_block`'s wall time through the card and the host floor with
+   where a card build's time goes.
+
 Each path's launch counts are set to 0 just before it and read just after.
 The last lines are the kernels' JSON summary, the card line, and
 {"ok": true, "device": {...}}. Weights are keys made from a numpy seed;
@@ -172,7 +209,30 @@ REPLACES = {
     "ed25519_comb_tables": "tendermint_tpu/ops/ed25519_comb.py:208",
     # B1' is B1's kernel launched per shard: its pallas_call under shard_map
     "ed25519_verify_sharded": "tendermint_tpu/ops/ed25519_f32p.py:468",
+    # B6, XLA: the hash kernels (K1, K2) and the tree rounds (K3)
+    "ripemd160": "tendermint_tpu/ops/hashing.py:133",
+    "sha256": "tendermint_tpu/ops/hashing.py:232",
+    "merkle_tree": "tendermint_tpu/ops/merkle.py:126",
 }
+# phases 18-20: the hash plane (B6)
+HASH_NAMES = ("hash_blocks", "merkle_tree")  # K1 and K2 share a source; K3
+HASH_COUNTS = (1, 7, 33, 100, 1025)  # messages a K1 / K2 batch in phase 18
+# where the block count changes (55/56, 119/120), the empty message, the
+# tx cap and a 64 KB part: the first lanes of every phase-18 batch
+HASH_EDGE_LENGTHS = (0, 55, 56, 63, 64, 119, 120, 10_240, 65_536)
+# K3 against its plain version in phase 18; 336 is the part count of a
+# block at the byte cap (22,020,096 / 65,536)
+TREE_LEAVES = (2, 3, 5, 7, 16, 33, 100, 336, 10_000)
+# the kernels line's shapes: block_1mb's tx leaves (K1, K2) and part tree (K3)
+HASH_JSON_BATCH, TREE_JSON_BATCH = ("block_1mb", "tx_leaves"), ("block_1mb", "part_tree")
+# BASELINE.json's "PartSet Merkle-root + SimpleProof verify, 1MB block / 64KB
+# parts": 4,000 transactions of 250 bytes
+BLOCK_1MB_TXS, BLOCK_1MB_TX_BYTES = 4000, 250
+BLOCK_TIME_NS = 1_760_000_000_000_000_000
+APP_HASH = b"\x5a" * 20
+# the hash kernels' instructions in the SASS, by opcode (LEA.HI and VIADD
+# carry RIPEMD-160's rotate-and-add and its constants)
+ALU_OPS = ("LOP3", "IADD3", "SHF", "LEA", "VIADD", "LDG", "STG")
 SHARDS = 4  # B1' on one card: 4 shards over cuda:0
 MIXED_SECP = 4  # secp256k1 validators of the 100-validator mixed commit
 
@@ -204,6 +264,27 @@ def cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def device_ms(fn, kernel: str, calls: int = 5) -> float:
+    """The device time of one launch of the CUDA kernel whose name holds
+    `kernel`, over `calls` calls of fn() (torch.profiler, after a warm-up
+    call): the kernel alone, without the host's launch path that a CUDA
+    event pair around a short kernel also holds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum((getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0))
+                for e in prof.key_averages() if kernel in e.key)
+    if not total:
+        raise RuntimeError(f"the profiler saw no device time for {kernel}")
+    return total / 1e3 / calls
 
 
 def bound_ms(module, lanes: int) -> tuple[float, str]:
@@ -243,10 +324,11 @@ def ptxas_summary(build_log: str) -> list[dict]:
 def sass_counts(lib_path: str) -> dict[str, dict[str, int]]:
     """Per function in a library's SASS (cuobjdump): IMAD.WIDE of two
     registers (a limb product), IMAD.WIDE by an immediate (address
-    arithmetic), other IMAD, and all instructions; and the same counts,
-    with shuffles and local loads and stores, inside the function's
-    longest loop (the widest backward branch: in B1 and dsm, one ladder
-    step). The listing is kept beside the library (lib<name>.so.sass)."""
+    arithmetic), other IMAD, the hash kernels' ALU_OPS (by opcode), and all
+    instructions; and the same counts, with shuffles and local loads and
+    stores, inside the function's longest loop (the widest backward branch:
+    in B1 and dsm, one ladder step). The listing is kept beside the library
+    (lib<name>.so.sass)."""
     import re
     import shutil
 
@@ -265,13 +347,17 @@ def sass_counts(lib_path: str) -> dict[str, dict[str, int]]:
 
     def tally(instrs) -> dict[str, int]:
         c = {"IMAD.WIDE": 0, "IMAD.WIDE_imm": 0, "IMAD": 0, "SHFL": 0, "LDL": 0, "STL": 0,
-             "instructions": len(instrs)}
+             **{op: 0 for op in ALU_OPS}, "instructions": len(instrs)}
         for _, ins in instrs:
             if "IMAD.WIDE" in ins:
                 c["IMAD.WIDE_imm" if re.search(r"IMAD\.WIDE\S* [^;]*, 0x", ins) else "IMAD.WIDE"] += 1
             else:
                 for op in ("IMAD", "SHFL", "LDL", "STL"):
                     c[op] += op in ins
+            # the hash kernels' ALU work, by opcode (a predicate guard first)
+            base = ins.split()[1 if ins.startswith("@") else 0].split(".")[0]
+            if base in ALU_OPS:
+                c[base] += 1
         return c
 
     counts = {}
@@ -476,7 +562,7 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     ptxas = {}
-    for kname, build_s in kernels.build_all(KERNEL_NAMES + COMB_NAMES + (PROBE,)).items():
+    for kname, build_s in kernels.build_all(KERNEL_NAMES + COMB_NAMES + HASH_NAMES + (PROBE,)).items():
         log({"phase": "build", "kernel": kname, "seconds": build_s})
         ptxas[kname] = ptxas_summary(kernels.build_log.get(kname, ""))
         for entry in ptxas[kname]:
@@ -681,6 +767,15 @@ def main() -> int:
     comb_times = time_comb(name, power, comb_pool, shapes, group_items, pubs)
     del comb_pool
 
+    # -- phases 18 to 20: the hash plane ----------------------------------------
+    hash_err, hash_plain_s = check_hash_kernels(rng)
+    block_txs, params = make_block_txs(rng)
+    hash_launches, built, hash_calls = hash_main_path(commits["commit_small"], block_txs, params)
+    path_err = check_path_kernels(hash_calls, block_txs)
+    hash_entries = time_hashes(name, power, commits["commit_small"], block_txs, built, hash_calls,
+                               params, hash_plain_s)
+    del hash_calls
+
     entries = []
     for kname, module, launches, err, ms, p_ms, lanes in (
             ("ed25519_verify", f32p, main_launches, max_err, kernel_ms[MIXED_LANES], plain_ms,
@@ -709,6 +804,18 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": f"{CSRC}{kname}.cu",
             "replaces": REPLACES[kname], "launches": comb_launches[kname], "max_abs_err": comb_err[kname],
             **comb_times[kname], "library_ms": None, "ptxas": ptxas[kname],
+        })
+    # a hash kernel's difference: the largest over phase 18's batches, the
+    # main path's own calls and phase 20's compared runs (the line's shape)
+    for entry in hash_entries:
+        kname = entry["name"]
+        err = max(hash_err[kname], path_err[kname], entry.pop("max_abs_err"))
+        entries.append({
+            "name": kname, "route": "cuda",
+            "source": f"{CSRC}{'merkle_tree' if kname == 'merkle_tree' else 'hash_blocks'}.cu",
+            "replaces": REPLACES[kname], "launches": hash_launches[kname],
+            "max_abs_err": err, **entry,
+            "ptxas": ptxas["merkle_tree" if kname == "merkle_tree" else "hash_blocks"],
         })
     log({"kernels": entries})
     log(card)
@@ -1700,6 +1807,587 @@ def time_comb(name, power, pool, shapes, group_items, pubs) -> dict[str, dict]:
         del rows
     torch.cuda.synchronize()
     return out
+
+
+# -- phases 18 to 20: the hash plane (B6) -------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def hash_messages(rng, n: int) -> list[bytes]:
+    """n messages: HASH_EDGE_LENGTHS first (from 7 messages on every batch
+    holds the block-count edges, from 9 on a 10,240-byte transaction and a
+    64 KB part), then random lengths up to 2,000 bytes."""
+    lengths = list(HASH_EDGE_LENGTHS) + [int(x) for x in rng.integers(0, 2001, size=n)]
+    return [rng.bytes(k) for k in lengths[:n]]
+
+
+def check_hash_kernels(rng) -> tuple[dict[str, int], dict[str, float]]:
+    """Phase 18: K1 and K2 at HASH_COUNTS messages against their plain
+    versions (run once, on the card, over the widest batch: a lane's digest
+    depends on its own message only) and against crypto.hashing.ripemd160
+    / hashlib.sha256, lane for lane; K3 at TREE_LEAVES leaves against
+    `_run_tree` on the card and FlatTree.from_leaf_digests, slot for slot.
+    Returns the largest difference a kernel and the plain versions'
+    seconds over the widest batch."""
+    import torch
+
+    from tendermint_tpu_torch.crypto.hashing import ripemd160
+    from tendermint_tpu_torch.merkle.simple import FlatTree, leaf_hash
+    from tendermint_tpu_torch.ops import hashing as th
+    from tendermint_tpu_torch.ops import merkle as tm
+
+    msgs = hash_messages(rng, max(HASH_COUNTS))
+    errs, plain_s = {}, {}
+    for kname, le, lanes, plain, to_bytes, ref in (
+            ("ripemd160", True, th.ripemd160_lanes, th.ripemd160_words, th.digests_to_bytes_le,
+             ripemd160),
+            ("sha256", False, th.sha256_lanes, th.sha256_words, th.digests_to_bytes_be,
+             lambda m: hashlib.sha256(m).digest())):
+        args = th.to_device(*th.pack_ragged(msgs, le), DEVICE)
+        t0 = time.perf_counter()
+        want = plain(*args)
+        torch.cuda.synchronize()
+        plain_s[kname] = time.perf_counter() - t0
+        log({"phase": "hash_plain_run", "kernel": kname, "messages": len(msgs),
+             "max_blocks": int(args[2].max().item()), "seconds": plain_s[kname]})
+        refs = [ref(m) for m in msgs]
+        errs[kname] = 0
+        for c in HASH_COUNTS:
+            got = lanes(*th.to_device(*th.pack_ragged(msgs[:c], le), DEVICE))
+            err = int(((got.long() & _M32) - want[:c]).abs().max().item())
+            equal_ref = to_bytes(got) == refs[:c]
+            log({"phase": "hash_vs_plain", "kernel": kname, "messages": c,
+                 "lengths": sorted({len(m) for m in msgs[:c]} & set(HASH_EDGE_LENGTHS)),
+                 "max_abs_err": err, "equal_reference": equal_ref})
+            if err or not equal_ref:
+                raise AssertionError(f"{kname} at {c} messages disagrees with its plain version "
+                                     f"({err}) or the reference ({equal_ref})")
+            errs[kname] = max(errs[kname], err)
+    errs["merkle_tree"] = 0
+    for n in TREE_LEAVES:
+        digests = [leaf_hash(b"leaf-%d" % i) for i in range(n)]
+        nodes = tm._digest_rows(digests, torch.device(DEVICE))
+        left, right, out, _, _, _, rounds = tm._dense_schedule(n)
+        sched = [torch.from_numpy(a).long().to(DEVICE) for a in (left, right, out)]
+        want = tm._run_tree(nodes.long() & _M32, *sched, rounds)[: 2 * n - 1]
+        got = tm.tree_lanes(nodes, n)[: 2 * n - 1]
+        err = int(((got.long() & _M32) - want).abs().max().item())
+        equal_flat = th.digests_to_bytes_le(got) == FlatTree.from_leaf_digests(digests).nodes
+        log({"phase": "merkle_vs_plain", "leaves": n, "rounds": rounds, "max_width": left.shape[1],
+             "max_abs_err": err, "equal_flat_tree": equal_flat})
+        if err or not equal_flat:
+            raise AssertionError(f"merkle_tree at {n} leaves disagrees with its plain version "
+                                 f"({err}) or FlatTree ({equal_flat})")
+    torch.cuda.synchronize()
+    return errs, plain_s
+
+
+def make_block_txs(rng):
+    """({label: txs}, ConsensusParams): `block_1mb`, BASELINE.json's 1 MB
+    block of 64 KB parts (BLOCK_1MB_TXS transactions of BLOCK_1MB_TX_BYTES),
+    and `block_cap`, types/params.py's caps: max_txs transactions of 1 to
+    4,096 bytes, every 1,000th at the tx cap of 10,240."""
+    from tendermint_tpu_torch.types.params import ConsensusParams
+
+    params = ConsensusParams()
+    raw = rng.bytes(BLOCK_1MB_TXS * BLOCK_1MB_TX_BYTES)
+    small = [raw[i * BLOCK_1MB_TX_BYTES:(i + 1) * BLOCK_1MB_TX_BYTES] for i in range(BLOCK_1MB_TXS)]
+    lengths = rng.integers(1, 4097, size=params.block_size.max_txs)
+    lengths[999::1000] = params.tx_size.max_bytes
+    buf = rng.bytes(int(lengths.sum()))
+    ends = np.cumsum(lengths)
+    cap = [buf[e - k:e] for e, k in zip(ends.tolist(), lengths.tolist())]
+    return {"block_1mb": small, "block_cap": cap}, params
+
+
+def host_hasher():
+    """A Hasher built under TENDERMINT_TPU_HASHES=0: the operator's host
+    floor (the native library and hashlib), no device."""
+    from tendermint_tpu_torch.ops.gateway import Hasher
+
+    before = os.environ.get("TENDERMINT_TPU_HASHES")
+    os.environ["TENDERMINT_TPU_HASHES"] = "0"
+    try:
+        h = Hasher()
+    finally:
+        if before is None:
+            del os.environ["TENDERMINT_TPU_HASHES"]
+        else:
+            os.environ["TENDERMINT_TPU_HASHES"] = before
+    if h.device is not None:
+        raise AssertionError("TENDERMINT_TPU_HASHES=0 built a device Hasher")
+    return h
+
+
+def make_block_with(h, txs, commit_args, part_size):
+    """Block.make_block wired to h as consensus wires its Hasher
+    (consensus/state.py:944-959): the tx root through set_batch_tx_root,
+    the part set through the part hashers and the tree submitter."""
+    from tendermint_tpu_torch.types import tx as ptx
+    from tendermint_tpu_torch.types.block import Block
+
+    vs, bid, commit = commit_args
+    ptx.set_batch_tx_root(h.tx_merkle_root)
+    return Block.make_block(
+        2, CHAIN_ID, txs, commit, bid, vs.hash(), APP_HASH, part_size, time_ns=BLOCK_TIME_NS,
+        part_hasher=h.part_leaf_hashes, part_tree_hasher=h.part_set_tree,
+        part_tree_submitter=h.submit_part_set_tree,
+    )
+
+
+def reset_launches() -> None:
+    from tendermint_tpu_torch.ops import ed25519 as ed32
+    from tendermint_tpu_torch.ops import ed25519_comb as comb
+    from tendermint_tpu_torch.ops import ed25519_f32p as f32p
+    from tendermint_tpu_torch.ops import ed25519_pallas as b2
+    from tendermint_tpu_torch.ops import hashing as th
+    from tendermint_tpu_torch.ops import merkle as tm
+
+    f32p.launches = b2.launches = ed32.launches = comb.launches = comb.table_launches = 0
+    th.ripemd160_launches = th.sha256_launches = tm.launches = 0
+
+
+def read_launches() -> dict[str, int]:
+    from tendermint_tpu_torch.ops import ed25519 as ed32
+    from tendermint_tpu_torch.ops import ed25519_comb as comb
+    from tendermint_tpu_torch.ops import ed25519_f32p as f32p
+    from tendermint_tpu_torch.ops import ed25519_pallas as b2
+    from tendermint_tpu_torch.ops import hashing as th
+    from tendermint_tpu_torch.ops import merkle as tm
+
+    return {"ripemd160": th.ripemd160_launches, "sha256": th.sha256_launches,
+            "merkle_tree": tm.launches, "b1": f32p.launches, "b2": b2.launches,
+            "dsm": ed32.launches, "comb": comb.launches, "tables": comb.table_launches}
+
+
+class capture_hash_calls:
+    """Inside the block, record every K1 / K2 / K3 wrapper call: the kernel,
+    the block it serves, its inputs as passed (copied before the launch)
+    and its output (copied after), on the caller's stream. The wrappers
+    still launch and count; the copies cost a few device copies a call."""
+
+    def __init__(self, calls: list, label: str):
+        self.calls, self.label = calls, label
+
+    def __enter__(self):
+        from tendermint_tpu_torch.ops import hashing as th
+        from tendermint_tpu_torch.ops import merkle as tm
+
+        self.real = (th.ripemd160_lanes, th.sha256_lanes, tm.tree_lanes)
+        calls, label = self.calls, self.label
+
+        def hashes(kname, wrapper):
+            def spy(words, first, nblocks, out=None):
+                args = (words.clone(), first.clone(), nblocks.clone())
+                got = wrapper(words, first, nblocks, out=out)
+                calls.append({"kernel": kname, "block": label, "args": args, "got": got.clone()})
+                return got
+            return spy
+
+        def tree(nodes, n):
+            before = nodes.clone()
+            got = self.real[2](nodes, n)
+            calls.append({"kernel": "merkle_tree", "block": label, "leaves": n, "args": before,
+                          "got": got.clone()})
+            return got
+
+        th.ripemd160_lanes = hashes("ripemd160", self.real[0])
+        th.sha256_lanes = hashes("sha256", self.real[1])
+        tm.tree_lanes = tree
+        return self
+
+    def __exit__(self, *exc):
+        from tendermint_tpu_torch.ops import hashing as th
+        from tendermint_tpu_torch.ops import merkle as tm
+
+        th.ripemd160_lanes, th.sha256_lanes, tm.tree_lanes = self.real
+        return False
+
+
+def check_path_kernels(calls, block_txs) -> dict[str, int]:
+    """Phase 19's kernel calls against their plain versions on the card, on
+    the main path's own inputs as recorded: all K1 calls of both blocks
+    (tx leaves and parts) in one plain walk, whose cost the longest
+    message sets (a 1,025-block part, as phase 18's widest batch); K2's
+    call; each K3 tree. Labels each call's batch (tx_leaves, parts, txs,
+    tx_tree, part_tree) for phase 20 and returns the largest difference a
+    kernel."""
+    import torch
+
+    from tendermint_tpu_torch.ops import hashing as th
+    from tendermint_tpu_torch.ops import merkle as tm
+
+    want_calls = {"ripemd160": 2 * len(block_txs), "sha256": 1, "merkle_tree": 2 * len(block_txs)}
+    got_calls = {k: sum(c["kernel"] == k for c in calls) for k in want_calls}
+    if got_calls != want_calls:
+        raise AssertionError(f"recorded kernel calls {got_calls}, expected {want_calls}")
+    errs = {}
+    for kname, plain in (("ripemd160", th.ripemd160_words), ("sha256", th.sha256_words)):
+        mine = [c for c in calls if c["kernel"] == kname]
+        firsts, base = [], 0
+        for c in mine:
+            firsts.append(c["args"][1] + base)
+            base += c["args"][0].shape[0]
+        nblocks = torch.cat([c["args"][2] for c in mine])
+        t0 = time.perf_counter()
+        want = plain(torch.cat([c["args"][0] for c in mine]), torch.cat(firsts), nblocks)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = torch.cat([c["got"] for c in mine]).long() & _M32
+        errs[kname], lo = 0, 0
+        for c in mine:
+            n = c["args"][1].shape[0]
+            c["batch"] = ("txs" if kname == "sha256"
+                          else "tx_leaves" if n == len(block_txs[c["block"]]) else "parts")
+            err = int((got[lo:lo + n] - want[lo:lo + n]).abs().max().item())
+            log({"phase": "path_vs_plain", "kernel": kname, "block": c["block"], "batch": c["batch"],
+                 "messages": n, "max_blocks": int(c["args"][2].max().item()), "max_abs_err": err,
+                 "plain_walk_s": seconds})
+            errs[kname] = max(errs[kname], err)
+            lo += n
+    errs["merkle_tree"] = 0
+    for c in calls:
+        if c["kernel"] != "merkle_tree":
+            continue
+        n = c["leaves"]
+        c["batch"] = "tx_tree" if n == len(block_txs[c["block"]]) else "part_tree"
+        left, right, out, _, _, _, rounds = tm._dense_schedule(n)
+        sched = [torch.from_numpy(a).long().to(DEVICE) for a in (left, right, out)]
+        want = tm._run_tree(c["args"].long() & _M32, *sched, rounds)[: 2 * n - 1]
+        err = int(((c["got"][: 2 * n - 1].long() & _M32) - want).abs().max().item())
+        log({"phase": "path_vs_plain", "kernel": "merkle_tree", "block": c["block"],
+             "batch": c["batch"], "leaves": n, "rounds": rounds, "max_abs_err": err})
+        errs["merkle_tree"] = max(errs["merkle_tree"], err)
+    if any(errs.values()):
+        raise AssertionError(f"the main path's kernel calls disagree with their plain versions: {errs}")
+    return errs
+
+
+def hash_main_path(commit_args, block_txs, params):
+    """Phase 19: each block built through `Block.make_block` with a fresh
+    Hasher on the card, its launches reset just before and read just after
+    (K1 twice, tx leaves and part leaves; K3 once a tree; nothing else),
+    its stats checked, and the block held against the same block built on
+    the host floor (bytes, header, data and part-set hashes, every proof),
+    through its own bytes, and through a PartSet filled part by part (a
+    flipped byte refused). Then K2's path, its entry point
+    `ops.hashing.sha256_batch` on block_1mb's transactions. Every kernel
+    call on the card is recorded (`capture_hash_calls`). Returns the
+    launches a kernel over these paths, per block its objects and the
+    builds' wall seconds, and the recorded calls."""
+    import torch
+
+    from tendermint_tpu_torch.crypto import hashing as crypto_hashing
+    from tendermint_tpu_torch.ops import hashing as th
+    from tendermint_tpu_torch.ops.gateway import Hasher
+    from tendermint_tpu_torch.types import tx as ptx
+    from tendermint_tpu_torch.types.block import Block
+    from tendermint_tpu_torch.types.part_set import InvalidProofError, Part, PartSet
+
+    part_size = params.block_gossip.block_part_size_bytes
+    total = {"ripemd160": 0, "sha256": 0, "merkle_tree": 0}
+    built, calls = {}, []
+    for label, txs in block_txs.items():
+        h = Hasher()
+        with capture_hash_calls(calls, label):
+            reset_launches()
+            t0 = time.perf_counter()
+            block, ps = make_block_with(h, txs, commit_args, part_size)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+        stats = h.stats()
+        data = block.to_bytes()
+        if len(txs) > params.block_size.max_txs or len(data) > params.block_size.max_bytes:
+            raise AssertionError(f"{label}: {len(txs)} txs, {len(data)} bytes: over the caps")
+        want = {"ripemd160": 2, "sha256": 0, "merkle_tree": 2, "b1": 0, "b2": 0, "dsm": 0,
+                "comb": 0, "tables": 0}
+        if launches != want:
+            raise AssertionError(f"{label}: launches {launches}, expected {want}")
+        got_stats = {k: stats[k] for k in ("tpu_part_batches", "tpu_tx_roots", "cpu_leaves",
+                                           "submitted_jobs")}
+        if got_stats != {"tpu_part_batches": 1, "tpu_tx_roots": 1, "cpu_leaves": 0, "submitted_jobs": 1}:
+            raise AssertionError(f"{label}: Hasher stats {stats}")
+        for k in total:
+            total[k] += launches[k]
+
+        h_host = host_hasher()
+        t0 = time.perf_counter()
+        ref, ref_ps = make_block_with(h_host, txs, commit_args, part_size)
+        wall_host = time.perf_counter() - t0
+        same = {
+            "bytes": data == ref.to_bytes(),
+            "header_hash": block.hash() == ref.hash() != b"",
+            "data_hash": block.header.data_hash == ref.header.data_hash,
+            "part_set_header": ps.header() == ref_ps.header(),
+            "proofs": all(ps.get_part(i).proof == ref_ps.get_part(i).proof for i in range(ps.total)),
+        }
+        ptx.set_batch_tx_root(h.tx_merkle_root)
+        same["from_bytes"] = Block.from_bytes(data).hash() == block.hash()
+        fresh = PartSet.from_header(ps.header())
+        same["parts_accepted"] = all(fresh.add_part(Part.from_json(ps.get_part(i).to_json()))
+                                     for i in range(ps.total))
+        same["reassembled"] = fresh.is_complete() and fresh.get_data() == data
+        part = ps.get_part(ps.total // 2)
+        flipped = bytearray(part.bytes_)
+        flipped[len(flipped) // 3] ^= 0x10
+        try:
+            PartSet.from_header(ps.header()).add_part(Part(part.index, bytes(flipped), part.proof))
+            same["flipped_refused"] = False
+        except InvalidProofError:
+            same["flipped_refused"] = True
+        log({"phase": "hash_main_path", "block": label, "txs": len(txs), "bytes": len(data),
+             "parts": ps.total, "launches": launches, "stats": stats, "checks": same,
+             "wall_s": wall, "host_floor_wall_s": wall_host,
+             "hashlib_ripemd160": crypto_hashing._RIPEMD_TEMPLATE is not None})
+        if not all(same.values()):
+            raise AssertionError(f"{label}: {same}")
+        built[label] = {"block": block, "data": data, "parts": ps.total, "wall_s": wall,
+                        "host_wall_s": wall_host}
+    ptx.set_batch_tx_root(None)
+
+    # K2's path: no block path hashes with SHA-256 (nor in the JAX
+    # package); its entry point on block_1mb's transactions
+    msgs = block_txs["block_1mb"]
+    with capture_hash_calls(calls, "block_1mb"):
+        reset_launches()
+        digests = th.sha256_batch(msgs)
+        launches = read_launches()
+    ok = digests == [hashlib.sha256(m).digest() for m in msgs]
+    log({"phase": "sha256_entry_point", "messages": len(msgs), "launches": launches, "equal_hashlib": ok})
+    if not ok or launches["sha256"] != 1 or sum(launches.values()) != 1:
+        raise AssertionError(f"sha256_batch: {launches}, equal to hashlib: {ok}")
+    total["sha256"] = launches["sha256"]
+    return total, built, calls
+
+
+def alu_yardsticks(name: str, power: str) -> dict[str, float]:
+    """Phase 20's yardsticks, from imad_rate.cu's ALU probes: the card's
+    rate of the hash kernels' instruction mix (LOP3, IADD3, SHF.L.W),
+    swept over chains a thread and blocks an SM, each loop's SASS counted;
+    and one dependent instruction's latency, one thread on one chain, in
+    SM cycles (clock64) and in ns (CUDA events)."""
+    import re
+
+    import torch
+
+    from tendermint_tpu_torch.ops import kernels
+
+    lib_path = os.path.join(kernels.BUILD_DIR, f"lib{PROBE}.so")
+    sass = sass_counts(lib_path)
+    loops = {}
+    for f, c in sass.items():
+        m = re.search(r"alu_rate_kernelILi(\d+)E", f)
+        if m and "longest_loop" in c:
+            loops[int(m.group(1))] = c["longest_loop"]
+        if "alu_chain_kernel" in f and "longest_loop" in c:
+            loops["chain"] = c["longest_loop"]
+    lib = kernels.load(PROBE)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    threads, per_sm_steps = 256, 1 << 28
+    out = torch.empty(8 * sms * threads, dtype=torch.int64, device=DEVICE)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    sweep, rate = [], 0.0
+    for chains in (8, 16, 32):
+        loop = loops[chains]
+        alu_per_iter = sum(loop[op] for op in ("LOP3", "IADD3", "SHF"))
+        for per_sm in (2, 4, 8):
+            blocks = per_sm * sms
+            iters = per_sm_steps // (per_sm * threads * chains)
+
+            def launch() -> None:
+                rc = lib.tm_imad_rate(2, chains, out.data_ptr(), iters, blocks, threads, stream())
+                if rc != 0:
+                    raise RuntimeError(f"alu_rate launch failed: cudaError {rc}")
+
+            r = blocks * threads * iters * alu_per_iter / (cuda_ms(launch) / 1e3)
+            sweep.append({"chains": chains, "blocks_per_sm": per_sm, "alu_per_s": r})
+            rate = max(rate, r)
+    chain = loops["chain"]
+    iadd_on_chain = chain["IADD3"] - 1 if chain["IADD3"] > chain["LOP3"] else chain["IADD3"]
+    per_iter = chain["LOP3"] + chain["SHF"] + iadd_on_chain
+    iters = 50_000
+
+    def launch_chain() -> None:
+        rc = lib.tm_imad_rate(3, 1, out.data_ptr(), iters, 1, 1, stream())
+        if rc != 0:
+            raise RuntimeError(f"alu_chain launch failed: cudaError {rc}")
+
+    chain_ms = cuda_ms(launch_chain, reps=5)
+    cycles = int(out[1].item())
+    yard = {"alu_per_s": rate, "dep_ns": chain_ms * 1e6 / (iters * per_iter),
+            "dep_cycles": cycles / (iters * per_iter)}
+    log({"phase": "alu_rate", "card": name, "power_limit": power, "sms": sms, "threads": threads,
+         "loop_sass": {str(k): v for k, v in loops.items()}, "chain_instructions_per_iter": per_iter,
+         "sweep": sweep, **yard})
+    return yard
+
+
+def hash_bound(yard, compressions: int, chain_blocks: int, chain: int, instrs: int,
+               moved_bytes: int) -> dict:
+    """The least time of a hash batch: the largest of (a) its compressions'
+    SASS instructions over the measured ALU rate, (b) its bytes over the
+    memory rate, (c) its longest serial chain (blocks in sequence x the
+    compression's dependent instructions) at the measured dependent
+    latency. bound_by is "bytes" for (b) and "operations" for (a) and (c);
+    bound_term names the term."""
+    terms = {
+        "issue": 1e3 * compressions * instrs / yard["alu_per_s"],
+        "bytes": 1e3 * moved_bytes / HBM_BYTES_PER_S,
+        "chain": 1e-6 * chain_blocks * chain * yard["dep_ns"],
+    }
+    term = max(terms, key=terms.get)
+    return {"bound_ms": terms[term], "bound_by": "bytes" if term == "bytes" else "operations",
+            "bound_term": term, **{f"{k}_ms": v for k, v in terms.items()}}
+
+
+def time_hashes(name, power, commit_args, block_txs, built, calls, params, plain_18_s) -> list[dict]:
+    """Phase 20: K1 on both blocks' part batches and tx-leaf batches, K2 on
+    the tx-leaf batches, K3 on phase 19's recorded trees (their own leaf
+    digests), each with its bound and the native host library's time on
+    the same input; the plain versions where a run is short (block_1mb's
+    tx leaves, the trees), their results held against the kernel's; the
+    make_block wall time through the card's Hasher and through the host
+    floor (a fresh Hasher each run: no tx-root cache), and where a card
+    build's time goes. Returns the kernels line's entries."""
+    import torch
+
+    from tendermint_tpu_torch import native
+    from tendermint_tpu_torch.codec.binary import encode_bytes
+    from tendermint_tpu_torch.merkle.simple import FlatTree
+    from tendermint_tpu_torch.ops import hashing as th
+    from tendermint_tpu_torch.ops import kernels
+    from tendermint_tpu_torch.ops import merkle as tm
+    from tendermint_tpu_torch.ops.gateway import Hasher
+    from tendermint_tpu_torch.types import tx as ptx
+    from tendermint_tpu_torch.types.part_set import PartSet
+
+    tag = {"card": name, "power_limit": power}
+    yard = alu_yardsticks(name, power)
+    hash_sass = sass_counts(os.path.join(kernels.BUILD_DIR, "libhash_blocks.so"))
+    tree_sass = sass_counts(os.path.join(kernels.BUILD_DIR, "libmerkle_tree.so"))
+    per_block = {k: next(c["longest_loop"] for f, c in hash_sass.items() if f"hash_blocks_kernelILi{a}E" in f)
+                 for k, a in (("ripemd160", 0), ("sha256", 1))}
+    per_node = next(c["longest_loop"] for f, c in tree_sass.items() if "merkle_tree_kernel" in f)
+    log({"phase": "hash_sass", "per_block_loop": per_block, "per_round_loop": per_node,
+         "functions": {"hash_blocks": hash_sass, "merkle_tree": tree_sass}})
+    chains = {"ripemd160": th.RIPEMD160_CHAIN, "sha256": th.SHA256_CHAIN}
+    width = {"ripemd160": 20, "sha256": 32}
+    best3 = lambda fn: 1e3 * min(timed(fn) for _ in range(3))  # noqa: E731
+    part_size = params.block_gossip.block_part_size_bytes
+    json_shape = {}
+
+    def time_batch(kname, label, batch, msgs, native_fn, plain=False):
+        le = kname == "ripemd160"
+        words, first, nblocks = th.pack_ragged(msgs, le)
+        args = th.to_device(words, first, nblocks, DEVICE)
+        lanes = th.ripemd160_lanes if le else th.sha256_lanes
+        ms = cuda_ms(lambda: lanes(*args))
+        dev_ms = device_ms(lambda: lanes(*args), "hash_blocks_kernel")
+        moved = 64 * len(words) + 8 * len(msgs) + width[kname] * len(msgs)
+        b = hash_bound(yard, len(words), int(nblocks.max()), chains[kname],
+                       per_block[kname]["instructions"], moved)
+        row = {"phase": "hash_time", **tag, "kernel": kname, "block": label, "batch": batch,
+               "messages": len(msgs), "bytes": sum(map(len, msgs)), "compressions": len(words),
+               "max_blocks": int(nblocks.max()), "ms": ms, "device_ms": dev_ms, **b,
+               "native_ms": best3(native_fn)}
+        if plain:
+            fn = th.ripemd160_words if le else th.sha256_words
+            row["plain_ms"] = cuda_ms(lambda: fn(*args), reps=3, warmup=1)
+            got = lanes(*args).long() & _M32
+            row["max_abs_err"] = int((got - fn(*args)).abs().max().item())
+            if row["max_abs_err"]:
+                raise AssertionError(f"{kname} on {label}'s {batch} disagrees with its plain version")
+        log(row)
+        if (label, batch) == HASH_JSON_BATCH:
+            json_shape[kname] = row
+
+    for label, txs in block_txs.items():
+        data = built[label]["data"]
+        chunks = [data[i:i + part_size] for i in range(0, len(data), part_size)]
+        time_batch("ripemd160", label, "parts", chunks, lambda: native.ripemd160_batch(chunks))
+        leaves = [encode_bytes(t) for t in txs]
+        first = label == "block_1mb"
+        time_batch("ripemd160", label, "tx_leaves", leaves, lambda: native.merkle_leaf_hashes(txs),
+                   plain=first)
+        time_batch("sha256", label, "tx_leaves", leaves, lambda: native.sha256_batch(leaves),
+                   plain=first)
+
+    # K3 on the main path's own trees: each recorded call's node buffer,
+    # its leaf digests filled
+    for c in calls:
+        if c["kernel"] != "merkle_tree":
+            continue
+        n, filled = c["leaves"], c["args"]
+        nodes = filled.clone()
+        digests = th.digests_to_bytes_le(filled[:n])
+        ms = cuda_ms(lambda: tm.tree_lanes(nodes, n))
+        dev_ms = device_ms(lambda: tm.tree_lanes(nodes, n), "merkle_tree_kernel")
+        left, right, out, _, _, _, rounds = tm._dense_schedule(n)
+        sched = [torch.from_numpy(a).long().to(DEVICE) for a in (left, right, out)]
+        plain_nodes = filled.long() & _M32
+        moved = 20 * n + 12 * (n - 1) + 4 * rounds + 20 * (n - 1)
+        b = hash_bound(yard, n - 1, rounds, th.RIPEMD160_CHAIN, per_node["instructions"], moved)
+        want = tm._run_tree(plain_nodes, *sched, rounds)[: 2 * n - 1]
+        err = int(((nodes[: 2 * n - 1].long() & _M32) - want).abs().max().item())
+        if err:
+            raise AssertionError(f"merkle_tree on {c['block']}'s {c['batch']} disagrees with its plain version")
+        row = {"phase": "merkle_time", **tag, "block": c["block"], "batch": c["batch"], "leaves": n,
+               "rounds": rounds, "ms": ms, "device_ms": dev_ms, **b,
+               "plain_ms": cuda_ms(lambda: tm._run_tree(plain_nodes, *sched, rounds), reps=3, warmup=1),
+               "max_abs_err": err,
+               "native_root_ms": best3(lambda: native.merkle_root_from_leaf_digests(digests)),
+               "host_flat_tree_ms": best3(lambda: FlatTree.from_leaf_digests(digests))}
+        log(row)
+        if (c["block"], c["batch"]) == TREE_JSON_BATCH:
+            json_shape["merkle_tree"] = row
+
+    for label, txs in block_txs.items():
+        block = built[label]["block"]
+        walls = {}
+        for kind, make in (("card", Hasher), ("host_floor", host_hasher)):
+            runs = []
+            for _ in range(3):
+                h = make()
+                t0 = time.perf_counter()
+                make_block_with(h, txs, commit_args, part_size)
+                torch.cuda.synchronize()
+                runs.append(time.perf_counter() - t0)
+            walls[kind] = min(runs)
+        # where a card build's time goes, stage by stage (each timed alone)
+        h = Hasher()
+        leaves = [encode_bytes(t) for t in txs]
+        packed = th.pack_ragged(leaves, True)
+        stages = {
+            "tx_encode_s": min(timed(lambda: [encode_bytes(t) for t in txs]) for _ in range(3)),
+            "tx_pack_s": min(timed(lambda: th.pack_ragged(leaves, True)) for _ in range(3)),
+            "tx_copy_s": min(timed(lambda: (th.to_device(*packed, DEVICE), torch.cuda.synchronize()))
+                             for _ in range(3)),
+            "tx_root_s": min(timed(lambda: Hasher().tx_merkle_root(txs)) for _ in range(3)),
+            "to_bytes_s": min(timed(block.to_bytes) for _ in range(3)),
+            "part_set_s": min(timed(lambda: PartSet.from_data(
+                built[label]["data"], part_size, tree_submitter=h.submit_part_set_tree)) for _ in range(3)),
+        }
+        log({"phase": "make_block_time", **tag, "block": label, "txs": len(txs),
+             "bytes": len(built[label]["data"]), "parts": built[label]["parts"],
+             "first_card_s": built[label]["wall_s"], "first_host_floor_s": built[label]["host_wall_s"],
+             "card_best_of_3_s": walls["card"], "host_floor_best_of_3_s": walls["host_floor"],
+             "card_stages": stages})
+    ptx.set_batch_tx_root(None)
+
+    entries = []
+    for kname in ("ripemd160", "sha256", "merkle_tree"):
+        row = json_shape[kname]
+        shape = {"block": row["block"], "batch": row["batch"],
+                 **({"leaves": row["leaves"]} if kname == "merkle_tree" else {"messages": row["messages"]})}
+        entries.append({"name": kname, "ms": row["ms"], "device_ms": row["device_ms"],
+                        "plain_ms": row["plain_ms"], "max_abs_err": row["max_abs_err"],
+                        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                        "bound_term": row["bound_term"], "library_ms": None,
+                        "native_ms": row.get("native_ms", row.get("native_root_ms")), **shape,
+                        "plain_widest_batch_s": plain_18_s.get(kname)})
+    return entries
 
 
 if __name__ == "__main__":

@@ -20,6 +20,11 @@ equation whose n + 1 dual scalar multiplications run in a third CUDA kernel
 launched once per shard (`multichip.dryrun_multichip` drives it).
 secp256k1 validator keys (`crypto.secp256k1`) verify on the CPU.
 
+The port also builds blocks on the card: `types.block.Block.make_block`,
+wired to `ops.gateway.Hasher`, hashes the tx root and the part set's leaves
+and Merkle tree with hand-written CUDA kernels (`ops.hashing`,
+`ops/csrc/hash_blocks.cu`; `ops.merkle`, `ops/csrc/merkle_tree.cu`).
+
 Entry points run on the card unless the caller passes `device="cpu"`;
 there each kernel's plain PyTorch version runs instead. A missing card is
 an error, never a silent CPU fallback.

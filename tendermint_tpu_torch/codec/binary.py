@@ -1,5 +1,6 @@
-"""Deterministic c-style binary codec: what votes, block IDs, validators
-and commits (full and aggregate) are written and read with.
+"""Deterministic c-style binary codec: what votes, block IDs, validators,
+commits (full and aggregate), headers, blocks and evidence are written
+and read with.
 
 Format (the reference's wire-protocol spec,
 docs/specification/wire-protocol.rst):
@@ -7,7 +8,8 @@ docs/specification/wire-protocol.rst):
 - fixed-width uints: big-endian
 - `varint`: 1 length byte then that many big-endian bytes; 0 == b"\\x00";
   negative sets the MSB of the length byte
-- bytes: varint length prefix + raw bytes
+- bytes/string: varint length prefix + raw bytes
+- time: int64 nanoseconds since epoch, fixed 8 bytes
 - lists: varint count + concatenated items
 """
 
@@ -30,6 +32,10 @@ def encode_bytes(b: bytes) -> bytes:
     return encode_varint(len(b)) + b
 
 
+def encode_string(s: str) -> bytes:
+    return encode_bytes(s.encode("utf-8"))
+
+
 class Encoder:
     """Accumulating encoder; all writes are deterministic."""
 
@@ -46,11 +52,20 @@ class Encoder:
     def write_u8(self, n: int) -> "Encoder":
         return self.write_raw(struct.pack(">B", n))
 
+    def write_i64(self, n: int) -> "Encoder":
+        return self.write_raw(struct.pack(">q", n))
+
     def write_varint(self, n: int) -> "Encoder":
         return self.write_raw(encode_varint(n))
 
     def write_bytes(self, b: bytes) -> "Encoder":
         return self.write_raw(encode_bytes(b))
+
+    def write_string(self, s: str) -> "Encoder":
+        return self.write_raw(encode_string(s))
+
+    def write_time_ns(self, ns: int) -> "Encoder":
+        return self.write_i64(ns)
 
     def write_list(self, items, write_item) -> "Encoder":
         self.write_varint(len(items))
@@ -88,6 +103,9 @@ class Decoder:
         scalars, 64-byte signatures)."""
         return self._take(n)
 
+    def read_i64(self) -> int:
+        return struct.unpack(">q", self._take(8))[0]
+
     def read_varint(self) -> int:
         ln = self.read_u8()
         if ln == 0:
@@ -107,6 +125,12 @@ class Decoder:
         if ln < 0:
             raise ValueError("negative byte-slice length")
         return self._take(ln)
+
+    def read_string(self) -> str:
+        return self.read_bytes().decode("utf-8")
+
+    def read_time_ns(self) -> int:
+        return self.read_i64()
 
     def read_list(self, read_item) -> list:
         n = self.read_varint()

@@ -3,15 +3,18 @@
 Everything decoded from a peer is attacker input: every scalar is type-
 and range-checked, and any violation raises ValueError. The bounds are
 protocol-level maxima, not policy limits: heights up to 2^62, 2^20
-validators, 64-byte hashes.
+validators or parts, 64-byte hashes.
 """
 
 from __future__ import annotations
 
 MAX_HEIGHT = 1 << 62
 MAX_ROUND = 1 << 31
-MAX_INDEX = 1 << 20  # validator indices and counts
+MAX_INDEX = 1 << 20  # validator / part indices and counts
 MAX_HASH_BYTES = 64
+MAX_TX_BYTES = 1 << 22  # 4 MB, above any block-size policy
+MAX_STR = 1 << 10
+MAX_TIME_NS = 1 << 62  # about the year 2116 in unix nanoseconds
 
 
 def int_field(o, key, lo: int, hi: int) -> int:
@@ -49,5 +52,12 @@ def require_dict(o) -> dict:
 def list_field(o, key, max_len: int) -> list:
     v = o.get(key) if isinstance(o, dict) else None
     if not isinstance(v, list) or len(v) > max_len:
+        raise ValueError(f"bad {key!r}")
+    return v
+
+
+def str_field(o, key, max_len: int = MAX_STR) -> str:
+    v = o.get(key) if isinstance(o, dict) else None
+    if not isinstance(v, str) or len(v) > max_len:
         raise ValueError(f"bad {key!r}")
     return v

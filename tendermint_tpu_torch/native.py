@@ -1,9 +1,11 @@
 """ctypes loader for the C++ host library in `native/` (shared with the JAX
 package, which keeps its own loader).
 
-The port uses three of its entry points: the batch SHA512(R||A||M) mod L
-digests and the batch point decompression behind the verify marshal, and
-the batch Ed25519 verifier behind the gateway's CPU path. Loading is lazy;
+The port uses its batch SHA512(R||A||M) mod L digests and batch point
+decompression behind the verify marshal, the batch Ed25519 verifier behind
+the gateway's CPU path, and its hash entries (batch SHA-256 and
+RIPEMD-160, Merkle leaf hashes and roots) as the CPU floor of the `Hasher`
+and of `merkle.simple.FlatTree`'s wide levels. Loading is lazy;
 a missing or stale library is built with `make -C native` at first use.
 On any failure callers take their pure-Python paths, as in the JAX
 package: this is host code, not the device path.
@@ -74,6 +76,10 @@ def get_lib():
         u8p = ctypes.POINTER(ctypes.c_uint8)
         u64p = ctypes.POINTER(ctypes.c_uint64)
         i64 = ctypes.c_int64
+        lib.tm_sha256_batch.argtypes = [u8p, u64p, i64, u8p]
+        lib.tm_ripemd160_batch.argtypes = [u8p, u64p, i64, u8p]
+        lib.tm_merkle_leaf_hashes.argtypes = [u8p, u64p, i64, u8p]
+        lib.tm_merkle_root.argtypes = [u8p, i64, u8p]
         lib.tm_ed25519_verify_batch.argtypes = [u8p, u8p, u8p, u64p, i64, u8p]
         lib.tm_ed25519_verify_batch_rlc.argtypes = [u8p, u8p, u8p, u64p, i64]
         lib.tm_ed25519_verify_batch_rlc.restype = ctypes.c_int
@@ -117,6 +123,49 @@ def _concat(msgs: list[bytes]) -> tuple[np.ndarray, np.ndarray]:
         offsets[i + 1] = total
     data = np.frombuffer(b"".join(msgs), dtype=np.uint8) if total else np.zeros(1, np.uint8)
     return np.ascontiguousarray(data), offsets
+
+
+def _digests(out: np.ndarray, width: int, n: int) -> list[bytes]:
+    raw = out.tobytes()
+    return [raw[width * i : width * i + width] for i in range(n)]
+
+
+def sha256_batch(msgs: list[bytes]) -> list[bytes]:
+    data, offsets = _concat(msgs)
+    out = np.zeros(len(msgs) * 32, dtype=np.uint8)
+    get_lib().tm_sha256_batch(_as_u8p(data), _as_u64p(offsets), len(msgs), _as_u8p(out))
+    return _digests(out, 32, len(msgs))
+
+
+def ripemd160_batch(msgs: list[bytes]) -> list[bytes]:
+    """RIPEMD-160 per message; equal-length runs hash 16 at a time in
+    AVX-512 lanes where the host has them (the part-set path)."""
+    data, offsets = _concat(msgs)
+    out = np.zeros(len(msgs) * 20, dtype=np.uint8)
+    get_lib().tm_ripemd160_batch(_as_u8p(data), _as_u64p(offsets), len(msgs), _as_u8p(out))
+    return _digests(out, 20, len(msgs))
+
+
+def merkle_leaf_hashes(items: list[bytes]) -> list[bytes]:
+    """merkle.simple.leaf_hash per item: RIPEMD-160 of the length-prefixed
+    item."""
+    data, offsets = _concat(items)
+    out = np.zeros(len(items) * 20, dtype=np.uint8)
+    get_lib().tm_merkle_leaf_hashes(_as_u8p(data), _as_u64p(offsets), len(items), _as_u8p(out))
+    return _digests(out, 20, len(items))
+
+
+def merkle_root_from_leaf_digests(digests: list[bytes]) -> bytes:
+    if not digests:
+        return b""
+    leaves = np.ascontiguousarray(np.frombuffer(b"".join(digests), dtype=np.uint8))
+    out = np.zeros(20, dtype=np.uint8)
+    get_lib().tm_merkle_root(_as_u8p(leaves), len(digests), _as_u8p(out))
+    return out.tobytes()
+
+
+def merkle_root(items: list[bytes]) -> bytes:
+    return merkle_root_from_leaf_digests(merkle_leaf_hashes(items))
 
 
 RLC_MIN_BATCH = 32  # below this the MSM's fixed costs beat its savings

@@ -17,11 +17,18 @@ versions, and the gateway the commit path talks to.
   with their plain versions, and the second-sight lane routing.
 - `ed25519_pallas`: the wrapper of the single-bit CUDA ladder B2
   (`csrc/ed25519_verify_b2.cu`) with its plain version `verify_plain`.
+- `hashing`: the wrappers of the RIPEMD-160 and SHA-256 kernels K1 and
+  K2 (`csrc/hash_blocks.cu`, one thread a message over a ragged block
+  buffer) with their plain versions `ripemd160_words` / `sha256_words`.
+- `merkle`: the wrapper of the Merkle tree kernel K3
+  (`csrc/merkle_tree.cu`) with its plain version `_run_tree`, and the
+  part-set and tx-root paths that chain K1 into K3 on the card.
 - `kernels`: builds the `csrc/` sources with nvcc and binds them.
 - `gateway`: `Verifier`, the batching gateway with its size gate, its
-  kernel registry and the aggregate-commit verify, and `ShardedVerifier`,
+  kernel registry and the aggregate-commit verify; `ShardedVerifier`,
   which runs its device batches through B1′ (or B3's `verify_plain` per
-  shard under `f32`).
+  shard under `f32`); and `Hasher`, the hash plane's gateway behind
+  `Block.make_block`.
 """
 
 from __future__ import annotations

@@ -26,11 +26,17 @@ Aggregate commits verify as one half-aggregate equation
 dsm kernel (`ops.ed25519.dsm_batch`) at or above the same size gate, and
 on the pure-Python reference below it.
 
+`Hasher` is the hash plane's gateway: the part-set leaves and tree
+(`PartSet.from_data`) and the tx root (`types.tx.txs_hash`) of every block
+build run through the hash kernels on the card (ops/merkle.py), with the
+native host library below its size gate.
+
 Unlike the JAX gateway, a kernel failure is never caught: there is no
-latch to the CPU and no retry, and a verify-ahead batch that fails
-re-raises where its verdict is read. The stats keep the JAX key names
-(`tpu_batches`, `tpu_sigs`, `cpu_sigs`, ...), where "tpu" now means the
-device route, so callers read them unchanged.
+latch to the CPU and no retry, and a verify-ahead batch or a submitted
+hash job that fails re-raises where its result is read. The stats keep
+the JAX key names (`tpu_batches`, `tpu_sigs`, `cpu_sigs`, `tpu_leaves`,
+...), where "tpu" now means the device route, so callers read them
+unchanged.
 """
 
 from __future__ import annotations
@@ -38,13 +44,18 @@ from __future__ import annotations
 import importlib
 import logging
 import os
+import queue
 import threading
 import time
+from collections import OrderedDict
 
 from tendermint_tpu_torch import native
 from tendermint_tpu_torch.crypto import ed25519_agg
+from tendermint_tpu_torch.crypto.hashing import ripemd160
 from tendermint_tpu_torch.crypto.keys import verify_any
+from tendermint_tpu_torch.merkle.simple import FlatTree, simple_hash_from_byteslices
 from tendermint_tpu_torch.ops import ed25519, ed25519_f32, ed25519_f32p, resolve_device
+from tendermint_tpu_torch.ops import merkle as ops_merkle
 
 logger = logging.getLogger("tendermint_tpu_torch.ops.gateway")
 
@@ -118,13 +129,15 @@ def kernel_name(accepted=None, refusal=None) -> str:
     return name
 
 
-def _min_batch_from_env() -> int:
-    raw = os.environ.get("TENDERMINT_TPU_MIN_BATCH", "")
+def _env_int(name: str, default: int) -> int:
+    """An integer knob; unset or empty is the default, and a malformed
+    value warns and falls back to it."""
+    raw = os.environ.get(name, "")
     try:
-        return int(raw) if raw else 32
+        return int(raw) if raw else default
     except ValueError:
-        logger.warning("TENDERMINT_TPU_MIN_BATCH=%r is not an integer; using 32", raw)
-        return 32
+        logger.warning("%s=%r is not an integer; using %d", name, raw, default)
+        return default
 
 
 class _PendingBatch:
@@ -173,7 +186,9 @@ class Verifier:
 
     def __init__(self, min_tpu_batch: int | None = None, device=None):
         self.device = resolve_device(device)
-        self.min_tpu_batch = _min_batch_from_env() if min_tpu_batch is None else min_tpu_batch
+        self.min_tpu_batch = (
+            _env_int("TENDERMINT_TPU_MIN_BATCH", 32) if min_tpu_batch is None else min_tpu_batch
+        )
         # resolved once: a typo fails here, and the kernel cannot change
         # under a live node
         self._kernel = kernel_name()
@@ -391,9 +406,253 @@ class ShardedVerifier(Verifier):
         return resolve
 
 
-# -- the process-wide verifier -----------------------------------------------
+# -- merkle/hashing gateway --------------------------------------------------
+
+
+class _HashFuture:
+    """Join handle for a hash job submitted early. result() re-raises the
+    worker's exception."""
+
+    __slots__ = ("_evt", "_value", "_exc")
+
+    def __init__(self):
+        self._evt = threading.Event()
+        self._value = None
+        self._exc: BaseException | None = None
+
+    def _finish(self, value=None, exc: BaseException | None = None) -> None:
+        self._value = value
+        self._exc = exc
+        self._evt.set()
+
+    def result(self, timeout: float | None = None):
+        if not self._evt.wait(timeout):
+            raise TimeoutError("hash submission did not complete")
+        if self._exc is not None:
+            raise self._exc
+        return self._value
+
+
+class Hasher:
+    """Batched hashing gateway for the part-set and tx-tree paths of every
+    block build: consensus wires `part_leaf_hashes`, `part_set_tree` and
+    `submit_part_set_tree` into `Block.make_block`, and `tx_merkle_root`
+    into `types.tx.set_batch_tx_root`.
+
+    A batch of at least `min_tpu_batch` leaves (TENDERMINT_TPU_HASH_MIN_BATCH,
+    default 16) hashes on the card: K1 (RIPEMD-160, one thread a message)
+    writes the leaf digests into K3's node buffer and K3 builds the tree
+    there (ops/merkle.py), so a part set's nodes, or a tx set's root, come
+    back in one copy; for `device="cpu"` the kernels' plain versions run
+    instead. Narrower batches, and every batch when the operator asks for
+    CPU hashing (TENDERMINT_TPU_HASHES=0 or TENDERMINT_TPU_DISABLE=1), run
+    on the host: the native library's batch RIPEMD-160 and the flat
+    FlatTree, as in the JAX package.
+
+    Unlike the JAX package's Hasher, this one offloads by default (the JAX
+    default keys on a measured device round trip, and its devd route
+    rides the device daemon; neither is ported yet), and a kernel or
+    submission failure raises instead of latching the CPU."""
+
+    def __init__(self, min_tpu_batch: int | None = None, device=None):
+        if min_tpu_batch is None:
+            min_tpu_batch = _env_int("TENDERMINT_TPU_HASH_MIN_BATCH", 16)
+        env = os.environ.get("TENDERMINT_TPU_HASHES", "")
+        use_device = not (os.environ.get("TENDERMINT_TPU_DISABLE", "") == "1" or env == "0")
+        self.min_tpu_batch = min_tpu_batch
+        # the card (or the plain versions' CPU) when offloading; None when
+        # the operator asked for host hashing
+        self.device = resolve_device(device) if use_device else None
+        self._mtx = threading.Lock()
+        self._stats = {
+            "tpu_part_batches": 0, "tpu_leaves": 0,
+            "tpu_tx_roots": 0, "cpu_leaves": 0,
+            # bytes through the offload path and the last / EWMA batch time
+            "batch_bytes": 0, "batch_ms_last": 0.0, "batch_ms_avg": 0.0,
+            # tx-root cache hits: reproposals and re-validation of an
+            # unchanged tx set never rehash
+            "tx_root_cache_hits": 0,
+            # jobs queued to the submit worker, and tx_merkle_root calls
+            # that joined an in-flight submission instead of recomputing
+            "submitted_jobs": 0, "tx_root_prehash_joins": 0,
+            # the JAX package's streamed-transport gauges (its devd route),
+            # always present so a scrape reads a stable set; zeros here
+            "stream_batches": 0, "stream_chunks_out": 0,
+            "stream_lanes": 0, "stream_bytes_out": 0,
+            "stream_trees": 0, "stream_reconnects": 0,
+            "stream_single_batches": 0, "stream_single_lanes": 0,
+        }
+        # tx-root LRU keyed by the tx tuple (one hash pass over the raw
+        # txs; keys pin their tx bytes, so the cap is small)
+        self._tx_roots: OrderedDict[tuple, bytes] = OrderedDict()
+        self._tx_roots_cap = 16
+        # submitted-early jobs: one daemon worker runs them in order, and
+        # an in-flight tx root is joined by a later tx_merkle_root
+        self._submit_q: queue.Queue | None = None
+        self._submit_thread: threading.Thread | None = None
+        self._inflight_tx_roots: dict[tuple, _HashFuture] = {}
+
+    def stats(self) -> dict:
+        with self._mtx:
+            return dict(self._stats)
+
+    def _use_offload(self, n: int) -> bool:
+        return self.device is not None and n >= self.min_tpu_batch
+
+    def _note_batch(self, n_bytes: int, dt_s: float) -> None:
+        ms = dt_s * 1000.0
+        with self._mtx:
+            s = self._stats
+            s["batch_bytes"] += n_bytes
+            s["batch_ms_last"] = round(ms, 3)
+            s["batch_ms_avg"] = round(
+                0.8 * s["batch_ms_avg"] + 0.2 * ms, 3
+            ) if s["batch_ms_avg"] else round(ms, 3)
+
+    def _note_offload(self, key: str, leaves: int, n_bytes: int, t0: float) -> None:
+        self._note_batch(n_bytes, time.perf_counter() - t0)
+        with self._mtx:
+            self._stats[key] += 1
+            self._stats["tpu_leaves"] += leaves
+
+    def part_leaf_hashes(self, chunks: list[bytes]) -> list[bytes]:
+        """Part.Hash batch, for PartSet.from_data(hasher=...)."""
+        if self._use_offload(len(chunks)):
+            t0 = time.perf_counter()
+            out = ops_merkle.part_leaf_hashes(chunks, self.device)
+            self._note_offload("tpu_part_batches", len(chunks), sum(map(len, chunks)), t0)
+            return out
+        with self._mtx:
+            self._stats["cpu_leaves"] += len(chunks)
+        # ready(), not available(): the block path never waits behind a
+        # native build
+        if len(chunks) >= 2 and native.ready():
+            return native.ripemd160_batch(chunks)
+        return [ripemd160(c) for c in chunks]
+
+    def part_set_tree(self, chunks: list[bytes]):
+        """(leaf hashes, FlatTree) of a part set built on the device, or
+        None below the size gate (PartSet.from_data then builds on the
+        host). One pass of K1 and K3 returns every node, so the proofs
+        cost the host no hashing."""
+        if not self._use_offload(len(chunks)):
+            return None
+        t0 = time.perf_counter()
+        digests, nodes = ops_merkle.part_set_nodes(chunks, self.device)
+        tree = FlatTree.from_nodes(len(chunks), nodes)
+        self._note_offload("tpu_part_batches", len(chunks), sum(map(len, chunks)), t0)
+        return digests, tree
+
+    # -- submitted-early jobs --------------------------------------------
+
+    def _submit(self, fn) -> _HashFuture:
+        """Queue fn on the submit worker (started at first use); returns
+        the join handle."""
+        fut = _HashFuture()
+        with self._mtx:
+            if self._submit_q is None:
+                self._submit_q = queue.Queue()
+                self._submit_thread = threading.Thread(
+                    target=self._submit_loop, daemon=True, name="gw.hashSubmit",
+                )
+                self._submit_thread.start()
+            self._stats["submitted_jobs"] += 1
+            q = self._submit_q
+        q.put((fut, fn))
+        return fut
+
+    def _submit_loop(self) -> None:
+        while True:
+            fut, fn = self._submit_q.get()
+            try:
+                fut._finish(value=fn())
+            except BaseException as exc:  # noqa: BLE001 - re-raised by result()
+                fut._finish(exc=exc)
+
+    def submit_tx_root(self, txs: list[bytes]) -> _HashFuture:
+        """Start the tx root now and return a future; a later
+        tx_merkle_root on the same tx set joins it instead of recomputing."""
+        key = tuple(txs)
+        done = _HashFuture()
+        with self._mtx:
+            cached = self._tx_roots.get(key)
+            if cached is not None:
+                self._tx_roots.move_to_end(key)
+                done._finish(value=cached)
+                return done
+            fut = self._inflight_tx_roots.get(key)
+            if fut is not None:
+                return fut
+            fut = _HashFuture()
+            self._inflight_tx_roots[key] = fut
+
+        def work():
+            try:
+                root = self._tx_merkle_root_uncached(txs)
+            except BaseException as exc:  # noqa: BLE001 - re-raised by result()
+                with self._mtx:
+                    self._inflight_tx_roots.pop(key, None)
+                fut._finish(exc=exc)
+                return
+            with self._mtx:
+                # cached before the in-flight entry goes: a joiner sees one
+                # or the other
+                self._remember_root(key, root)
+            fut._finish(value=root)
+            with self._mtx:
+                self._inflight_tx_roots.pop(key, None)
+
+        self._submit(work)
+        return fut
+
+    def submit_part_set_tree(self, chunks: list[bytes]) -> _HashFuture:
+        """part_set_tree as a future: the card hashes while the caller
+        builds the parts (PartSet.from_data joins before the proofs).
+        Resolves to (digests, FlatTree) or None, as part_set_tree."""
+        return self._submit(lambda: self.part_set_tree(chunks))
+
+    def _remember_root(self, key: tuple, root: bytes) -> None:
+        self._tx_roots[key] = root
+        while len(self._tx_roots) > self._tx_roots_cap:
+            self._tx_roots.popitem(last=False)
+
+    def tx_merkle_root(self, txs: list[bytes]) -> bytes:
+        """Txs.Hash, the tx tree's root (types/tx.go:33-46): memoized per tx
+        set, an in-flight submit_tx_root joined (its failure re-raises),
+        else computed now."""
+        key = tuple(txs)
+        with self._mtx:
+            cached = self._tx_roots.get(key)
+            if cached is not None:
+                self._tx_roots.move_to_end(key)
+                self._stats["tx_root_cache_hits"] += 1
+                return cached
+            fut = self._inflight_tx_roots.get(key)
+        if fut is not None:
+            root = fut.result(timeout=120)
+            with self._mtx:
+                self._stats["tx_root_prehash_joins"] += 1
+            return root
+        root = self._tx_merkle_root_uncached(txs)
+        with self._mtx:
+            self._remember_root(key, root)
+        return root
+
+    def _tx_merkle_root_uncached(self, txs: list[bytes]) -> bytes:
+        if self._use_offload(len(txs)):
+            t0 = time.perf_counter()
+            out = ops_merkle.tx_root(txs, self.device)
+            self._note_offload("tpu_tx_roots", len(txs), sum(map(len, txs)), t0)
+            return out
+        with self._mtx:
+            self._stats["cpu_leaves"] += len(txs)
+        return simple_hash_from_byteslices(txs)
+
+
+# -- the process-wide verifier and hasher ------------------------------------
 
 _default_verifier: Verifier | None = None
+_default_hasher: Hasher | None = None
 _default_mtx = threading.Lock()
 
 
@@ -405,3 +664,13 @@ def default_verifier() -> Verifier:
         if _default_verifier is None:
             _default_verifier = Verifier()
         return _default_verifier
+
+
+def default_hasher() -> Hasher:
+    """The process-wide Hasher (on the card unless the operator asked for
+    host hashing)."""
+    global _default_hasher
+    with _default_mtx:
+        if _default_hasher is None:
+            _default_hasher = Hasher()
+        return _default_hasher

@@ -91,7 +91,11 @@ _ENTRIES = {
     "ed25519_comb": ("tm_ed25519_comb", [_vp] * 8 + [_i32, _i32, _vp]),
     # qx, qy, slots, pool, scratch, k, pool_slots, stream
     "ed25519_comb_tables": ("tm_ed25519_comb_tables", [_vp] * 5 + [_i32, _i32, _vp]),
-    # wide, chains, out, iters, blocks, threads, stream: the multiply-rate probe
+    # algo (0 RIPEMD-160, 1 SHA-256), words, first, nblocks, out, n, stream
+    "hash_blocks": ("tm_hash_blocks", [_i32] + [_vp] * 4 + [_i32, _vp]),
+    # nodes, left, right, out, widths, rounds, stride, threads, stream
+    "merkle_tree": ("tm_merkle_tree", [_vp] * 5 + [_i32] * 3 + [_vp]),
+    # mode, chains, out, iters, blocks, threads, stream: the rate probes
     "imad_rate": ("tm_imad_rate", [_i32, _i32, _vp, _i32, _i32, _i32, _vp]),
 }
 

@@ -41,6 +41,9 @@ class ValidatorSet:
             return i, self.validators[i].copy()
         return 0, None
 
+    def has_address(self, address: bytes) -> bool:
+        return self.get_by_address(address)[1] is not None
+
     def get_by_index(self, index: int) -> tuple[bytes, Validator | None]:
         if index < 0 or index >= len(self.validators):
             return b"", None
