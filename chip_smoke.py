@@ -221,8 +221,11 @@ HASH_COUNTS = (1, 7, 33, 100, 1025)  # messages a K1 / K2 batch in phase 18
 # tx cap and a 64 KB part: the first lanes of every phase-18 batch
 HASH_EDGE_LENGTHS = (0, 55, 56, 63, 64, 119, 120, 10_240, 65_536)
 # K3 against its plain version in phase 18; 336 is the part count of a
-# block at the byte cap (22,020,096 / 65,536)
-TREE_LEAVES = (2, 3, 5, 7, 16, 33, 100, 336, 10_000)
+# block at the byte cap (22,020,096 / 65,536); around K3's cut (a round
+# wider than one block's sweep of 512 nodes runs on a grid): 1,024 and
+# 1,536 leaves, whose widest round is 512 (one block), 1,537 (513: the
+# smallest tree on a grid) and 4,000 (two rounds on a grid)
+TREE_LEAVES = (2, 3, 5, 7, 16, 33, 100, 336, 1024, 1536, 1537, 4000, 10_000)
 # the kernels line's shapes: block_1mb's tx leaves (K1, K2) and part tree (K3)
 HASH_JSON_BATCH, TREE_JSON_BATCH = ("block_1mb", "tx_leaves"), ("block_1mb", "part_tree")
 # BASELINE.json's "PartSet Merkle-root + SimpleProof verify, 1MB block / 64KB
@@ -233,7 +236,13 @@ APP_HASH = b"\x5a" * 20
 # the hash kernels' instructions in the SASS, by opcode (LEA.HI and VIADD
 # carry RIPEMD-160's rotate-and-add and its constants)
 ALU_OPS = ("LOP3", "IADD3", "SHF", "LEA", "VIADD", "LDG", "STG")
+# a RIPEMD-160 line's round constants as SASS immediates: the innermost
+# loop that holds one runs that line (K1 and K3 run each line on a warp of
+# its own, in a loop of its own or behind a branch on the warp)
+RMD_LINE_MARKS = {"left": r"0x(5a827999|6ed9eba1|8f1bbcdc|a953fd4e)\b",
+                  "right": r"0x(50a28be6|5c4dd124|6d703ef3|7a6d76e9)\b"}
 SHARDS = 4  # B1' on one card: 4 shards over cuda:0
+PROFILE_TRIES = 3  # traces device_ms takes before it gives up on a kernel
 MIXED_SECP = 4  # secp256k1 validators of the 100-validator mixed commit
 
 
@@ -270,21 +279,25 @@ def device_ms(fn, kernel: str, calls: int = 5) -> float:
     """The device time of one launch of the CUDA kernel whose name holds
     `kernel`, over `calls` calls of fn() (torch.profiler, after a warm-up
     call): the kernel alone, without the host's launch path that a CUDA
-    event pair around a short kernel also holds."""
+    event pair around a short kernel also holds. A trace that holds no
+    event of the kernel (the profiler drops a trace's device events now
+    and then) is taken again, up to PROFILE_TRIES traces."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = sum((getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0))
-                for e in prof.key_averages() if kernel in e.key)
-    if not total:
-        raise RuntimeError(f"the profiler saw no device time for {kernel}")
-    return total / 1e3 / calls
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum((getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0))
+                    for e in prof.key_averages() if kernel in e.key)
+        if total:
+            return total / 1e3 / calls
+        log({"phase": "profiler_retry", "kernel": kernel, "trace": attempt + 1})
+    raise RuntimeError(f"the profiler saw no device time for {kernel} in {PROFILE_TRIES} traces")
 
 
 def bound_ms(module, lanes: int) -> tuple[float, str]:
@@ -321,14 +334,16 @@ def ptxas_summary(build_log: str) -> list[dict]:
     return out
 
 
-def sass_counts(lib_path: str) -> dict[str, dict[str, int]]:
+def sass_counts(lib_path: str, marks: dict[str, str] | None = None) -> dict[str, dict]:
     """Per function in a library's SASS (cuobjdump): IMAD.WIDE of two
     registers (a limb product), IMAD.WIDE by an immediate (address
     arithmetic), other IMAD, the hash kernels' ALU_OPS (by opcode), and all
     instructions; and the same counts, with shuffles and local loads and
     stores, inside the function's longest loop (the widest backward branch:
-    in B1 and dsm, one ladder step). The listing is kept beside the library
-    (lib<name>.so.sass)."""
+    in B1 and dsm, one ladder step). With `marks` (label -> regex), also
+    under "marked_loops" each label's loop: of the innermost loops around
+    the instructions that match, the widest, with its addresses. The
+    listing is kept beside the library (lib<name>.so.sass)."""
     import re
     import shutil
 
@@ -368,6 +383,14 @@ def sass_counts(lib_path: str) -> dict[str, dict[str, int]]:
         if back:
             _, lo, hi = max(back)
             counts[fn]["longest_loop"] = tally([(a, ins) for a, ins in instrs if lo <= a <= hi])
+        for label, pattern in (marks or {}).items():
+            inner = {min(loop for loop in back if loop[1] <= addr <= loop[2])
+                     for addr, ins in instrs
+                     if re.search(pattern, ins) and any(lo <= addr <= hi for _, lo, hi in back)}
+            if inner:
+                _, lo, hi = max(inner)
+                counts[fn].setdefault("marked_loops", {})[label] = {
+                    "start": lo, "end": hi, **tally([(a, ins) for a, ins in instrs if lo <= a <= hi])}
     return counts
 
 
@@ -2224,6 +2247,21 @@ def alu_yardsticks(name: str, power: str) -> dict[str, float]:
     return yard
 
 
+def rmd_compression(sass: dict, function: str) -> dict:
+    """The SASS of one RIPEMD-160 compression in a K1 or K3 kernel: the
+    loop of each line (RMD_LINE_MARKS), both lines' instructions summed
+    over their distinct loops (one loop when a branch on the warp keeps
+    both lines in it), each loop holding its line's exchange, join and
+    loads."""
+    c = next(c for f, c in sass.items() if function in f)
+    lines = c.get("marked_loops", {})
+    if set(lines) != set(RMD_LINE_MARKS):
+        raise AssertionError(f"{function}: no loop holds each RIPEMD-160 line ({sorted(lines)})")
+    distinct = {(v["start"], v["end"]): v for v in lines.values()}
+    return {"instructions": sum(v["instructions"] for v in distinct.values()),
+            "loops": len(distinct), "per_line": lines}
+
+
 def hash_bound(yard, compressions: int, chain_blocks: int, chain: int, instrs: int,
                moved_bytes: int) -> dict:
     """The least time of a hash batch: the largest of (a) its compressions'
@@ -2265,12 +2303,13 @@ def time_hashes(name, power, commit_args, block_txs, built, calls, params, plain
 
     tag = {"card": name, "power_limit": power}
     yard = alu_yardsticks(name, power)
-    hash_sass = sass_counts(os.path.join(kernels.BUILD_DIR, "libhash_blocks.so"))
-    tree_sass = sass_counts(os.path.join(kernels.BUILD_DIR, "libmerkle_tree.so"))
-    per_block = {k: next(c["longest_loop"] for f, c in hash_sass.items() if f"hash_blocks_kernelILi{a}E" in f)
-                 for k, a in (("ripemd160", 0), ("sha256", 1))}
-    per_node = next(c["longest_loop"] for f, c in tree_sass.items() if "merkle_tree_kernel" in f)
-    log({"phase": "hash_sass", "per_block_loop": per_block, "per_round_loop": per_node,
+    hash_sass = sass_counts(os.path.join(kernels.BUILD_DIR, "libhash_blocks.so"), RMD_LINE_MARKS)
+    tree_sass = sass_counts(os.path.join(kernels.BUILD_DIR, "libmerkle_tree.so"), RMD_LINE_MARKS)
+    per_block = {"ripemd160": rmd_compression(hash_sass, "hash_blocks_kernelILi0E"),
+                 "sha256": next(c["longest_loop"] for f, c in hash_sass.items()
+                                if "hash_blocks_kernelILi1E" in f)}
+    per_node = rmd_compression(tree_sass, "merkle_tree_kernel")
+    log({"phase": "hash_sass", "per_block_loop": per_block, "per_node_loop": per_node,
          "functions": {"hash_blocks": hash_sass, "merkle_tree": tree_sass}})
     chains = {"ripemd160": th.RIPEMD160_CHAIN, "sha256": th.SHA256_CHAIN}
     width = {"ripemd160": 20, "sha256": 32}

@@ -1,22 +1,27 @@
 """Time the port's B1 (csrc/ed25519_verify.cu), B2 (csrc/ed25519_verify_b2.cu),
-dsm (csrc/ed25519_dsm.cu), comb verify (csrc/ed25519_comb.cu) and comb
-table-build (csrc/ed25519_comb_tables.cu) kernels beside the same kernels
-of other checkouts, on one NVIDIA GPU.
+dsm (csrc/ed25519_dsm.cu), comb verify (csrc/ed25519_comb.cu), comb
+table-build (csrc/ed25519_comb_tables.cu), K1 RIPEMD-160
+(csrc/hash_blocks.cu) and K3 Merkle tree (csrc/merkle_tree.cu) kernels
+beside the same kernels of other checkouts, on one NVIDIA GPU.
 
 Run from the repository root on a machine with a card:
 
     python3 scripts/torch_kernel_compare.py --against LABEL=DIR [--against LABEL=DIR ...]
+        [--only KERNEL ...] [--profile]
 
-Each `--against LABEL=DIR` adds the five sources of another checkout DIR
-(for example the parent commit, unpacked with `git archive`). This
-checkout's kernels and every other one are built at once into
-build/kernels/compare/ and ptxas's registers and spills are printed; every
-other checkout's output must equal this one's on the same inputs (the
-verdicts, the dsm points, the comb pool's rows byte for byte). Each is
-timed with CUDA events (median of 7 after 2 warm-ups) at the main path's
-lane counts (the table build at COMB_KEYS keys), the checkouts taking
-turns, twice in opposite orders. One JSON line per measurement; the card's
-name and power limit on the first line.
+Each `--against LABEL=DIR` adds the seven sources of another checkout DIR
+(for example the parent commit, unpacked with `git archive`); `--only`
+keeps the named kernels (source names, as in ENTRIES). This checkout's
+kernels and every other one are built at once into build/kernels/compare/
+and ptxas's registers and spills are printed; every other checkout's
+output must equal this one's on the same inputs (the verdicts, the dsm
+points, the comb pool's rows, the digests, the tree's nodes, byte for
+byte). Each is timed with CUDA events (median of 7 after 2 warm-ups) at the
+main path's shapes (lane counts; the table build at COMB_KEYS keys; K1 on
+HASH_BATCHES, K3 on trees of TREE_LEAVES leaves), the checkouts taking
+turns, twice in opposite orders; `--profile` adds each kernel's device
+time (torch.profiler) per checkout. One JSON line per measurement; the
+card's name and power limit on the first line.
 """
 
 from __future__ import annotations
@@ -39,9 +44,17 @@ VERIFY_LANES = (100, 1024, 4096, 10_000, 16_384)
 DSM_LANES = (101, 401, 1025, 4096)
 COMB_KEYS = (1, 100, 1000, 10_000)
 COMB_DISTINCT_KEYS = 256  # keys made and signed here; larger key counts repeat them
+# K1's batches on the block paths: block_1mb's and block_cap's 64 KB parts,
+# and block_cap's tx leaves (types/params.py's caps: 10,000 transactions of
+# 1 to 4,096 bytes, every 1,000th at 10,240, length-prefixed)
+HASH_BATCHES = ("parts_16", "parts_318", "tx_leaves_10000")
+TREE_LEAVES = (16, 318, 4000, 10_000)  # K3: both blocks' part and tx trees
+PART_BYTES, TXS, TX_CAP = 65_536, 10_000, 10_240
+SEED = 9
 ENTRIES = {"ed25519_verify": "tm_ed25519_verify", "ed25519_verify_b2": "tm_ed25519_verify_b2",
            "ed25519_dsm": "tm_ed25519_dsm", "ed25519_comb": "tm_ed25519_comb",
-           "ed25519_comb_tables": "tm_ed25519_comb_tables"}
+           "ed25519_comb_tables": "tm_ed25519_comb_tables", "hash_blocks": "tm_hash_blocks",
+           "merkle_tree": "tm_merkle_tree"}
 HERE = "this"
 
 
@@ -89,22 +102,28 @@ def cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_times(fn) -> dict[str, float]:
+def device_times(fn, calls: int = 1) -> dict[str, float]:
     """Device ms of each CUDA kernel one call of fn() launches, by kernel
-    name (torch.profiler, after a warm-up call)."""
+    name, averaged over `calls` calls (torch.profiler, after a warm-up
+    call). A trace with no kernel in it (the profiler drops a trace's
+    device events now and then) is taken again, up to three traces."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     out = {}
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
-        if dev_us and "kernel" in evt.key.lower():
-            out[evt.key] = dev_us / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for evt in prof.key_averages():
+            dev_us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+            if dev_us and "kernel" in evt.key.lower():
+                out[evt.key] = dev_us / 1e3 / calls
+        if out:
+            break
     return out
 
 
@@ -215,16 +234,74 @@ def comb_tables_args(n: int):
     return [kx, ky, slots], [pool, scratch], [n + 1]
 
 
+def hash_args(batch: str):
+    """K1 on one of HASH_BATCHES, made from SEED: its packed blocks on the
+    card and the digest rows; algo 0 first, the message count last."""
+    import torch
+
+    from tendermint_tpu_torch.codec.binary import encode_bytes
+    from tendermint_tpu_torch.ops import hashing as th
+
+    rng = np.random.default_rng(SEED)
+    kind, count = batch.rsplit("_", 1)
+    if kind == "parts":
+        msgs = [rng.bytes(PART_BYTES) for _ in range(int(count))]
+    else:
+        lengths = rng.integers(1, 4097, size=int(count))
+        lengths[999::1000] = TX_CAP
+        msgs = [encode_bytes(rng.bytes(int(k))) for k in lengths]
+    words, first, nblocks = th.to_device(*th.pack_ragged(msgs, True), "cuda")
+    out = torch.empty((len(msgs), 5), dtype=torch.int32, device="cuda")
+    args = [th.RIPEMD160_ALGO] + [t.data_ptr() for t in (words, first, nblocks, out)] + [len(msgs)]
+    return args, [out], None, (words, first, nblocks)
+
+
+def tree_args(n: int):
+    """K3 on a tree of n random leaf digests (from SEED): the node buffer,
+    the device schedule, its rounds and stride, and the block's threads as
+    ops/merkle.py's wrapper gives them; the leaves are restored before
+    each compared launch."""
+    import torch
+
+    from tendermint_tpu_torch.ops import merkle as tm
+
+    rng = np.random.default_rng(SEED + n)
+    leaves = torch.from_numpy(np.frombuffer(rng.bytes(20 * n), dtype="<u4").view(np.int32).reshape(n, 5).copy())
+    nodes = torch.zeros((2 * n, 5), dtype=torch.int32)
+    nodes[:n] = leaves
+    nodes = nodes.cuda()
+    filled = nodes.clone()
+    left, right, out, widths = tm._device_schedule(n, "cuda")
+    args = ([t.data_ptr() for t in (nodes, left, right, out, widths)]
+            + [left.shape[0], left.shape[1], tm.block_threads(left.shape[1])])
+    return args, [nodes], lambda: nodes.copy_(filled), (filled,)
+
+
+def ed25519_args(make):
+    """An ed25519 maker's (ins, outs, after) as launch arguments: the
+    pointers, the lane count, the counts after it; the outputs compared
+    (the table build's pool, not its scratch)."""
+
+    def made(n):
+        ins, outs, after = make(n)
+        args = [t.data_ptr() for t in ins + outs] + [n] + after
+        return args, outs[:1] if make is comb_tables_args else outs, None, (ins, outs)
+
+    return made
+
+
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", action="append", default=[], metavar="LABEL=DIR",
                     help="another checkout whose kernel sources to time beside these")
+    ap.add_argument("--only", action="append", default=[], metavar="KERNEL", choices=sorted(ENTRIES),
+                    help="time only this kernel (a source name; repeatable)")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one launch of each comb kernel at its largest count per "
-                         "checkout (torch.profiler) and print each device kernel's time: the "
-                         "table build's passes one by one")
+                    help="also trace each checkout's launches (torch.profiler) and print each device "
+                         "kernel's time: the comb kernels at their largest count (the table build's "
+                         "passes one by one), K1 and K3 at every shape")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_compare: needs an NVIDIA GPU", file=sys.stderr)
@@ -235,7 +312,8 @@ def main() -> int:
     from tendermint_tpu_torch.ops import kernels
 
     vs = checkouts(opts.against)
-    jobs = [(name, label, vs[label]) for name in ENTRIES for label in vs]
+    names = [name for name in ENTRIES if not opts.only or name in opts.only]
+    jobs = [(name, label, vs[label]) for name in names for label in vs]
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         built = list(pool.map(lambda j: build(*j), jobs))
     fns = {}
@@ -247,43 +325,55 @@ def main() -> int:
         fn.restype = ctypes.c_int
         fns[name, label] = fn
 
-    def launch(fn, ptrs, n, after):
-        rc = fn(*ptrs, n, *after, torch.cuda.current_stream().cuda_stream)
+    def launch(fn, args):
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"launch failed: cudaError {rc}")
 
-    for name, counts, make in (("ed25519_verify", VERIFY_LANES, verify_args),
-                               ("ed25519_verify_b2", VERIFY_LANES, verify_args),
-                               ("ed25519_dsm", DSM_LANES, dsm_args),
-                               ("ed25519_comb", VERIFY_LANES, comb_args),
-                               ("ed25519_comb_tables", COMB_KEYS, comb_tables_args)):
+    plan = (("ed25519_verify", VERIFY_LANES, ed25519_args(verify_args), "lanes"),
+            ("ed25519_verify_b2", VERIFY_LANES, ed25519_args(verify_args), "lanes"),
+            ("ed25519_dsm", DSM_LANES, ed25519_args(dsm_args), "lanes"),
+            ("ed25519_comb", VERIFY_LANES, ed25519_args(comb_args), "lanes"),
+            ("ed25519_comb_tables", COMB_KEYS, ed25519_args(comb_tables_args), "keys"),
+            ("hash_blocks", HASH_BATCHES, hash_args, "batch"),
+            ("merkle_tree", TREE_LEAVES, tree_args, "leaves"))
+    for name, counts, make, unit in plan:
+        if name not in names:
+            continue
         for n in counts:
-            ins, outs, after = make(n)
-            ptrs = [t.data_ptr() for t in ins + outs]
+            # `keep` holds the inputs the pointers in `args` point at
+            args, outs, reset, keep = make(n)
             results = {}
             for label in vs:
-                for o in outs:
-                    o.zero_()
-                launch(fns[name, label], ptrs, n, after)
+                if reset is None:
+                    for o in outs:
+                        o.zero_()
+                else:
+                    reset()
+                launch(fns[name, label], args)
                 torch.cuda.synchronize()
-                # the outputs compared: every one, but the table build's scratch
-                results[label] = [o.clone() for o in outs[:1 if name == "ed25519_comb_tables" else None]]
+                results[label] = [o.clone() for o in outs]
             for label, res in results.items():
                 if not all(torch.equal(a, b) for a, b in zip(res, results[HERE])):
-                    raise AssertionError(f"{name} of {label} disagrees with {HERE} at {n} lanes")
+                    raise AssertionError(f"{name} of {label} disagrees with {HERE} at {unit} {n}")
             del results
+            log({"phase": "equal", "kernel": name, unit: n, "checkouts": list(vs)})
             ms = {label: [] for label in vs}
             for order in (list(vs), list(vs)[::-1]):
                 for label in order:
-                    ms[label].append(cuda_ms(lambda: launch(fns[name, label], ptrs, n, after)))
+                    ms[label].append(cuda_ms(lambda: launch(fns[name, label], args)))
             for label in vs:
-                log({"phase": "time", "kernel": name, "card": card,
-                     "keys" if name == "ed25519_comb_tables" else "lanes": n, "checkout": label,
+                log({"phase": "time", "kernel": name, "card": card, unit: n, "checkout": label,
                      "ms": ms[label]})
-            if opts.profile and name.startswith("ed25519_comb") and n == counts[-1]:
-                for label in vs:
-                    log({"phase": "profile", "kernel": name, "card": card, "count": n, "checkout": label,
-                         "device_ms": device_times(lambda: launch(fns[name, label], ptrs, n, after))})
+            hashes = name in ("hash_blocks", "merkle_tree")
+            if opts.profile and (hashes or (name.startswith("ed25519_comb") and n == counts[-1])):
+                for order in (list(vs), list(vs)[::-1]) if hashes else (list(vs),):
+                    for label in order:
+                        log({"phase": "profile", "kernel": name, "card": card, "count": n,
+                             "checkout": label,
+                             "device_ms": device_times(lambda: launch(fns[name, label], args),
+                                                       calls=5 if hashes else 1)})
+            del keep
     return 0
 
 

@@ -1,6 +1,8 @@
-// RIPEMD-160 for one thread: the compression of hash_blocks.cu (K1, the
-// part and tx-leaf hashes) and of merkle_tree.cu (K3, one block an inner
-// node).
+// RIPEMD-160: the compression of hash_blocks.cu (K1, the part and tx-leaf
+// hashes) and of merkle_tree.cu (K3, the inner nodes), as its two parts:
+// rmd_line<LINE>, the 80 steps of the left (0) or the right (1) line from
+// the chaining state, and rmd_join, the final additions of both lines'
+// states into the next chaining state.
 //
 // Every round constant, message-word index and rotate amount is a template
 // argument: the 80 steps of each line unroll at compile time, the message
@@ -8,9 +10,12 @@
 // memory), and each rotate is one SHF.L.W (__funnelshift_l with both halves
 // the same word, or with the add of e in one LEA.HI). A step needs three
 // dependent instructions (the round function, a three-input add, the
-// rotate-and-add), four where the constant's add stays on the path; the
-// two lines are independent, but ptxas lays them out one after the other,
-// so one warp's in-order issue waits out both lines' chains.
+// rotate-and-add), with x + K summed off the path (rmd_xk). The two lines
+// are independent, but ptxas lays them out one after the other when one
+// thread runs both (ripemd160_compress), so one warp, running in order,
+// waits out both lines' chains: the kernels run each line on a warp of its
+// own and exchange the five words of a line through shared memory before
+// the join.
 //
 // Words and digests are little-endian: the host packs the padded message
 // with '<u4' and reads the five state words back the same way.
@@ -20,6 +25,10 @@
 #include "hash_block.cuh"
 
 namespace {
+
+// the lanes of a warp: the messages (K1) or nodes (K3) that a pair of
+// warps, one a line, takes at once
+constexpr int kPairLanes = 32;
 
 // the message word, rotate amount and constant of step j (0..79) of line 0
 // (left) or 1 (right), as in crypto/hashing.py's _R1/_R2, _S1/_S2, _K1/_K2
@@ -64,10 +73,30 @@ TM_HASH_DEV uint32_t rmd_f(uint32_t x, uint32_t y, uint32_t z) {
   else return x ^ (y | ~z);
 }
 
+// x + K as an add of its own, off the step's chain. Written inline, the
+// compiler reassociates a + f + (x + K) into (a + f + x) + K, which puts
+// the constant's add on the chain: four dependent instructions a step,
+// not three. On the card the add is one PTX instruction that it cannot
+// take apart.
+template <uint32_t K>
+TM_HASH_DEV uint32_t rmd_xk(uint32_t x) {
+  if constexpr (K == 0) {
+    return x;
+  } else {
+#ifdef __CUDA_ARCH__
+    uint32_t r;
+    asm("add.u32 %0, %1, %2;" : "=r"(r) : "r"(x), "n"(K));
+    return r;
+#else
+    return x + K;
+#endif
+  }
+}
+
 // one step of a line: s = (a, b, c, d, e)
 template <int F, int W, int S, uint32_t K>
 TM_HASH_DEV void rmd_step(uint32_t (&s)[5], const uint32_t (&x)[16]) {
-  const uint32_t t = rotl32(s[0] + rmd_f<F>(s[1], s[2], s[3]) + x[W] + K, S) + s[4];
+  const uint32_t t = rotl32(s[0] + rmd_f<F>(s[1], s[2], s[3]) + rmd_xk<K>(x[W]), S) + s[4];
   s[0] = s[4];
   s[4] = s[3];
   s[3] = rotl32(s[2], 10);
@@ -75,14 +104,33 @@ TM_HASH_DEV void rmd_step(uint32_t (&s)[5], const uint32_t (&x)[16]) {
   s[1] = t;
 }
 
-template <int J>
-TM_HASH_DEV void rmd_steps(uint32_t (&l)[5], uint32_t (&r)[5], const uint32_t (&x)[16]) {
+template <int LINE, int J>
+TM_HASH_DEV void rmd_steps(uint32_t (&s)[5], const uint32_t (&x)[16]) {
   if constexpr (J < 80) {
     constexpr int kRound = J / 16;
-    rmd_step<kRound, rmd_word(0, J), rmd_shift(0, J), rmd_k(0, kRound)>(l, x);
-    rmd_step<4 - kRound, rmd_word(1, J), rmd_shift(1, J), rmd_k(1, kRound)>(r, x);
-    rmd_steps<J + 1>(l, r, x);
+    rmd_step<LINE == 0 ? kRound : 4 - kRound, rmd_word(LINE, J), rmd_shift(LINE, J),
+             rmd_k(LINE, kRound)>(s, x);
+    rmd_steps<LINE, J + 1>(s, x);
   }
+}
+
+// out <- the 80 steps of line LINE (0 left, 1 right) from the chaining
+// state h over the block x
+template <int LINE>
+TM_HASH_DEV void rmd_line(const uint32_t (&h)[5], const uint32_t (&x)[16], uint32_t (&out)[5]) {
+#pragma unroll
+  for (int i = 0; i < 5; ++i) out[i] = h[i];
+  rmd_steps<LINE, 0>(out, x);
+}
+
+// h <- the next chaining state from h and the two lines' states l, r
+TM_HASH_DEV void rmd_join(uint32_t (&h)[5], const uint32_t (&l)[5], const uint32_t (&r)[5]) {
+  const uint32_t t = h[1] + l[2] + r[3];
+  h[1] = h[2] + l[3] + r[4];
+  h[2] = h[3] + l[4] + r[0];
+  h[3] = h[4] + l[0] + r[1];
+  h[4] = h[0] + l[1] + r[2];
+  h[0] = t;
 }
 
 TM_HASH_DEV void ripemd160_init(uint32_t (&h)[5]) {
@@ -93,17 +141,13 @@ TM_HASH_DEV void ripemd160_init(uint32_t (&h)[5]) {
   h[4] = 0xC3D2E1F0u;
 }
 
-// h <- compress(h, x), x one 64-byte block as 16 little-endian words
+// h <- compress(h, x), x one 64-byte block as 16 little-endian words, in
+// one thread
 TM_HASH_DEV void ripemd160_compress(uint32_t (&h)[5], const uint32_t (&x)[16]) {
-  uint32_t l[5] = {h[0], h[1], h[2], h[3], h[4]};
-  uint32_t r[5] = {h[0], h[1], h[2], h[3], h[4]};
-  rmd_steps<0>(l, r, x);
-  const uint32_t t = h[1] + l[2] + r[3];
-  h[1] = h[2] + l[3] + r[4];
-  h[2] = h[3] + l[4] + r[0];
-  h[3] = h[4] + l[0] + r[1];
-  h[4] = h[0] + l[1] + r[2];
-  h[0] = t;
+  uint32_t l[5], r[5];
+  rmd_line<0>(h, x, l);
+  rmd_line<1>(h, x, r);
+  rmd_join(h, l, r);
 }
 
 // The digest of one MD-padded message of `nblocks` blocks (at least one)

@@ -440,7 +440,7 @@ class Hasher:
     into `types.tx.set_batch_tx_root`.
 
     A batch of at least `min_tpu_batch` leaves (TENDERMINT_TPU_HASH_MIN_BATCH,
-    default 16) hashes on the card: K1 (RIPEMD-160, one thread a message)
+    default 16) hashes on the card: K1 (RIPEMD-160, two threads a message)
     writes the leaf digests into K3's node buffer and K3 builds the tree
     there (ops/merkle.py), so a part set's nodes, or a tx set's root, come
     back in one copy; for `device="cpu"` the kernels' plain versions run

@@ -1,5 +1,6 @@
 """Batched RIPEMD-160 and SHA-256 on the card: the wrappers of the
-hand-written CUDA kernels K1 and K2 (`csrc/hash_blocks.cu`, one thread a
+hand-written CUDA kernels K1 and K2 (`csrc/hash_blocks.cu`: K1 runs a
+message's two RIPEMD-160 lines on a pair of warps, K2 one thread a
 message) and their plain PyTorch versions.
 
 Layout. A batch of messages is MD-padded on the host and its blocks lie

@@ -34,6 +34,7 @@ from tendermint_tpu_torch.ops import hashing, kernels, resolve_device
 
 launches = 0  # K3 launches, by the wrapper
 MAX_THREADS = 1024  # K3's block
+PAIR_NODES = 32  # nodes a pair of K3's warps takes in one sweep (64 threads)
 
 # -- host: tree schedule -----------------------------------------------------
 
@@ -108,6 +109,13 @@ def _run_tree(nodes: torch.Tensor, left, right, out, n_rounds: int) -> torch.Ten
     return nodes
 
 
+def block_threads(stride: int) -> int:
+    """K3's block for a widest round of `stride` nodes: a pair of warps
+    a 32 nodes, at most MAX_THREADS; a round wider than the block's sweep
+    spreads over a grid of such blocks."""
+    return min(MAX_THREADS, 2 * PAIR_NODES * -(-stride // PAIR_NODES))
+
+
 def tree_lanes(nodes: torch.Tensor, n: int) -> torch.Tensor:
     """Fill every internal node of the int32 node buffer (2n rows of 5
     digest words, leaves in rows 0..n-1) in place, n >= 2. A CUDA tensor
@@ -127,7 +135,7 @@ def tree_lanes(nodes: torch.Tensor, n: int) -> torch.Tensor:
     if not nodes.is_contiguous():
         raise ValueError("nodes must be contiguous")
     left, right, out, widths = _device_schedule(n, str(dev))
-    threads = min(MAX_THREADS, 32 * ((left.shape[1] + 31) // 32))
+    threads = block_threads(left.shape[1])
     lib = kernels.load("merkle_tree")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream

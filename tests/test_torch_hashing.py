@@ -145,3 +145,22 @@ def test_kernel_matches_plain_on_the_card(algo):
     ref = [ripemd160(m) for m in msgs] if le else [hashlib.sha256(m).digest() for m in msgs]
     assert to_bytes(got) == ref
     assert (th.ripemd160_launches if le else th.sha256_launches) == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", [1, 31, 32, 33, 65])
+def test_ripemd160_pairs_on_the_card(count):
+    """K1's pairs of warps (32 messages a block) at counts around a block,
+    each batch led by a 10,240-byte transaction (161 blocks) among shorter
+    messages, so a block's lanes end at different blocks: digests equal to
+    the plain version's and hashlib's."""
+    dev = _card()
+    rng = np.random.default_rng(count)
+    lengths = [10_240] + [int(x) for x in rng.integers(0, 3000, size=count - 1)]
+    msgs = [rng.bytes(n) for n in lengths]
+    args = th.to_device(*th.pack_ragged(msgs, True), dev)
+    got = th.ripemd160_lanes(*args)
+    want = th.ripemd160_words(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got.long() & 0xFFFFFFFF, want)
+    assert th.digests_to_bytes_le(got) == [hashlib.new("ripemd160", m).digest() for m in msgs]

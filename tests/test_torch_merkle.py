@@ -262,7 +262,7 @@ def test_depth_and_type_rejected(obj):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [2, 3, 5, 7, 16, 33, 100, 336, 10_000])
+@pytest.mark.parametrize("n", [2, 3, 5, 7, 16, 33, 100, 336, 1024, 1536, 1537, 4000, 10_000])
 def test_tree_kernel_matches_plain_on_the_card(n):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no CPU mode")
