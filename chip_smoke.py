@@ -144,7 +144,28 @@ Phases, in order; any failure raises and exits non-zero:
    `make_block`'s wall time through the card and the host floor with
    where a card build's time goes.
 
-Each path's launch counts are set to 0 just before it and read just after.
+21. The device daemon: `python3 -m tendermint_tpu_torch.devd` on the
+   card (a socket in a short directory under /tmp, SIGTERM honoured,
+   TENDERMINT_DEVD_KERNEL unset so its claim-time bake-off of comb against
+   B1 runs), serving within DEVD_HELD_S; with TENDERMINT_DEVD_SOCK set and
+   TENDERMINT_TPU_KERNEL unset, `kernel_name()` must answer "devd", and a
+   default `Verifier` and `Hasher` route through it. The phase-3 commits
+   through it (the forged and sub-quorum ones refused), their lanes and a
+   10,000-lane verify_stream lane for lane equal to B1's in process,
+   `agg_100`'s terms through the agg op equal to the dsm kernel's points,
+   block_cap's parts through hash_stream with the tree frame equal to K1's
+   and K3's in process, and both blocks built through it equal to the host
+   floor. The daemon's counts (read through its `stats` op, before and
+   after) must show every lane on the card and none on its CPU, each of
+   the path's kernels launched, and the breaker CLOSED throughout; the
+   daemon is shut down (killed after DEVD_STOP_S) whatever happens.
+22. Times: the daemon's claim and build seconds, its bake-off rates and
+   the kernel and chunk width it chose, the `bench` op's sigs/s, each
+   path's wall time through the daemon beside the same call in process,
+   and hash_stream's MB/s on block_cap's parts.
+
+Each path's launch counts are set to 0 just before it and read just after
+(the daemon's, in phase 21, read before and after).
 The last lines are the kernels' JSON summary, the card line, and
 {"ok": true, "device": {...}}. Weights are keys made from a numpy seed;
 no network, one card.
@@ -244,6 +265,11 @@ RMD_LINE_MARKS = {"left": r"0x(5a827999|6ed9eba1|8f1bbcdc|a953fd4e)\b",
 SHARDS = 4  # B1' on one card: 4 shards over cuda:0
 PROFILE_TRIES = 3  # traces device_ms takes before it gives up on a kernel
 MIXED_SECP = 4  # secp256k1 validators of the 100-validator mixed commit
+DEVD_HELD_S = 180  # phase 21: the daemon's start, probe, build, warm-up and bake-off
+DEVD_STOP_S = 30  # the daemon's exit after the shutdown op, before it is killed
+# phase 21's daemon launches beside each kernel's entry in the kernels line
+DEVD_LAUNCH_KEYS = {"ed25519_verify": "b1", "ed25519_comb": "comb", "ed25519_comb_tables": "tables",
+                    "ed25519_dsm": "dsm", "ripemd160": "ripemd160", "merkle_tree": "merkle_tree"}
 
 
 def log(obj) -> None:
@@ -799,6 +825,9 @@ def main() -> int:
                                params, hash_plain_s)
     del hash_calls
 
+    # -- phases 21 and 22: the device daemon --------------------------------------
+    devd_launches = devd_phase(name, power, commits, forged, sub_quorum, shapes, block_txs, params)
+
     entries = []
     for kname, module, launches, err, ms, p_ms, lanes in (
             ("ed25519_verify", f32p, main_launches, max_err, kernel_ms[MIXED_LANES], plain_ms,
@@ -840,6 +869,9 @@ def main() -> int:
             "max_abs_err": err, **entry,
             "ptxas": ptxas["merkle_tree" if kname == "merkle_tree" else "hash_blocks"],
         })
+    for entry in entries:
+        if entry["name"] in DEVD_LAUNCH_KEYS:
+            entry["devd_launches"] = devd_launches[DEVD_LAUNCH_KEYS[entry["name"]]]
     log({"kernels": entries})
     log(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2428,6 +2460,372 @@ def time_hashes(name, power, commit_args, block_txs, built, calls, params, plain
                         "plain_widest_batch_s": plain_18_s.get(kname)})
     return entries
 
+
+# -- phases 21 and 22: the device daemon ---------------------------------------
+
+
+class DaemonOnCard:
+    """`python3 -m tendermint_tpu_torch.devd` on the card, on a socket in a
+    short directory under /tmp, with SIGTERM honoured and the kernel left
+    to its claim-time bake-off. `stop()` sends the shutdown op and kills
+    the process if it is still alive after DEVD_STOP_S."""
+
+    def __init__(self):
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="tmd", dir="/tmp")
+        self.sock = os.path.join(self.dir, "devd.sock")
+        self.log_path = os.path.join(self.dir, "devd.log")
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = {k: v for k, v in os.environ.items() if k not in (
+            "TENDERMINT_TPU_KERNEL", "TENDERMINT_DEVD_KERNEL", "TENDERMINT_DEVD_CHUNK",
+            "TENDERMINT_DEVD_ACCEPT_CPU", "TENDERMINT_DEVD_SIM_RATE", "TENDERMINT_DEVD_SOCKS",
+            "TENDERMINT_DEVD_WARM")}
+        env.update(TENDERMINT_DEVD_SOCK=self.sock, TENDERMINT_DEVD_EXIT_ON_TERM="1",
+                   PYTHONPATH=os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p))
+        self.log = open(self.log_path, "wb")
+        self.started = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, "-m", "tendermint_tpu_torch.devd"], env=env,
+                                     cwd=root, stdout=subprocess.DEVNULL, stderr=self.log)
+
+    def log_text(self) -> str:
+        self.log.flush()
+        with open(self.log_path, "rb") as f:
+            return f.read().decode(errors="replace")
+
+    def wait_held(self) -> float:
+        """Seconds from the start to `ping` reporting the card held."""
+        from tendermint_tpu_torch import devd
+
+        client = devd.DevdClient(self.sock, connect_timeout=1.0, io_timeout=10.0)
+        deadline = self.started + DEVD_HELD_S
+        try:
+            while time.perf_counter() < deadline:
+                if self.proc.poll() is not None:
+                    break
+                try:
+                    if client.ping(timeout=2.0).get("held"):
+                        return time.perf_counter() - self.started
+                except (OSError, devd.DevdError):
+                    pass
+                time.sleep(0.5)
+        finally:
+            client.close()
+        raise AssertionError(f"devd not serving after {time.perf_counter() - self.started:.0f} s "
+                             f"(exit {self.proc.poll()}):\n{self.log_text()[-4000:]}")
+
+    def launches(self, client) -> dict[str, int]:
+        """The daemon's kernel launch counts, from the line its `stats` op
+        writes to its log."""
+        client.stats()
+        for _ in range(50):
+            lines = [ln for ln in self.log_text().splitlines() if "kernel launches " in ln]
+            if lines:
+                return json.loads(lines[-1].split("kernel launches ", 1)[1])
+            time.sleep(0.1)
+        raise AssertionError("devd logged no kernel launches")
+
+    def stop(self) -> None:
+        from tendermint_tpu_torch import devd
+
+        if self.proc.poll() is None:
+            client = devd.DevdClient(self.sock, connect_timeout=1.0, io_timeout=5.0)
+            try:
+                client.shutdown()
+            except (OSError, devd.DevdError, EOFError):
+                pass
+            finally:
+                client.close()
+            try:
+                self.proc.wait(timeout=DEVD_STOP_S)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=DEVD_STOP_S)
+        self.log.close()
+
+
+def claim_log(text: str) -> dict:
+    """The claim's numbers from the daemon's log: build seconds, each
+    bake-off candidate's pipelined rate, the kernel served, the chunk
+    width and the claim's seconds."""
+    import re
+
+    out: dict = {"bake_off_sigs_per_s": {}, "chunk_sigs_per_s": {}}
+    for line in text.splitlines():
+        if m := re.search(r"kernels built in ([0-9.]+)s", line):
+            out["build_s"] = float(m.group(1))
+        elif m := re.search(r"serving kernel: (\w+) \(bake-off (.*)\)$", line):
+            out["kernel"] = m.group(1)
+            out["bake_off_sigs_per_s"] = json.loads(m.group(2))
+        elif m := re.search(r"chunk (\d+): ([0-9.]+) sigs/s pipelined", line):
+            out["chunk_sigs_per_s"][int(m.group(1))] = float(m.group(2))
+        elif m := re.search(r"stream chunk width: (\d+)", line):
+            out["chunk"] = int(m.group(1))
+        elif m := re.search(r"device held \((.*)\) in ([0-9.]+)s of claim", line):
+            out["held"], out["claim_s"] = m.group(1), float(m.group(2))
+    return out
+
+
+class routed_to:
+    """Inside the block this process's gateway routes to the daemon at
+    `sock`: TENDERMINT_DEVD_SOCK set, TENDERMINT_TPU_KERNEL unset, the
+    backend's client, probe cache and breakers fresh. Both are put back
+    after."""
+
+    KEYS = ("TENDERMINT_DEVD_SOCK", "TENDERMINT_TPU_KERNEL")
+
+    def __init__(self, sock: str):
+        self.sock = sock
+
+    def _fresh(self) -> None:
+        from tendermint_tpu_torch import devd
+        from tendermint_tpu_torch.ops import devd_backend, gateway
+
+        if devd_backend._client is not None:
+            devd_backend._client.close()
+        devd_backend._client = None
+        devd_backend.reset_stream_latches()
+        devd.bust_avail_cache()
+        gateway.reset_devd_breaker()
+        gateway._rtt_cache.clear()
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.KEYS}
+        os.environ["TENDERMINT_DEVD_SOCK"] = self.sock
+        os.environ.pop("TENDERMINT_TPU_KERNEL", None)
+        self._fresh()
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        self._fresh()
+        return False
+
+
+def devd_phase(name, power, commits, forged, sub_quorum, shapes, block_txs, params) -> dict:
+    """Phases 21 and 22: the device daemon on the card. Start it, route a
+    default Verifier and Hasher through it, and hold every result against
+    the same call in process: the commits' verdicts lane for lane against
+    B1's, a 10,000-lane verify_stream, the agg op's points against the dsm
+    kernel's, block_cap's parts and tree through hash_stream against the
+    in-process K1 and K3, and both blocks against the host floor. The
+    daemon's counts must show every lane on the card, its kernels'
+    launches each path's kernels, and the breaker CLOSED throughout.
+    Returns the daemon's launches a kernel over the phase."""
+    import shutil
+
+    tag = {"card": name, "power_limit": power}
+    daemon = DaemonOnCard()
+    try:
+        held_s = daemon.wait_held()
+        claim = claim_log(daemon.log_text())
+        log({"phase": "devd_claim", **tag, "held_after_s": held_s, **claim})
+        if claim.get("kernel") not in ("comb", "f32p") or set(claim["bake_off_sigs_per_s"]) != {"comb", "f32p"}:
+            raise AssertionError(f"devd bake-off: {claim}")
+        with routed_to(daemon.sock):
+            return _devd_paths(daemon, tag, claim, commits, forged, sub_quorum, shapes, block_txs, params)
+    finally:
+        daemon.stop()
+        log({"phase": "devd_stopped", "exit": daemon.proc.returncode})
+        shutil.rmtree(daemon.dir, ignore_errors=True)
+
+
+def _devd_paths(daemon, tag, claim, commits, forged, sub_quorum, shapes, block_txs, params) -> dict:
+    import threading
+
+    from tendermint_tpu_torch import devd
+    from tendermint_tpu_torch.crypto import ed25519_agg
+    from tendermint_tpu_torch.ops import ed25519 as ed32
+    from tendermint_tpu_torch.ops import ed25519_f32p as f32p
+    from tendermint_tpu_torch.ops import gateway
+    from tendermint_tpu_torch.ops import merkle as ops_merkle
+    from tendermint_tpu_torch.types import tx as ptx
+    from tendermint_tpu_torch.types.agg_commit import AggregateCommit
+
+    client = devd.DevdClient(daemon.sock)
+    if gateway.kernel_name() != "devd":
+        raise AssertionError(f"kernel_name() is {gateway.kernel_name()!r} beside a serving daemon")
+    v = gateway.Verifier()
+    local = gateway.Verifier(device=DEVICE)
+    if v.kernel != "devd" or v.device is not None:
+        raise AssertionError(f"default Verifier: kernel {v.kernel}, device {v.device}")
+    vs100, bid100, c100 = commits["commit_small"]
+    vs1000, group = commits["fast_sync_group"]
+    vs10k, bid10k, c10k = commits["commit_large"]
+    part_size = params.block_gossip.block_part_size_bytes
+    agg = AggregateCommit.from_commit(c100, CHAIN_ID, vs100)
+    idxs = agg.signers.indices()
+    terms = ed25519_agg.aggregate_terms([vs100.get_by_index(i)[1].pub_key.raw for i in idxs],
+                                        [agg.sign_message(CHAIN_ID)] * len(idxs), agg.rs, agg.s_agg)
+    big = shapes["commit_large"]
+
+    hashers = {}
+
+    def block_path(label, h, route):
+        hashers[label, route] = h
+        out = make_block_with(h, block_txs[label], commits["commit_small"], part_size)
+        ptx.set_batch_tx_root(None)
+        return out
+
+    # each path: (through the daemon, the same call in process)
+    paths = {
+        "commit_small": [lambda ver=ver: vs100.verify_commit(
+            CHAIN_ID, bid100, 1, c100, batch_verifier=ver.commit_batch_verifier()) for ver in (v, local)],
+        "fast_sync_group": [lambda ver=ver: [f() for f in vs1000.verify_commits_async(
+            CHAIN_ID, [(bid, h, c) for bid, c, h in group], ver.verify_batch_async)] for ver in (v, local)],
+        "commit_large": [lambda ver=ver: vs10k.verify_commit(
+            CHAIN_ID, bid10k, 1, c10k, batch_verifier=ver.commit_batch_verifier()) for ver in (v, local)],
+        "verify_stream_10k": [lambda: client.verify_stream(big),
+                              lambda: [bool(b) for b in f32p.verify_batch(big, DEVICE)]],
+        "agg_100": [lambda ver=ver: agg.verify(CHAIN_ID, vs100, agg_verifier=ver.verify_aggregate)
+                    for ver in (v, local)],
+        **{f"make_block_{label}": [lambda label=label: block_path(label, gateway.Hasher(), "devd"),
+                                   lambda label=label: block_path(label, gateway.Hasher(device=DEVICE), "local")]
+           for label in block_txs},
+    }
+
+    # -- phase 21: the paths through the daemon, its counts read before and after
+    stats0, status0 = client.stats(), client.status()
+    launches0 = daemon.launches(client)
+    first, first_local, out = {}, {}, {}
+    for label, (through, here) in paths.items():
+        t0 = time.perf_counter()
+        out[label] = through()
+        first[label] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out[label, "local"] = here()
+        first_local[label] = time.perf_counter() - t0
+    refusals = {}
+    for label, commit, want in (("forged", forged, "invalid signature"),
+                                ("sub_quorum", sub_quorum, "insufficient voting power")):
+        refusals[label] = expect_refusal(label, lambda: vs100.verify_commit(
+            CHAIN_ID, bid100, 1, commit, batch_verifier=v.commit_batch_verifier()), want)
+    # the commits' lanes again, each verdict against B1's in process
+    lane_sets = {**{k: shapes[k] for k in ("commit_small", "fast_sync_group", "commit_large")},
+                 "forged": recorded_items(vs100, 1, bid100, forged)}
+    differ, alone = {}, {}
+    for label, items in lane_sets.items():
+        got = v.verify_batch(items)
+        want = [bool(b) for b in f32p.verify_batch(items, DEVICE)]
+        differ[label] = sum(a != b for a, b in zip(got, want)) + abs(len(got) - len(want))
+        alone[label] = want
+        if want.count(False) != (1 if label == "forged" else 0):
+            raise AssertionError(f"{label}: B1 refused {want.count(False)} lanes")
+    streamed = out["verify_stream_10k"]
+    differ["verify_stream_10k"] = (sum(a != b for a, b in zip(streamed, out["verify_stream_10k", "local"]))
+                                   + abs(len(streamed) - len(big)))
+    points = client.agg_batch(terms)
+    alone["agg_100"] = ed32.dsm_batch(terms, DEVICE)
+    differ["agg_100_points"] = sum(a != b for a, b in zip(points, alone["agg_100"])) + abs(len(points) - len(terms))
+    hashed = {}
+    for label in block_txs:
+        block, ps = out[f"make_block_{label}"]
+        h = hashers[label, "devd"]
+        if h._route != "devd":
+            raise AssertionError(f"default Hasher route {h._route!r} beside a serving daemon")
+        ref, ref_ps = block_path(label, host_hasher(), "host")
+        same = (block.to_bytes() == ref.to_bytes() and ps.header() == ref_ps.header()
+                and all(ps.get_part(i).proof == ref_ps.get_part(i).proof for i in range(ps.total)))
+        stats = h.stats()
+        hashed[label] = {"parts": ps.total, "host_floor_equal": same,
+                         **{k: stats[k] for k in ("tpu_part_batches", "tpu_tx_roots", "cpu_leaves",
+                                                  "breaker_state")}}
+        if hashed[label] != {"parts": ps.total, "host_floor_equal": True, "tpu_part_batches": 1,
+                             "tpu_tx_roots": 1, "cpu_leaves": 0, "breaker_state": 0}:
+            raise AssertionError(f"{label} through devd: {hashed[label]}")
+    data = out["make_block_block_cap"][0].to_bytes()
+    parts = [data[i:i + part_size] for i in range(0, len(data), part_size)]
+    n_bytes = sum(map(len, parts))
+    t0 = time.perf_counter()
+    digests, nodes = client.hash_stream(parts, mode="part", tree=True, chunk=8)
+    first["hash_stream_parts"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    alone["parts"] = ops_merkle.part_set_nodes(parts, DEVICE)
+    first_local["hash_stream_parts"] = time.perf_counter() - t0
+    want_digests, want_nodes = alone["parts"]
+    differ["block_cap_parts"] = (sum(a != b for a, b in zip(digests, want_digests))
+                                 + sum(a != b for a, b in zip(nodes, want_nodes[len(parts):]))
+                                 + abs(len(digests) - len(parts)) + abs(len(nodes) - (len(parts) - 1)))
+    # several clients at once, a connection and a daemon thread each, the
+    # daemon's one Verifier and hasher shared: each gets what it got alone
+    jobs = {
+        "verify_stream_10k": lambda c: c.verify_stream(big),
+        "fast_sync_group": lambda c: c.verify_batch(lane_sets["fast_sync_group"]),
+        "agg_100": lambda c: c.agg_batch(terms),
+        "parts": lambda c: c.hash_stream(parts, mode="part", tree=True, chunk=8),
+    }
+    want_jobs = {"verify_stream_10k": alone["commit_large"], "fast_sync_group": alone["fast_sync_group"],
+                 "agg_100": alone["agg_100"], "parts": (want_digests, want_nodes[len(parts):])}
+    got_jobs, errors = {}, []
+
+    def run(label):
+        c = devd.DevdClient(daemon.sock)
+        try:
+            got_jobs[label] = jobs[label](c)
+        except Exception as exc:  # noqa: BLE001 - raised below
+            errors.append(f"{label}: {exc!r}")
+        finally:
+            c.close()
+
+    threads = [threading.Thread(target=run, args=(label,)) for label in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"concurrent devd clients: {errors}")
+    differ["concurrent"] = sum(got_jobs[k] != w for k, w in want_jobs.items())
+
+    launches1 = daemon.launches(client)
+    stats1, status1 = client.stats(), client.status()
+    launches = {k: launches1[k] - launches0[k] for k in launches1}
+    mine = v.stats()
+    sent = mine["tpu_sigs"] + 2 * len(big) + len(lane_sets["fast_sync_group"])
+    grew = {k: stats1[k] - stats0[k] for k in ("tpu_sigs", "cpu_sigs")}
+    stream_grew = {k: status1["stream"][k] - status0["stream"][k] for k in ("streams", "chunks", "lanes")}
+    hash_grew = {k: status1["hash_stream"][k] - status0["hash_stream"][k]
+                 for k in ("streams", "chunks", "lanes", "trees")}
+    breakers = gateway.devd_breaker_states()
+    log({"phase": "devd_path", **tag, "kernel": claim["kernel"], "launches": launches,
+         "verifier_stats": mine, "daemon_grew": grew, "stream_grew": stream_grew,
+         "hash_stream_grew": hash_grew, "lanes_sent": sent, "differ": differ, "hashed": hashed,
+         "breakers": breakers, "refused": refusals})
+    if any(differ.values()):
+        raise AssertionError(f"devd results differ from the in-process kernels: {differ}")
+    if grew["tpu_sigs"] != sent or grew["cpu_sigs"] != 0 or mine["cpu_sigs"] != 0 \
+            or mine["agg_lanes_cpu"] != 0:
+        raise AssertionError(f"devd lanes: sent {sent}, daemon grew {grew}, verifier {mine}")
+    if set(breakers.values()) != {gateway.CircuitBreaker.CLOSED} or mine["breaker_state"] != 0:
+        raise AssertionError(f"devd breakers {breakers}")
+    # two blocks (a tx tree and a part tree each) and the parts twice
+    if stream_grew["chunks"] < 2 or hash_grew["trees"] != 6:
+        raise AssertionError(f"devd streams: {stream_grew}, {hash_grew}")
+    want_kernels = ["dsm", "ripemd160", "merkle_tree", "b1"] + (["comb", "tables"] if claim["kernel"] == "comb" else [])
+    idle = [k for k in want_kernels if launches[k] <= 0]
+    if idle or launches["b2"] or launches["sha256"] or (claim["kernel"] == "f32p" and launches["comb"]):
+        raise AssertionError(f"devd kernel launches {launches}: {idle} never launched")
+
+    # -- phase 22: times -------------------------------------------------------
+    paths["hash_stream_parts"] = [lambda: jobs["parts"](client), lambda: ops_merkle.part_set_nodes(parts, DEVICE)]
+    warm = {label: min(timed(through) for _ in range(3)) for label, (through, _) in paths.items()}
+    warm_local = {label: min(timed(here) for _ in range(3)) for label, (_, here) in paths.items()}
+    bench = client.bench(batch=8192, n_batches=8)
+    log({"phase": "devd_time", **tag, "kernel": claim["kernel"], "claim_s": claim.get("claim_s"),
+         "build_s": claim.get("build_s"),
+         "bake_off_sigs_per_s": claim["bake_off_sigs_per_s"], "chunk": claim.get("chunk"),
+         "chunk_sigs_per_s": claim["chunk_sigs_per_s"], "bench_sigs_per_s": bench["sigs_per_sec"],
+         "bench": {k: bench[k] for k in ("batch", "n_batches", "elapsed_s", "all_ok", "kernel")},
+         "first_devd_s": first, "first_in_process_s": first_local,
+         "warm_best_of_3_devd_s": warm, "warm_best_of_3_in_process_s": warm_local,
+         "hash_stream_mb_per_s": n_bytes / warm["hash_stream_parts"] / 1e6, "parts_bytes": n_bytes})
+    if not bench["all_ok"]:
+        raise AssertionError(f"devd bench: {bench}")
+    client.close()
+    return launches
 
 if __name__ == "__main__":
     sys.exit(main())

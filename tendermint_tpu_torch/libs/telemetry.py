@@ -1,0 +1,603 @@
+"""Process-wide telemetry: one registry of counters, gauges and
+histograms, the port's copy of the JAX package's `libs/telemetry.py`
+(stdlib only), so that the port's planes export the same families under
+the same names and the same exposition text.
+
+- ``Counter`` / ``Gauge`` / ``Histogram`` instruments, each optionally
+  labeled. Histograms use fixed log-spaced buckets (env-tunable, see
+  ``default_latency_buckets``) so a latency distribution costs one bisect
+  + one lock per observation: cheap enough for the verify and hash hot
+  paths (the device daemon client's ``devd_stream_chunk_seconds`` and
+  ``devd_single_shot_seconds``, the Hasher's
+  ``gateway_hash_batch_seconds``).
+- A ``Registry`` that renders two ways: ``flatten()`` gives the flat
+  metrics dict (producers registered with ``legacy=True`` only), and
+  ``render_prometheus()`` emits text exposition 0.0.4 (HELP/TYPE lines,
+  histogram ``_bucket``/``_sum``/``_count`` series).
+- ``register_producer(prefix, fn)`` adapts a ``stats()`` dict: each flat
+  numeric key becomes its own gauge family under ``<prefix>_<key>``.
+
+Concurrency: instruments take one small per-family lock per operation;
+registries snapshot their tables under a registry lock and evaluate
+producers outside it. Producer/callback failures PROPAGATE out of
+``flatten``/``collect``: a renamed attribute fails loudly, never as a
+silently missing plane.
+
+``set_enabled(False)`` (or TENDERMINT_TELEMETRY_DISABLE=1) turns every
+hot-path ``inc``/``observe`` into a no-op.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import os
+import threading
+from bisect import bisect_left
+
+from tendermint_tpu_torch.libs.envknob import env_number as _env_number
+
+logger = logging.getLogger("libs.telemetry")
+
+# hot-path kill switch: observe()/inc() check this module flag (one
+# global load) before doing any work
+_ENABLED = os.environ.get("TENDERMINT_TELEMETRY_DISABLE", "") != "1"
+
+
+def set_enabled(on: bool) -> None:
+    """Flip hot-path instrumentation on/off process-wide (the overhead
+    bench measures the delta; registration/rendering are unaffected)."""
+    global _ENABLED
+    _ENABLED = bool(on)
+
+
+def enabled() -> bool:
+    return _ENABLED
+
+
+def log_buckets(lo: float, hi: float, per_decade: int) -> tuple[float, ...]:
+    """Log-spaced bucket upper bounds covering [lo, hi], `per_decade`
+    bounds per decade, rounded to 3 significant digits so rendered
+    ``le`` labels stay stable across platforms."""
+    if lo <= 0 or hi <= lo or per_decade <= 0:
+        raise ValueError(f"bad bucket spec: lo={lo} hi={hi}/{per_decade}")
+    n = int(math.ceil(math.log10(hi / lo) * per_decade)) + 1
+    out = []
+    for i in range(n):
+        v = lo * 10 ** (i / per_decade)
+        v = float(f"{v:.3g}")
+        if not out or v > out[-1]:
+            out.append(v)
+    if out[-1] < hi:
+        out.append(float(f"{hi:.3g}"))
+    return tuple(out)
+
+
+def default_latency_buckets() -> tuple[float, ...]:
+    """Default histogram bounds for latency-in-seconds instruments:
+    100 µs .. 30 s, 4 per decade (~23 buckets). Env-tunable (shared
+    libs/envknob semantics — a typo'd value warns and keeps the
+    default): TENDERMINT_TELEMETRY_HIST_MIN_S / _HIST_MAX_S /
+    _HIST_PER_DECADE."""
+    lo = float(_env_number("TENDERMINT_TELEMETRY_HIST_MIN_S", 1e-4))
+    hi = float(_env_number("TENDERMINT_TELEMETRY_HIST_MAX_S", 30.0))
+    per = int(_env_number("TENDERMINT_TELEMETRY_HIST_PER_DECADE", 4,
+                          cast=int))
+    try:
+        return log_buckets(lo, hi, per)
+    except ValueError:
+        logger.warning("bad telemetry bucket knobs (%r, %r, %r); defaults",
+                       lo, hi, per)
+        return log_buckets(1e-4, 30.0, 4)
+
+
+def size_buckets(hi: float = 65536.0) -> tuple[float, ...]:
+    """Bounds for count-shaped histograms (group sizes, lane counts):
+    1 .. hi, 3 per decade."""
+    return log_buckets(1.0, hi, 3)
+
+
+# -- instruments ---------------------------------------------------------------
+
+# one shared overflow series per labeled family once the cardinality
+# bound is hit: totals stay right, label explosions stay bounded
+OVERFLOW_LABEL = "_other"
+
+
+def family_max_series(name: str) -> int:
+    """Cardinality bound for a labeled family: the per-family override
+    ``TENDERMINT_TELEMETRY_MAX_SERIES_<NAME>`` (family name uppercased)
+    wins over the process-wide ``TENDERMINT_TELEMETRY_MAX_SERIES``
+    (default 64). Both parse defensively (libs/envknob) — a typo'd knob
+    keeps the default, never kills instrument construction. The bound
+    applies to every instrument kind, histograms included: a per-peer
+    latency histogram under 100-peer churn collapses into one ``_other``
+    series exactly like a counter does."""
+    global_max = int(_env_number("TENDERMINT_TELEMETRY_MAX_SERIES", 64,
+                                 cast=int))
+    return int(_env_number(
+        f"TENDERMINT_TELEMETRY_MAX_SERIES_{name.upper()}", global_max,
+        cast=int,
+    ))
+
+
+class _Metric:
+    """Base: a named family with optional labels. Unlabeled metrics are
+    their own single child (label key ``()``)."""
+
+    kind = "untyped"
+
+    def __init__(self, name: str, help_: str, labelnames=(),
+                 max_series: int | None = None):
+        self.name = name
+        self.help = help_ or name
+        self.labelnames = tuple(labelnames)
+        self._mtx = threading.Lock()
+        self._children: dict = {}
+        self._max_series = int(
+            max_series if max_series is not None
+            else family_max_series(name)
+        )
+        self.dropped_series = 0
+        if not self.labelnames:
+            self._children[()] = self._new_child()
+
+    def _new_child(self):
+        raise NotImplementedError
+
+    def _child(self, labelvalues: tuple):
+        with self._mtx:
+            c = self._children.get(labelvalues)
+            if c is None:
+                if len(self._children) >= self._max_series:
+                    # cardinality bound: collapse into ONE overflow series
+                    self.dropped_series += 1
+                    overflow = (OVERFLOW_LABEL,) * len(self.labelnames)
+                    c = self._children.get(overflow)
+                    if c is None:
+                        c = self._children[overflow] = self._new_child()
+                else:
+                    c = self._children[labelvalues] = self._new_child()
+            return c
+
+    def labels(self, **kv):
+        """The child series for these label values. Missing/extra label
+        names fail loudly (KeyError) — renames must not silently fork a
+        new family."""
+        if set(kv) != set(self.labelnames):
+            raise KeyError(
+                f"{self.name}: labels {sorted(kv)} != {sorted(self.labelnames)}"
+            )
+        return self._child(tuple(str(kv[k]) for k in self.labelnames))
+
+    def remove_labels(self, **kv) -> None:
+        """Drop one labeled child series — staleness cleanup: a series
+        whose subject is gone (a churned-out peer) must disappear from
+        the scrape, not freeze at its last value. Also frees the slot
+        against the cardinality bound. Missing series is a no-op; the
+        shared ``_other`` overflow series is removable like any other
+        (it re-creates on the next overflow)."""
+        if set(kv) != set(self.labelnames):
+            raise KeyError(
+                f"{self.name}: labels {sorted(kv)} != {sorted(self.labelnames)}"
+            )
+        with self._mtx:
+            self._children.pop(
+                tuple(str(kv[k]) for k in self.labelnames), None
+            )
+
+    def _own(self):
+        if self.labelnames:
+            raise KeyError(f"{self.name} is labeled; use .labels(...)")
+        return self._children[()]
+
+    def _items(self):
+        with self._mtx:
+            return list(self._children.items())
+
+    def series_count(self) -> int:
+        with self._mtx:
+            return len(self._children)
+
+
+class _CounterChild:
+    __slots__ = ("value", "_mtx")
+
+    def __init__(self):
+        self.value = 0
+        self._mtx = threading.Lock()
+
+    def inc(self, v=1) -> None:
+        # validate BEFORE the kill-switch check: a caller bug must crash
+        # identically whether or not telemetry is disabled
+        if v < 0:
+            raise ValueError("counters only go up")
+        if not _ENABLED:
+            return
+        with self._mtx:
+            self.value += v
+
+
+class Counter(_Metric):
+    kind = "counter"
+
+    def _new_child(self):
+        return _CounterChild()
+
+    def inc(self, v=1) -> None:
+        self._own().inc(v)
+
+    @property
+    def value(self):
+        return self._own().value
+
+
+class _GaugeChild:
+    __slots__ = ("value", "_mtx")
+
+    def __init__(self):
+        self.value = 0.0
+        self._mtx = threading.Lock()
+
+    def set(self, v) -> None:
+        with self._mtx:
+            self.value = v
+
+    def inc(self, v=1) -> None:
+        with self._mtx:
+            self.value += v
+
+    def dec(self, v=1) -> None:
+        with self._mtx:
+            self.value -= v
+
+
+class Gauge(_Metric):
+    """A settable gauge, or — with ``fn`` — a callback gauge evaluated
+    at collect time (how live object state exports without a shadow
+    copy)."""
+
+    kind = "gauge"
+
+    def __init__(self, name, help_, labelnames=(), fn=None, **kw):
+        if fn is not None and labelnames:
+            raise ValueError("callback gauges cannot be labeled")
+        super().__init__(name, help_, labelnames, **kw)
+        self.fn = fn
+
+    def _new_child(self):
+        return _GaugeChild()
+
+    def set(self, v) -> None:
+        self._own().set(v)
+
+    def inc(self, v=1) -> None:
+        self._own().inc(v)
+
+    def dec(self, v=1) -> None:
+        self._own().dec(v)
+
+    @property
+    def value(self):
+        if self.fn is not None:
+            return self.fn()
+        return self._own().value
+
+
+class _HistogramChild:
+    __slots__ = ("bounds", "counts", "sum", "count", "_mtx")
+
+    def __init__(self, bounds: tuple):
+        self.bounds = bounds
+        self.counts = [0] * (len(bounds) + 1)  # +1: the +Inf bucket
+        self.sum = 0.0
+        self.count = 0
+        self._mtx = threading.Lock()
+
+    def observe(self, v: float) -> None:
+        if not _ENABLED:
+            return
+        i = bisect_left(self.bounds, v)
+        with self._mtx:
+            self.counts[i] += 1
+            self.sum += v
+            self.count += 1
+
+    def snapshot(self) -> tuple[list[int], float, int]:
+        with self._mtx:
+            return list(self.counts), self.sum, self.count
+
+    def quantile(self, q: float) -> float:
+        """Approximate quantile from the bucket distribution (upper
+        bound of the bucket holding the q-th observation) — operator
+        convenience for tests/benches, not exported."""
+        counts, _s, total = self.snapshot()
+        if total == 0:
+            return 0.0
+        want = q * total
+        acc = 0
+        for i, c in enumerate(counts):
+            acc += c
+            if acc >= want:
+                return self.bounds[i] if i < len(self.bounds) else float("inf")
+        return float("inf")
+
+
+class Histogram(_Metric):
+    kind = "histogram"
+
+    def __init__(self, name, help_, labelnames=(), buckets=None, **kw):
+        self.buckets = tuple(buckets) if buckets is not None \
+            else default_latency_buckets()
+        if list(self.buckets) != sorted(set(self.buckets)):
+            raise ValueError(f"{name}: buckets must be strictly increasing")
+        super().__init__(name, help_, labelnames, **kw)
+
+    def _new_child(self):
+        return _HistogramChild(self.buckets)
+
+    def observe(self, v: float) -> None:
+        self._own().observe(v)
+
+    @property
+    def count(self):
+        return self._own().count
+
+    @property
+    def sum(self):
+        return self._own().sum
+
+    def quantile(self, q: float) -> float:
+        return self._own().quantile(q)
+
+
+# -- collection + rendering ----------------------------------------------------
+
+
+class Family:
+    """One exposition family: samples are (suffix, labels, value)."""
+
+    __slots__ = ("name", "kind", "help", "samples")
+
+    def __init__(self, name, kind, help_, samples):
+        self.name = name
+        self.kind = kind
+        self.help = help_
+        self.samples = samples
+
+
+def _sanitize(name: str) -> str:
+    out = []
+    for i, ch in enumerate(name):
+        ok = ch.isascii() and (ch.isalpha() or ch == "_" or ch == ":"
+                               or (ch.isdigit() and i > 0))
+        out.append(ch if ok else "_")
+    return "".join(out)
+
+
+def _esc_help(s: str) -> str:
+    return s.replace("\\", r"\\").replace("\n", r"\n")
+
+
+def _esc_label(s: str) -> str:
+    return s.replace("\\", r"\\").replace('"', r"\"").replace("\n", r"\n")
+
+
+def _fmt(v) -> str:
+    if isinstance(v, bool):
+        return str(int(v))
+    if isinstance(v, int):
+        return str(v)
+    f = float(v)
+    if f == math.inf:
+        return "+Inf"
+    if f == -math.inf:
+        return "-Inf"
+    return repr(f)
+
+
+def _metric_families(m: _Metric) -> Family:
+    samples = []
+    for labelvalues, child in m._items():
+        labels = dict(zip(m.labelnames, labelvalues))
+        if m.kind == "histogram":
+            counts, total_sum, count = child.snapshot()
+            acc = 0
+            for bound, c in zip(m.buckets, counts):
+                acc += c
+                samples.append(("_bucket", {**labels, "le": _fmt(bound)}, acc))
+            samples.append(("_bucket", {**labels, "le": "+Inf"}, count))
+            samples.append(("_sum", labels, total_sum))
+            samples.append(("_count", labels, count))
+        elif isinstance(m, Gauge) and m.fn is not None:
+            # same loud-wiring rule as producers: a broken callback is a
+            # wiring bug, not something to render around
+            samples.append(("", labels, m.fn()))
+        else:
+            samples.append(("", labels, child.value))
+    return Family(m.name, m.kind, m.help, samples)
+
+
+class Registry:
+    """A set of instruments + legacy flat-dict producers, optionally
+    chained to a parent registry (the process-wide default) whose
+    families it re-exports. Per-node registries chain to the default so
+    one scrape shows node gauges AND the process-global device-plane
+    instruments, while two nodes in one test process keep their own
+    producer tables."""
+
+    def __init__(self, parent: "Registry | None" = None):
+        self._mtx = threading.Lock()
+        self._metrics: dict[str, _Metric] = {}
+        # prefix -> (fn, legacy); evaluation order = registration order
+        self._producers: dict[str, tuple] = {}
+        # collect-time refreshers: run before instruments are
+        # gathered, so point-in-time gauges (per-peer last-recv age) are
+        # fresh in the SAME scrape that triggered them
+        self._pre_collect: list = []
+        self.parent = parent
+
+    def on_collect(self, fn) -> None:
+        """Register a hook run at the start of every collect() — the
+        seam for labeled gauges whose value only means something at read
+        time. Hook failures propagate (the loud-wiring convention)."""
+        with self._mtx:
+            self._pre_collect.append(fn)
+
+    # -- instrument factories (create-or-get by name) ----------------------
+
+    def _get_or_make(self, cls, name, help_, **kw):
+        with self._mtx:
+            m = self._metrics.get(name)
+            if m is not None:
+                if not isinstance(m, cls):
+                    raise ValueError(
+                        f"{name} already registered as {m.kind}, not "
+                        f"{cls.kind}"
+                    )
+                return m
+            m = self._metrics[name] = cls(name, help_, **kw)
+            return m
+
+    def counter(self, name, help_="", labelnames=(), **kw) -> Counter:
+        return self._get_or_make(Counter, name, help_,
+                                 labelnames=labelnames, **kw)
+
+    def gauge(self, name, help_="", labelnames=(), fn=None, **kw) -> Gauge:
+        return self._get_or_make(Gauge, name, help_,
+                                 labelnames=labelnames, fn=fn, **kw)
+
+    def histogram(self, name, help_="", labelnames=(), buckets=None,
+                  **kw) -> Histogram:
+        return self._get_or_make(Histogram, name, help_,
+                                 labelnames=labelnames, buckets=buckets, **kw)
+
+    # -- legacy stats() producers ------------------------------------------
+
+    def register_producer(self, prefix: str, fn, legacy: bool = True) -> None:
+        """Adapt a flat numeric ``stats()``-style dict: each key renders
+        as gauge family ``<prefix>_<key>`` (prefix "" = keys as-is).
+        ``legacy=True`` producers make up the byte-compatible metrics-RPC
+        dict (``flatten``); ``legacy=False`` ones are scrape-only (new
+        families must not change the legacy RPC key set). Re-registering
+        a prefix replaces the previous producer."""
+        with self._mtx:
+            self._producers[prefix] = (fn, bool(legacy))
+
+    def unregister_producer(self, prefix: str) -> None:
+        with self._mtx:
+            self._producers.pop(prefix, None)
+
+    def _producer_items(self, prefix: str, fn) -> list[tuple[str, object]]:
+        # producer failures PROPAGATE:
+        # a renamed attribute must surface as a metrics-RPC error / an
+        # HTTP 500 scrape — both of which monitoring alerts on — never
+        # as a silently vanished plane behind a healthy-looking 200
+        d = fn()
+        out = []
+        for k, v in d.items():
+            if not isinstance(v, (int, float)):
+                continue  # producers are flat-numeric by contract
+            out.append((f"{prefix}_{k}" if prefix else str(k), v))
+        return out
+
+    def flatten(self) -> dict:
+        """The legacy metrics-RPC flat dict: every ``legacy`` producer's
+        keys, prefixed — byte-compatible with the pre-registry handler
+        (rpc/core/handlers.py metrics)."""
+        with self._mtx:
+            producers = [(p, fn) for p, (fn, legacy) in
+                         self._producers.items() if legacy]
+        out: dict = {}
+        for prefix, fn in producers:
+            for k, v in self._producer_items(prefix, fn):
+                out[k] = v
+        return out
+
+    def collect(self) -> list[Family]:
+        """Every family this registry exports: own instruments, own
+        producers (each key a gauge family), then the parent chain —
+        first registration of a name wins."""
+        with self._mtx:
+            metrics = list(self._metrics.values())
+            producers = list(self._producers.items())
+            hooks = list(self._pre_collect)
+        for hook in hooks:
+            hook()
+        fams: list[Family] = []
+        seen: set[str] = set()
+
+        def add(f: Family) -> None:
+            if f.name not in seen:
+                seen.add(f.name)
+                fams.append(f)
+
+        for m in metrics:
+            add(_metric_families(m))
+        for prefix, (fn, _legacy) in producers:
+            for k, v in self._producer_items(prefix, fn):
+                add(Family(k, "gauge", f"{k} ({prefix or 'flat'} plane gauge)",
+                           [("", {}, v)]))
+        if self.parent is not None:
+            for f in self.parent.collect():
+                add(f)
+        return fams
+
+    def render_prometheus(self) -> str:
+        """Prometheus text exposition format 0.0.4."""
+        lines: list[str] = []
+        for fam in self.collect():
+            name = _sanitize(fam.name)
+            lines.append(f"# HELP {name} {_esc_help(fam.help)}")
+            lines.append(f"# TYPE {name} {fam.kind}")
+            for suffix, labels, value in fam.samples:
+                if labels:
+                    lbl = ",".join(
+                        f'{_sanitize(k)}="{_esc_label(str(v))}"'
+                        for k, v in labels.items()
+                    )
+                    lines.append(f"{name}{suffix}{{{lbl}}} {_fmt(value)}")
+                else:
+                    lines.append(f"{name}{suffix} {_fmt(value)}")
+        return "\n".join(lines) + "\n"
+
+
+CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+_default: Registry = Registry()
+_default_mtx = threading.Lock()
+_install_hooks: list = []
+
+
+def default_registry() -> Registry:
+    """The process-wide registry: device-plane histograms (devd client),
+    WAL/mempool instruments, faults counters. Per-node registries
+    (node/telemetry.py) chain to it."""
+    return _default
+
+
+def on_default_registry(install) -> None:
+    """Run ``install(registry)`` against the default registry now AND
+    after every ``reset_default_registry`` — how modules (ops/faults)
+    keep their producers registered across test resets."""
+    with _default_mtx:
+        _install_hooks.append(install)
+        reg = _default
+    install(reg)
+
+
+def reset_default_registry() -> Registry:
+    """Swap in a fresh default registry (tests), re-running the module
+    install hooks. Instruments held by live objects keep counting but
+    stop being exported until re-created via the factory methods."""
+    global _default
+    with _default_mtx:
+        _default = Registry()
+        reg = _default
+        hooks = list(_install_hooks)
+    for install in hooks:
+        try:
+            install(reg)
+        except Exception:  # noqa: BLE001 — a bad hook must not kill reset
+            logger.exception("telemetry install hook failed")
+    return reg

@@ -61,18 +61,23 @@ def test_pallas_selects_b2_once_per_verifier(monkeypatch, routes):
     assert v.stats()["tpu_batches"] == 1 and v.stats()["tpu_sigs"] == len(items)
 
 
-PORTED = r"\['comb', 'f32', 'f32p', 'int32', 'pallas'\]"
+PORTED = r"\['comb', 'devd', 'f32', 'f32p', 'int32', 'pallas'\]"
 
 
 @pytest.mark.parametrize("name", ["comb", "f32", "int32", "devd"])
 def test_jax_only_kernels_raise_naming_the_ported_ones(monkeypatch, name):
-    """devd is the one name of the JAX registry the port lacks: it raises,
-    naming the ported kernels, `name` among them unless it is devd."""
-    assert gateway._NOT_PORTED == ("devd",)
-    monkeypatch.setenv("TENDERMINT_TPU_KERNEL", "devd")
-    with pytest.raises(ValueError, match=r"not ported.*" + PORTED) as exc:
+    """No JAX-only name is left: the registry has every name of the JAX
+    package's, devd included. `name` builds a Verifier of that kernel, and
+    a name neither registry has raises naming every one of them."""
+    from tendermint_tpu.ops import gateway as jgateway
+
+    assert sorted(gateway.KERNELS) == sorted(jgateway.KERNELS)
+    assert not hasattr(gateway, "_NOT_PORTED")
+    monkeypatch.setenv("TENDERMINT_TPU_KERNEL", name)
+    assert Verifier(device="cpu").kernel == name
+    monkeypatch.setenv("TENDERMINT_TPU_KERNEL", name + "x")
+    with pytest.raises(ValueError, match=r"expected one of " + PORTED):
         Verifier(device="cpu")
-    assert (f"'{name}'" in str(exc.value).split("the port has")[1]) == (name != "devd")
 
 
 def test_unknown_kernel_raises_as_in_jax(monkeypatch):
