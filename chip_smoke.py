@@ -164,8 +164,38 @@ Phases, in order; any failure raises and exits non-zero:
    path's wall time through the daemon beside the same call in process,
    and hash_stream's MB/s on block_cap's parts.
 
+23. The multi-daemon plane: two daemons on cuda:0, each its own process
+   and CUDA context (B1 pinned, a 1,024-lane warm-up, phase 21's chunk
+   width), behind TENDERMINT_DEVD_SOCKS, with a default `Verifier` and
+   `Hasher` slicing every batch over both (ops/devd_shard.py). The phase-3
+   commits (the forged and sub-quorum ones refused), their lanes again,
+   `agg_100` and `agg_400` (their commits and their dsm points), a
+   10,000-lane `verify_batch_async`, both blocks and block_cap's parts
+   through `hash_tree`: every lane, point, digest, node and block byte
+   equal to the in-process kernels' and the host floor's. Both endpoints
+   serve; the two daemons' `tpu_sigs` grow by exactly the lanes sent and
+   their `cpu_sigs` not at all; no lane, leaf or aggregate lane on this
+   process's CPU; every breaker CLOSED; each daemon launched B1, dsm and
+   K1, and no B2, K2, comb or K3 (the fleet builds a tree's internal nodes
+   on the host from the gathered digests). Then chaos: a `FaultProxy` in
+   front of endpoint 1 is blacked out while the 10,000-lane batch and the
+   block_cap build run, again and again until endpoint 1's breaker opens
+   (endpoint 0's stays CLOSED), every result still equal and nothing on
+   the CPU; after the blackout traffic re-closes the breaker and endpoint
+   1 serves again; `Verifier.stats()` carries the `faults_*` counters; and
+   `DaemonSupervisor` refuses a card daemon's environment.
+24. Times: warm best of 3 of `commit_large`, `fast_sync_group`, the
+   10,000-lane batch, `make_block` at block_cap and the parts' tree through
+   the fleet, beside phase 22's one daemon and the same call in process,
+   with the fleet's slice plan for each (slices, lanes and steals an
+   endpoint); then where a wide path's time through a daemon goes: the
+   client's chunk encoding, the daemon's decoding (run here on the same
+   bytes), the commit check and the in-process marshal and kernel, and
+   what is left (the socket and the daemon's scheduling), for
+   `commit_large`, `make_block` at block_cap and the parts' stream.
+
 Each path's launch counts are set to 0 just before it and read just after
-(the daemon's, in phase 21, read before and after).
+(the daemons', in phases 21 and 23, read from their logs before and after).
 The last lines are the kernels' JSON summary, the card line, and
 {"ok": true, "device": {...}}. Weights are keys made from a numpy seed;
 no network, one card.
@@ -267,6 +297,10 @@ PROFILE_TRIES = 3  # traces device_ms takes before it gives up on a kernel
 MIXED_SECP = 4  # secp256k1 validators of the 100-validator mixed commit
 DEVD_HELD_S = 180  # phase 21: the daemon's start, probe, build, warm-up and bake-off
 DEVD_STOP_S = 30  # the daemon's exit after the shutdown op, before it is killed
+FLEET = 2  # phase 23: daemons on cuda:0 behind TENDERMINT_DEVD_SOCKS
+FLEET_WARM = "1024"  # their warm-up shape (phase 21 ran the bake-off)
+FLEET_BLACKOUT_S = 3.0  # phase 23: endpoint 1 dark behind its FaultProxy
+FLEET_WAIT_S = 60.0  # the bound on endpoint 1's breaker opening, and re-closing
 # phase 21's daemon launches beside each kernel's entry in the kernels line
 DEVD_LAUNCH_KEYS = {"ed25519_verify": "b1", "ed25519_comb": "comb", "ed25519_comb_tables": "tables",
                     "ed25519_dsm": "dsm", "ripemd160": "ripemd160", "merkle_tree": "merkle_tree"}
@@ -826,7 +860,12 @@ def main() -> int:
     del hash_calls
 
     # -- phases 21 and 22: the device daemon --------------------------------------
-    devd_launches = devd_phase(name, power, commits, forged, sub_quorum, shapes, block_txs, params)
+    one_daemon = devd_phase(name, power, commits, forged, sub_quorum, shapes, block_txs, params)
+    devd_launches = one_daemon["launches"]
+
+    # -- phases 23 and 24: the multi-daemon plane ----------------------------------
+    fleet_launches = fleet_phase(name, power, commits, forged, sub_quorum, shapes, block_txs, params,
+                                 one_daemon)
 
     entries = []
     for kname, module, launches, err, ms, p_ms, lanes in (
@@ -872,6 +911,7 @@ def main() -> int:
     for entry in entries:
         if entry["name"] in DEVD_LAUNCH_KEYS:
             entry["devd_launches"] = devd_launches[DEVD_LAUNCH_KEYS[entry["name"]]]
+            entry["fleet_launches"] = fleet_launches[DEVD_LAUNCH_KEYS[entry["name"]]]
     log({"kernels": entries})
     log(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1992,28 +2032,18 @@ def make_block_with(h, txs, commit_args, part_size):
 
 
 def reset_launches() -> None:
-    from tendermint_tpu_torch.ops import ed25519 as ed32
-    from tendermint_tpu_torch.ops import ed25519_comb as comb
-    from tendermint_tpu_torch.ops import ed25519_f32p as f32p
-    from tendermint_tpu_torch.ops import ed25519_pallas as b2
-    from tendermint_tpu_torch.ops import hashing as th
-    from tendermint_tpu_torch.ops import merkle as tm
+    import importlib
 
-    f32p.launches = b2.launches = ed32.launches = comb.launches = comb.table_launches = 0
-    th.ripemd160_launches = th.sha256_launches = tm.launches = 0
+    from tendermint_tpu_torch.ops import kernels
+
+    for module, attr in kernels.LAUNCH_COUNTERS.values():
+        setattr(importlib.import_module(module), attr, 0)
 
 
 def read_launches() -> dict[str, int]:
-    from tendermint_tpu_torch.ops import ed25519 as ed32
-    from tendermint_tpu_torch.ops import ed25519_comb as comb
-    from tendermint_tpu_torch.ops import ed25519_f32p as f32p
-    from tendermint_tpu_torch.ops import ed25519_pallas as b2
-    from tendermint_tpu_torch.ops import hashing as th
-    from tendermint_tpu_torch.ops import merkle as tm
+    from tendermint_tpu_torch.ops import kernels
 
-    return {"ripemd160": th.ripemd160_launches, "sha256": th.sha256_launches,
-            "merkle_tree": tm.launches, "b1": f32p.launches, "b2": b2.launches,
-            "dsm": ed32.launches, "comb": comb.launches, "tables": comb.table_launches}
+    return kernels.launch_counts()
 
 
 class capture_hash_calls:
@@ -2467,10 +2497,11 @@ def time_hashes(name, power, commit_args, block_txs, built, calls, params, plain
 class DaemonOnCard:
     """`python3 -m tendermint_tpu_torch.devd` on the card, on a socket in a
     short directory under /tmp, with SIGTERM honoured and the kernel left
-    to its claim-time bake-off. `stop()` sends the shutdown op and kills
+    to its claim-time bake-off unless `knobs` pins it (the daemon's
+    TENDERMINT_DEVD_* settings). `stop()` sends the shutdown op and kills
     the process if it is still alive after DEVD_STOP_S."""
 
-    def __init__(self):
+    def __init__(self, knobs: dict | None = None):
         import tempfile
 
         self.dir = tempfile.mkdtemp(prefix="tmd", dir="/tmp")
@@ -2483,6 +2514,7 @@ class DaemonOnCard:
             "TENDERMINT_DEVD_WARM")}
         env.update(TENDERMINT_DEVD_SOCK=self.sock, TENDERMINT_DEVD_EXIT_ON_TERM="1",
                    PYTHONPATH=os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p))
+        env.update(knobs or {})
         self.log = open(self.log_path, "wb")
         self.started = time.perf_counter()
         self.proc = subprocess.Popen([sys.executable, "-m", "tendermint_tpu_torch.devd"], env=env,
@@ -2567,32 +2599,38 @@ def claim_log(text: str) -> dict:
 
 
 class routed_to:
-    """Inside the block this process's gateway routes to the daemon at
-    `sock`: TENDERMINT_DEVD_SOCK set, TENDERMINT_TPU_KERNEL unset, the
-    backend's client, probe cache and breakers fresh. Both are put back
-    after."""
+    """Inside the block this process's gateway routes to the daemon at the
+    one socket given (TENDERMINT_DEVD_SOCK), or to the fleet of several
+    (TENDERMINT_DEVD_SOCKS), with TENDERMINT_TPU_KERNEL unset and the
+    backend's client, the fleet's endpoints, the probe cache and the
+    breakers fresh. All are put back after."""
 
-    KEYS = ("TENDERMINT_DEVD_SOCK", "TENDERMINT_TPU_KERNEL")
+    KEYS = ("TENDERMINT_DEVD_SOCK", "TENDERMINT_DEVD_SOCKS", "TENDERMINT_TPU_KERNEL")
 
-    def __init__(self, sock: str):
-        self.sock = sock
+    def __init__(self, *socks: str):
+        self.socks = socks
 
     def _fresh(self) -> None:
         from tendermint_tpu_torch import devd
-        from tendermint_tpu_torch.ops import devd_backend, gateway
+        from tendermint_tpu_torch.ops import devd_backend, devd_shard, gateway
 
         if devd_backend._client is not None:
             devd_backend._client.close()
         devd_backend._client = None
         devd_backend.reset_stream_latches()
+        devd_shard.reset()
         devd.bust_avail_cache()
         gateway.reset_devd_breaker()
         gateway._rtt_cache.clear()
 
     def __enter__(self):
         self.saved = {k: os.environ.get(k) for k in self.KEYS}
-        os.environ["TENDERMINT_DEVD_SOCK"] = self.sock
-        os.environ.pop("TENDERMINT_TPU_KERNEL", None)
+        for k in self.KEYS:
+            os.environ.pop(k, None)
+        if len(self.socks) == 1:
+            os.environ["TENDERMINT_DEVD_SOCK"] = self.socks[0]
+        else:
+            os.environ["TENDERMINT_DEVD_SOCKS"] = ",".join(self.socks)
         self._fresh()
         return self
 
@@ -2615,7 +2653,8 @@ def devd_phase(name, power, commits, forged, sub_quorum, shapes, block_txs, para
     in-process K1 and K3, and both blocks against the host floor. The
     daemon's counts must show every lane on the card, its kernels'
     launches each path's kernels, and the breaker CLOSED throughout.
-    Returns the daemon's launches a kernel over the phase."""
+    Returns the daemon's launches a kernel over the phase, phase 22's warm
+    times through it and the chunk width it chose."""
     import shutil
 
     tag = {"card": name, "power_limit": power}
@@ -2825,7 +2864,384 @@ def _devd_paths(daemon, tag, claim, commits, forged, sub_quorum, shapes, block_t
     if not bench["all_ok"]:
         raise AssertionError(f"devd bench: {bench}")
     client.close()
-    return launches
+    return {"launches": launches, "warm": warm, "chunk": claim.get("chunk")}
+
+
+# -- phases 23 and 24: the multi-daemon plane ----------------------------------
+
+
+def fleet_phase(name, power, commits, forged, sub_quorum, shapes, block_txs, params, one) -> dict:
+    """Phases 23 and 24: FLEET daemons on cuda:0 behind TENDERMINT_DEVD_SOCKS.
+    `one` is phase 22's: the one daemon's warm times and chunk width.
+    Returns the fleet's launches a kernel over phase 23's paths (summed over
+    the daemons)."""
+    import shutil
+
+    import torch
+
+    tag = {"card": name, "power_limit": power}
+    knobs = {"TENDERMINT_DEVD_KERNEL": "f32p", "TENDERMINT_DEVD_WARM": FLEET_WARM}
+    if one.get("chunk"):
+        knobs["TENDERMINT_DEVD_CHUNK"] = str(one["chunk"])
+    fleet = []
+    try:
+        for _ in range(FLEET):
+            fleet.append(DaemonOnCard(knobs))
+        held = [d.wait_held() for d in fleet]
+        claims = [claim_log(d.log_text()) for d in fleet]
+        free, total = torch.cuda.mem_get_info()
+        log({"phase": "devd_fleet_claim", **tag, "daemons": FLEET, "held_after_s": held, "claims": claims,
+             "mem_free_bytes": free, "mem_total_bytes": total})
+        if any(c.get("kernel") != "f32p" for c in claims):
+            raise AssertionError(f"fleet daemons serve {[c.get('kernel') for c in claims]}, not f32p")
+        with routed_to(*[d.sock for d in fleet]):
+            launches, ctx = _fleet_paths(fleet, tag, commits, forged, sub_quorum, shapes, block_txs, params)
+        _fleet_chaos(fleet, tag, ctx)
+        _fleet_times(fleet, tag, ctx, one)
+        return launches
+    finally:
+        for d in fleet:
+            d.stop()
+            log({"phase": "devd_fleet_stopped", "exit": d.proc.returncode})
+            shutil.rmtree(d.dir, ignore_errors=True)
+
+
+def _fleet_paths(fleet, tag, commits, forged, sub_quorum, shapes, block_txs, params):
+    """Phase 23's paths through the fleet, each against the in-process
+    kernels; the daemons' counts read before and after. Returns their
+    launches a kernel and what the chaos and the times reuse."""
+    from tendermint_tpu_torch import devd
+    from tendermint_tpu_torch.crypto import ed25519_agg
+    from tendermint_tpu_torch.ops import devd_backend, devd_shard, gateway
+    from tendermint_tpu_torch.ops import ed25519 as ed32
+    from tendermint_tpu_torch.ops import ed25519_f32p as f32p
+    from tendermint_tpu_torch.ops import merkle as ops_merkle
+    from tendermint_tpu_torch.types import tx as ptx
+    from tendermint_tpu_torch.types.agg_commit import AggregateCommit
+
+    if not devd_shard.enabled() or gateway.kernel_name() != "devd":
+        raise AssertionError(f"TENDERMINT_DEVD_SOCKS={os.environ.get('TENDERMINT_DEVD_SOCKS')!r}: "
+                             f"shard {devd_shard.enabled()}, kernel {gateway.kernel_name()!r}")
+    clients = [devd.DevdClient(d.sock) for d in fleet]
+    v = gateway.Verifier()
+    local = gateway.Verifier(device=DEVICE)
+    if v.kernel != "devd" or v.device is not None:
+        raise AssertionError(f"default Verifier under the fleet: kernel {v.kernel}, device {v.device}")
+    vs100, bid100, c100 = commits["commit_small"]
+    vs1000, group = commits["fast_sync_group"]
+    vs10k, bid10k, c10k = commits["commit_large"]
+    part_size = params.block_gossip.block_part_size_bytes
+    aggs, terms = {}, {}
+    for label in ("agg_100", "agg_400"):
+        vs, _, c = commits[label]
+        agg = aggs[label] = AggregateCommit.from_commit(c, CHAIN_ID, vs)
+        idxs = agg.signers.indices()
+        terms[label] = ed25519_agg.aggregate_terms([vs.get_by_index(i)[1].pub_key.raw for i in idxs],
+                                                   [agg.sign_message(CHAIN_ID)] * len(idxs), agg.rs, agg.s_agg)
+    big = shapes["commit_large"]
+    hashers = {}
+
+    def block_path(label, h, route):
+        hashers[label, route] = h
+        out = make_block_with(h, block_txs[label], commits["commit_small"], part_size)
+        ptx.set_batch_tx_root(None)
+        return out
+
+    paths = {
+        "commit_small": [lambda ver=ver: vs100.verify_commit(
+            CHAIN_ID, bid100, 1, c100, batch_verifier=ver.commit_batch_verifier()) for ver in (v, local)],
+        "fast_sync_group": [lambda ver=ver: [f() for f in vs1000.verify_commits_async(
+            CHAIN_ID, [(bid, h, c) for bid, c, h in group], ver.verify_batch_async)] for ver in (v, local)],
+        "commit_large": [lambda ver=ver: vs10k.verify_commit(
+            CHAIN_ID, bid10k, 1, c10k, batch_verifier=ver.commit_batch_verifier()) for ver in (v, local)],
+        "verify_batch_10k": [lambda: [bool(b) for b in v.verify_batch_async(big)()],
+                             lambda: [bool(b) for b in f32p.verify_batch(big, DEVICE)]],
+        **{label: [lambda label=label, ver=ver: aggs[label].verify(
+            CHAIN_ID, commits[label][0], agg_verifier=ver.verify_aggregate) for ver in (v, local)]
+           for label in aggs},
+        **{f"make_block_{label}": [lambda label=label: block_path(label, gateway.Hasher(), "fleet"),
+                                   lambda label=label: block_path(label, gateway.Hasher(device=DEVICE), "local")]
+           for label in block_txs},
+    }
+
+    stats0 = [c.stats() for c in clients]
+    launches0 = [d.launches(c) for d, c in zip(fleet, clients)]
+    out = {}
+    for label, (through, here) in paths.items():
+        out[label] = through()
+        out[label, "local"] = here()
+    refusals = {}
+    for label, commit, want in (("forged", forged, "invalid signature"),
+                                ("sub_quorum", sub_quorum, "insufficient voting power")):
+        refusals[label] = expect_refusal(label, lambda: vs100.verify_commit(
+            CHAIN_ID, bid100, 1, commit, batch_verifier=v.commit_batch_verifier()), want)
+    lane_sets = {**{k: shapes[k] for k in ("commit_small", "fast_sync_group", "commit_large")},
+                 "forged": recorded_items(vs100, 1, bid100, forged)}
+    differ, alone = {}, {}
+    for label, items in lane_sets.items():
+        got = v.verify_batch(items)
+        want = [bool(b) for b in f32p.verify_batch(items, DEVICE)]
+        differ[label] = sum(a != b for a, b in zip(got, want)) + abs(len(got) - len(want))
+        alone[label] = want
+        if want.count(False) != (1 if label == "forged" else 0):
+            raise AssertionError(f"{label}: B1 refused {want.count(False)} lanes")
+    differ["verify_batch_10k"] = (sum(a != b for a, b in zip(out["verify_batch_10k"], alone["commit_large"]))
+                                  + abs(len(out["verify_batch_10k"]) - len(big)))
+    for label in aggs:
+        if out[label] != out[label, "local"]:
+            raise AssertionError(f"{label}: {out[label]!r} through the fleet, {out[label, 'local']!r} here")
+        points = devd_backend.agg_batch(terms[label])
+        want = ed32.dsm_batch(terms[label], DEVICE)
+        differ[f"{label}_points"] = sum(a != b for a, b in zip(points, want)) + abs(len(points) - len(want))
+    hashed = {}
+    for label in block_txs:
+        block, ps = out[f"make_block_{label}"]
+        h = hashers[label, "fleet"]
+        if h._route != "devd":
+            raise AssertionError(f"default Hasher route {h._route!r} under the fleet")
+        ref, ref_ps = block_path(label, host_hasher(), "host")
+        same = (block.to_bytes() == ref.to_bytes() and ps.header() == ref_ps.header()
+                and all(ps.get_part(i).proof == ref_ps.get_part(i).proof for i in range(ps.total)))
+        stats = h.stats()
+        hashed[label] = {"parts": ps.total, "host_floor_equal": same,
+                         **{k: stats[k] for k in ("tpu_part_batches", "tpu_tx_roots", "cpu_leaves",
+                                                  "breaker_state")}}
+        if hashed[label] != {"parts": ps.total, "host_floor_equal": True, "tpu_part_batches": 1,
+                             "tpu_tx_roots": 1, "cpu_leaves": 0, "breaker_state": 0}:
+            raise AssertionError(f"{label} through the fleet: {hashed[label]}")
+    cap_block, cap_ps = out["make_block_block_cap"]
+    data = cap_block.to_bytes()
+    parts = [data[i:i + part_size] for i in range(0, len(data), part_size)]
+    digests, nodes = devd_backend.hash_tree(parts, "part")
+    want_digests, want_nodes = ops_merkle.part_set_nodes(parts, DEVICE)
+    differ["block_cap_parts"] = (sum(a != b for a, b in zip(digests, want_digests))
+                                 + sum(a != b for a, b in zip(nodes, want_nodes[len(parts):]))
+                                 + abs(len(digests) - len(parts)) + abs(len(nodes) - (len(parts) - 1)))
+
+    launches1 = [d.launches(c) for d, c in zip(fleet, clients)]
+    stats1 = [c.stats() for c in clients]
+    per_daemon = [{k: b[k] - a[k] for k in b} for a, b in zip(launches0, launches1)]
+    launches = {k: sum(d[k] for d in per_daemon) for k in per_daemon[0]}
+    grew = [{k: b[k] - a[k] for k in ("tpu_sigs", "cpu_sigs")} for a, b in zip(stats0, stats1)]
+    mine = v.stats()
+    endpoints = devd_shard.endpoint_stats()
+    breakers = gateway.devd_breaker_states()
+    log({"phase": "devd_fleet_path", **tag, "launches": per_daemon, "daemon_grew": grew,
+         "lanes_sent": mine["tpu_sigs"], "verifier_stats": mine, "endpoints": endpoints,
+         "plane": devd_shard.plane_stats(), "differ": differ, "hashed": hashed, "breakers": breakers,
+         "refused": refusals})
+    if any(differ.values()):
+        raise AssertionError(f"fleet results differ from the in-process kernels: {differ}")
+    if sum(g["tpu_sigs"] for g in grew) != mine["tpu_sigs"] or any(g["cpu_sigs"] for g in grew) \
+            or mine["cpu_sigs"] or mine["agg_lanes_cpu"]:
+        raise AssertionError(f"fleet lanes: sent {mine['tpu_sigs']}, daemons grew {grew}, verifier {mine}")
+    if any(e["sigs"] <= 0 or e["hash_bytes"] <= 0 for e in endpoints.values()):
+        raise AssertionError(f"an endpoint served nothing: {endpoints}")
+    if set(breakers.values()) != {gateway.CircuitBreaker.CLOSED} or len(breakers) < FLEET:
+        raise AssertionError(f"fleet breakers {breakers}")
+    for i, got in enumerate(per_daemon):
+        idle = [k for k in ("b1", "dsm", "ripemd160") if got[k] <= 0]
+        if idle or any(got[k] for k in ("b2", "sha256", "comb", "tables", "merkle_tree")):
+            raise AssertionError(f"fleet daemon {i} launches {got}: {idle} never launched")
+    for c in clients:
+        c.close()
+    ctx = {"paths": paths, "big": big, "want_big": alone["commit_large"], "parts": parts, "cap_bytes": data,
+           "cap_header": cap_ps.header(), "cap_proofs": [cap_ps.get_part(i).proof for i in range(cap_ps.total)],
+           "block_path": block_path, "commits": commits, "block_txs": block_txs}
+    return launches, ctx
+
+
+def _fleet_chaos(fleet, tag, ctx) -> None:
+    """Phase 23's chaos: endpoint 1 behind a FaultProxy, blacked out while
+    the 10,000-lane batch and the block_cap build run, until its breaker
+    opens; endpoint 0 absorbs every slice, nothing takes the CPU, and after
+    the blackout traffic re-closes endpoint 1's breaker and it serves
+    again. Then the supervisor's refusal of a card daemon."""
+    import threading
+
+    from tendermint_tpu_torch.ops import devd_shard, faults, gateway
+
+    proxy_sock = os.path.join(fleet[1].dir, "proxy.sock")
+    proxy = faults.FaultProxy(proxy_sock, fleet[1].sock).start()
+    rounds, errors = [], []
+    try:
+        with routed_to(fleet[0].sock, proxy_sock):
+            v = gateway.Verifier()
+            big, want_big = ctx["big"], ctx["want_big"]
+            cpu_leaves = []
+
+            def chaos_round() -> None:
+                got = [bool(b) for b in v.verify_batch_async(big)()]
+                h = gateway.Hasher()
+                block, ps = ctx["block_path"]("block_cap", h, "chaos")
+                cpu_leaves.append(h.stats()["cpu_leaves"])
+                same = (got == want_big and block.to_bytes() == ctx["cap_bytes"]
+                        and ps.header() == ctx["cap_header"]
+                        and [ps.get_part(i).proof for i in range(ps.total)] == ctx["cap_proofs"])
+                rounds.append(same)
+
+            def first_round() -> None:
+                try:
+                    chaos_round()
+                except Exception as exc:  # noqa: BLE001 - raised below
+                    errors.append(repr(exc))
+
+            br1 = gateway.devd_breaker(proxy_sock)
+            br0 = gateway.devd_breaker(fleet[0].sock)
+            chaos_round()  # both endpoints serving, through the proxy
+            t0 = time.perf_counter()
+            during = threading.Thread(target=first_round)
+            during.start()
+            time.sleep(0.01)
+            proxy.blackout(FLEET_BLACKOUT_S)
+            dark_from = time.perf_counter()
+            during.join(timeout=FLEET_WAIT_S)
+            if errors or during.is_alive():
+                raise AssertionError(f"chaos round under the blackout: {errors}")
+            while br1.state != br1.OPEN:
+                if time.perf_counter() - t0 > FLEET_WAIT_S:
+                    raise AssertionError(f"endpoint 1's breaker never opened: {br1.stats()}")
+                if time.perf_counter() - dark_from > FLEET_BLACKOUT_S / 2:
+                    # endpoint 1 stays dark until its breaker opens
+                    proxy.blackout(FLEET_BLACKOUT_S)
+                    dark_from = time.perf_counter()
+                chaos_round()
+            opened_s = time.perf_counter() - t0
+            states_open = {"endpoint_0": br0.state, "endpoint_1": br1.state}
+            time.sleep(max(0.0, FLEET_BLACKOUT_S - (time.perf_counter() - dark_from)))
+            while br1.state != br1.CLOSED:
+                if time.perf_counter() - t0 > 2 * FLEET_WAIT_S:
+                    raise AssertionError(f"endpoint 1's breaker never re-closed: {br1.stats()}")
+                chaos_round()
+                time.sleep(0.05)
+            closed_s = time.perf_counter() - t0
+            served_before = devd_shard.endpoint_stats()[proxy_sock]["sigs"]
+            chaos_round()
+            endpoints = devd_shard.endpoint_stats()
+            mine = v.stats()
+            fault_counts = {k: val for k, val in mine.items() if k.startswith("faults_")}
+            log({"phase": "devd_fleet_chaos", **tag, "blackout_s": FLEET_BLACKOUT_S, "rounds": len(rounds),
+                 "rounds_equal": sum(rounds), "opened_after_s": opened_s, "closed_after_s": closed_s,
+                 "states_while_open": states_open, "breaker_1": br1.stats(), "breaker_0": br0.stats(),
+                 "endpoints": endpoints, "cpu_sigs": mine["cpu_sigs"], "cpu_leaves": sum(cpu_leaves),
+                 "faults": fault_counts, "proxy": proxy.plan.stats()})
+            if not all(rounds):
+                raise AssertionError(f"{rounds.count(False)} of {len(rounds)} chaos rounds differ")
+            if states_open != {"endpoint_0": 0, "endpoint_1": 2} or br0.stats()["breaker_opens"]:
+                raise AssertionError(f"breakers under the blackout: {states_open}, {br0.stats()}")
+            if mine["cpu_sigs"] or sum(cpu_leaves):
+                raise AssertionError(f"chaos took the CPU: {mine['cpu_sigs']} sigs, {sum(cpu_leaves)} leaves")
+            if fault_counts.get("faults_kill", 0) < 1 or endpoints[proxy_sock]["redispatches"] < 1:
+                raise AssertionError(f"faults {fault_counts}, endpoints {endpoints}")
+            if endpoints[proxy_sock]["sigs"] <= served_before:
+                raise AssertionError(f"endpoint 1 serves no lanes after re-closing: {endpoints}")
+    finally:
+        proxy.stop()
+    refusal = None
+    for accept in ("", "0"):
+        try:
+            faults.DaemonSupervisor(os.path.join(fleet[0].dir, "card.sock"),
+                                    {"TENDERMINT_DEVD_ACCEPT_CPU": accept})
+        except ValueError as exc:
+            if "ACCEPT_CPU" not in str(exc):
+                raise
+            refusal = str(exc)[:60]
+        else:
+            raise AssertionError(f"DaemonSupervisor took a card daemon (ACCEPT_CPU={accept!r})")
+    log({"phase": "devd_fleet_supervisor", "refused": refusal})
+
+
+def _fleet_times(fleet, tag, ctx, one) -> None:
+    """Phase 24: each path's slice plan through the fleet; warm best of 3
+    through the fleet, through one of its daemons alone and in process, in
+    turns (a warm-up turn first), beside phase 22's one daemon; and the
+    split of the wide paths' time through a daemon."""
+    from tendermint_tpu_torch import devd
+    from tendermint_tpu_torch.ops import devd_backend, devd_shard
+    from tendermint_tpu_torch.ops import ed25519_f32p as f32p
+    from tendermint_tpu_torch.ops import merkle as ops_merkle
+
+    paths, parts, big = ctx["paths"], ctx["parts"], ctx["big"]
+    vs10k, bid10k, c10k = ctx["commits"]["commit_large"]
+    timed_paths = {
+        **{label: paths[label] for label in ("commit_large", "fast_sync_group", "verify_batch_10k",
+                                             "make_block_block_cap")},
+        "parts_tree": [lambda: devd_backend.hash_tree(parts, "part"),
+                       lambda: ops_merkle.part_set_nodes(parts, DEVICE)],
+    }
+    # phase 22's name of the same call through one daemon
+    one_name = {"verify_batch_10k": "verify_stream_10k", "parts_tree": "hash_stream_parts"}
+    routes = {"fleet": [d.sock for d in fleet], "one_daemon": [fleet[0].sock]}
+    plans = {}
+    with routed_to(*routes["fleet"]):
+        for label, (through, _) in timed_paths.items():
+            before = devd_shard.endpoint_stats()
+            through()
+            after = devd_shard.endpoint_stats()
+            plans[label] = [{k: after[p][k] - before[p][k] for k in
+                             ("dispatched_slices", "stolen_slices", "redispatches", "sigs", "hash_bytes")}
+                            for p in after]
+    best: dict[str, dict[str, float]] = {route: {} for route in (*routes, "in_process")}
+    for turn in range(4):
+        for route, socks in routes.items():
+            with routed_to(*socks):
+                for label, (through, _) in timed_paths.items():
+                    t = timed(through)
+                    if turn:
+                        best[route][label] = min(best[route].get(label, t), t)
+        for label, (_, here) in timed_paths.items():
+            t = timed(here)
+            if turn:
+                best["in_process"][label] = min(best["in_process"].get(label, t), t)
+    warm, warm_one, warm_local = best["fleet"], best["one_daemon"], best["in_process"]
+    log({"phase": "devd_fleet_time", **tag, "daemons": FLEET, "warm_best_of_3_fleet_s": warm,
+         "warm_best_of_3_one_daemon_s": warm_one, "warm_best_of_3_in_process_s": warm_local,
+         "phase22_one_daemon_s": {label: one["warm"].get(one_name.get(label, label)) for label in timed_paths},
+         "slice_plan": plans})
+
+    # where a wide path's time through a daemon goes: each piece alone on
+    # the same payload, best of 3
+    client = devd.DevdClient(fleet[0].sock)
+    width = client.stream_chunk()
+    client.close()
+
+    def chunks(items, w):
+        return [items[i:i + w] for i in range(0, len(items), w)]
+
+    def best(fn) -> float:
+        return min(timed(fn) for _ in range(3))
+
+    txs = ctx["block_txs"]["block_cap"]
+    verify_frames = [devd._pack_chunk(c) for c in chunks(big, width)]
+    tx_frames = [devd._pack_hash_chunk(c) for c in chunks(txs, width)]
+    part_frames = [devd._pack_hash_chunk(c) for c in chunks(parts, devd_backend._hash_chunk("part"))]
+    pieces = {
+        "commit_large": {
+            "encode_s": best(lambda: [devd._pack_chunk(c) for c in chunks(big, width)]),
+            "decode_s": best(lambda: [devd._unpack_chunk(f) for f in verify_frames]),
+            "commit_check_s": best(lambda: recorded_items(vs10k, 1, bid10k, c10k)),
+            "marshal_and_kernel_s": best(lambda: f32p.verify_batch(big, DEVICE)),
+        },
+        "make_block_block_cap": {
+            "encode_s": best(lambda: ([devd._pack_hash_chunk(c) for c in chunks(txs, width)],
+                                      [devd._pack_hash_chunk(c) for c in chunks(parts, 8)])),
+            "decode_s": best(lambda: [devd._unpack_hash_chunk(f) for f in tx_frames + part_frames]),
+            "in_process_build_s": warm_local["make_block_block_cap"],
+        },
+        "parts_stream": {
+            "encode_s": best(lambda: [devd._pack_hash_chunk(c) for c in chunks(parts, 8)]),
+            "decode_s": best(lambda: [devd._unpack_hash_chunk(f) for f in part_frames]),
+            "marshal_and_kernel_s": warm_local["parts_tree"],
+        },
+    }
+    for label, key in (("commit_large", "commit_large"), ("make_block_block_cap", "make_block_block_cap"),
+                       ("parts_stream", "parts_tree")):
+        known = sum(pieces[label].values())
+        pieces[label].update(one_daemon_s=warm_one[key], fleet_s=warm[key],
+                             left_one_daemon_s=warm_one[key] - known, left_fleet_s=warm[key] - known)
+    log({"phase": "devd_wide_split", **tag, "chunk": width, "frames": {
+        "verify": len(verify_frames), "tx": len(tx_frames), "parts": len(part_frames)}, "pieces": pieces})
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -78,8 +78,9 @@ WRITER_REAP_S = 5.0
 
 def sock_path() -> str:
     """The daemon socket: TENDERMINT_DEVD_SOCK, else the first entry of
-    TENDERMINT_DEVD_SOCKS (the multi-daemon plane's list, which the port's
-    Verifier and Hasher refuse for now), else DEFAULT_SOCK."""
+    TENDERMINT_DEVD_SOCKS (the multi-daemon plane's list, ops/devd_shard: its
+    first entry is the primary, so a one-entry list behaves as
+    TENDERMINT_DEVD_SOCK), else DEFAULT_SOCK."""
     explicit = os.environ.get("TENDERMINT_DEVD_SOCK")
     if explicit:
         return explicit
@@ -542,23 +543,10 @@ def _pipelined_rate(v, batch: list, n_pipe: int = 6) -> tuple[float, float]:
 
 
 def _kernel_launches() -> dict[str, int]:
-    """The port's kernel wrappers' launch counts in this process (only the
-    modules already loaded: the sim daemon never imports torch)."""
-    mods = sys.modules
-    out = {}
-    for key, mod, attr in (
-        ("b1", "tendermint_tpu_torch.ops.ed25519_f32p", "launches"),
-        ("b2", "tendermint_tpu_torch.ops.ed25519_pallas", "launches"),
-        ("dsm", "tendermint_tpu_torch.ops.ed25519", "launches"),
-        ("comb", "tendermint_tpu_torch.ops.ed25519_comb", "launches"),
-        ("tables", "tendermint_tpu_torch.ops.ed25519_comb", "table_launches"),
-        ("ripemd160", "tendermint_tpu_torch.ops.hashing", "ripemd160_launches"),
-        ("sha256", "tendermint_tpu_torch.ops.hashing", "sha256_launches"),
-        ("merkle_tree", "tendermint_tpu_torch.ops.merkle", "launches"),
-    ):
-        m = mods.get(mod)
-        out[key] = int(getattr(m, attr, 0)) if m is not None else 0
-    return out
+    """The port's kernel wrappers' launch counts in this process; empty
+    while no kernel module is loaded (the sim daemon never imports torch)."""
+    kernels = sys.modules.get("tendermint_tpu_torch.ops.kernels")
+    return kernels.launch_counts() if kernels is not None else {}
 
 
 def _claim(st: _DaemonState, platform: str, accept_cpu: bool,

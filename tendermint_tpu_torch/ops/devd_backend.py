@@ -17,9 +17,10 @@ The same contract as the kernel modules: verify_batch returns an
 array-like of bools, verify_batch_async a zero-arg resolver. Failures
 raise; the gateway's breaker plane (ops/gateway.devd_breaker) counts them.
 
-One daemon: the multi-daemon plane (TENDERMINT_DEVD_SOCKS with several
-endpoints) is not ported; the gateway refuses it when a Verifier or
-Hasher is built.
+Several daemons: when TENDERMINT_DEVD_SOCKS names two or more endpoints,
+every entry point hands its batch to ops/devd_shard, which keeps these
+contracts over the fleet (slices, work stealing, a breaker an endpoint).
+With one endpoint the single-client path below runs unchanged.
 """
 
 from __future__ import annotations
@@ -54,8 +55,18 @@ def _use_stream(n: int) -> bool:
     return _stream_ok and n >= _stream_min()
 
 
+def _shard():
+    """The multi-daemon dispatcher, when two or more endpoints are set."""
+    from tendermint_tpu_torch.ops import devd_shard
+
+    return devd_shard if devd_shard.enabled() else None
+
+
 def verify_batch(items) -> np.ndarray:
     items = list(items)
+    shard = _shard()
+    if shard is not None:
+        return np.asarray(shard.verify_batch(items), dtype=bool)
     c = _get_client()
     if _use_stream(len(items)):
         try:
@@ -69,6 +80,10 @@ def verify_batch(items) -> np.ndarray:
 
 def verify_batch_async(items):
     items = list(items)
+    shard = _shard()
+    if shard is not None:
+        resolve_shard = shard.verify_batch_async(items)
+        return lambda: np.asarray(resolve_shard(), dtype=bool)
     c = _get_client()
     if _use_stream(len(items)):
         resolve = c.verify_stream_async(items)
@@ -130,7 +145,10 @@ def agg_batch(terms) -> list[tuple[int, int]]:
     if not _agg_ok:
         raise AggUnsupported("daemon predates the agg op (latched)")
     terms = [tuple(t) for t in terms]
+    shard = _shard()
     try:
+        if shard is not None:
+            return shard.agg_batch(terms)
         return _get_client().agg_batch(terms)
     except devd.DevdError as exc:
         if "unknown op" not in str(exc):
@@ -140,8 +158,11 @@ def agg_batch(terms) -> list[tuple[int, int]]:
 
 
 def stream_stats() -> dict:
-    """Client-side streamed-transport counters; Verifier.stats() folds
-    them in."""
+    """Client-side streamed-transport counters (summed over the fleet's
+    clients); Verifier.stats() folds them in."""
+    shard = _shard()
+    if shard is not None:
+        return shard.stream_stats()
     return _get_client().stream_stats()
 
 
@@ -189,6 +210,9 @@ def hash_batch(items, mode: str = "part") -> list[bytes]:
     when the batch is wide or fat enough, the single-shot op otherwise.
     Digests equal crypto.hashing.ripemd160 / merkle.simple.leaf_hash."""
     items = [bytes(b) for b in items]
+    shard = _shard()
+    if shard is not None:
+        return shard.hash_batch(items, mode)
     c = _get_client()
     if _use_hash_stream(len(items), sum(len(b) for b in items)):
         try:
@@ -204,8 +228,13 @@ def hash_tree(items, mode: str = "part") -> tuple[list, list]:
     """(leaf digests, postorder internal tree nodes): one pass hashes every
     leaf and the whole Merkle tree daemon-side, and
     merkle.simple.FlatTree.from_nodes gives the proofs with no host
-    hashing."""
+    hashing. Over a fleet the leaves hash on the daemons and the internal
+    nodes here from the gathered digests (devd_shard.hash_tree: the same
+    node buffer)."""
     items = [bytes(b) for b in items]
+    shard = _shard()
+    if shard is not None:
+        return shard.hash_tree(items, mode)
     c = _get_client()
     if _use_hash_stream(len(items), sum(len(b) for b in items)):
         try:
@@ -218,6 +247,9 @@ def hash_tree(items, mode: str = "part") -> tuple[list, list]:
 
 
 def hash_stream_stats() -> dict:
-    """Client-side hash-transport counters; Hasher.stats() folds them in
-    as flat stream_* gauges."""
+    """Client-side hash-transport counters (summed over the fleet's
+    clients); Hasher.stats() folds them in as flat stream_* gauges."""
+    shard = _shard()
+    if shard is not None:
+        return shard.hash_stream_stats()
     return _get_client().hash_stream_stats()

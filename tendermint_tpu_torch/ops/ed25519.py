@@ -528,7 +528,6 @@ def dsm_lanes(px, py, qx, qy, a8, b8) -> tuple[torch.Tensor, torch.Tensor]:
     returns canonical affine (x, y) as (32, n) uint8 rows on the
     arguments' device. A CUDA tensor launches the kernel on the current
     stream without synchronising; a CPU tensor runs `dsm_plain`."""
-    global launches
     rows = (px, py, qx, qy, a8, b8)
     n = _check_rows(rows)
     dev = px.device
@@ -548,7 +547,7 @@ def dsm_lanes(px, py, qx, qy, a8, b8) -> tuple[torch.Tensor, torch.Tensor]:
         )
     if rc != 0:
         raise RuntimeError(f"ed25519_dsm kernel launch failed: cudaError {rc}")
-    launches += 1
+    kernels.count_launch(__name__)
     return out[0], out[1]
 
 

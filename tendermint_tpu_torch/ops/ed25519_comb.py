@@ -320,7 +320,6 @@ def comb_lanes(pool, t_b, slots, ry, rsign, s8, h8) -> torch.Tensor:
     int32 (each below C), ry/s8/h8 (32, n) uint8 byte rows, rsign (n,)
     int32. A CUDA tensor launches the comb kernel on the current stream
     without synchronising; a CPU tensor runs `verify_comb_plain`."""
-    global launches
     n = slots.shape[0]
     c = _check_pool(pool)
     if t_b.dtype != torch.uint8 or tuple(t_b.shape) != (ROWS_PER_SLOT, COORD_ROWS) or not t_b.is_contiguous():
@@ -349,7 +348,7 @@ def comb_lanes(pool, t_b, slots, ry, rsign, s8, h8) -> torch.Tensor:
         )
     if rc != 0:
         raise RuntimeError(f"ed25519_comb kernel launch failed: cudaError {rc}")
-    launches += 1
+    kernels.count_launch(__name__)
     return out
 
 
@@ -359,7 +358,6 @@ def build_lanes(pool, qx8, qy8, slots) -> None:
     distinct, each in [1, C)), in place. A CUDA tensor launches the table-build
     kernel on the current stream without synchronising; a CPU tensor runs
     `build_tables_plain` and scatters its rows."""
-    global table_launches
     k = slots.shape[0]
     c = _check_pool(pool)
     _check_int32(slots, k, "slots")
@@ -387,7 +385,7 @@ def build_lanes(pool, qx8, qy8, slots) -> None:
         )
     if rc != 0:
         raise RuntimeError(f"ed25519_comb_tables kernel launch failed: cudaError {rc}")
-    table_launches += 1
+    kernels.count_launch(__name__, "table_launches")
 
 
 # ---------------------------------------------------------------------------

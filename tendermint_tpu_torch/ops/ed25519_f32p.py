@@ -99,7 +99,6 @@ def verify_lanes(ax, ay, ry, rsign, s8, h8) -> torch.Tensor:
     """Per-lane verdicts (n,) int32, 1 = accept, on the arguments' device.
     A CUDA tensor launches the kernel on the current stream without
     synchronising; a CPU tensor runs the plain version."""
-    global launches
     n = check_args(ax, ay, ry, rsign, s8, h8)
     if ax.device.type == "cpu":
         return base.verify_rows(ax, ay, ry, rsign, s8, h8)
@@ -117,7 +116,7 @@ def verify_lanes(ax, ay, ry, rsign, s8, h8) -> torch.Tensor:
         )
     if rc != 0:
         raise RuntimeError(f"ed25519_verify kernel launch failed: cudaError {rc}")
-    launches += 1
+    kernels.count_launch(__name__)
     return out
 
 

@@ -176,7 +176,6 @@ def verify_lanes(ax, ay, ry, rsign, s8, h8) -> torch.Tensor:
     from the arguments of B1's `ed25519_f32p.verify_lanes`. A CUDA tensor
     launches the kernel on the current stream without synchronising; a CPU
     tensor runs the plain version."""
-    global launches
     n = f32p.check_args(ax, ay, ry, rsign, s8, h8)
     if ax.device.type == "cpu":
         return verify_plain(ax, ay, ry, rsign, s8, h8).to(torch.int32)
@@ -194,7 +193,7 @@ def verify_lanes(ax, ay, ry, rsign, s8, h8) -> torch.Tensor:
         )
     if rc != 0:
         raise RuntimeError(f"ed25519_verify_b2 kernel launch failed: cudaError {rc}")
-    launches += 1
+    kernels.count_launch(__name__)
     return out
 
 

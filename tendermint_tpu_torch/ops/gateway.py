@@ -39,7 +39,9 @@ the JAX gateway's breaker plane: transport failures feed one
 `CircuitBreaker` a daemon socket; while it is open, batches verify on the
 native CPU floor and count in `cpu_sigs` (hashes on the host, in
 `cpu_leaves`), logged at WARNING; a ping probe on jittered backoff
-re-closes it when the daemon is back.
+re-closes it when the daemon is back. With TENDERMINT_DEVD_SOCKS naming
+two or more daemons, the batches split over them (ops/devd_shard.py), one
+breaker a daemon, and the floor engages only when every breaker is open.
 
 Everywhere else a kernel failure is never caught: there is no latch to
 the CPU and no retry, and a verify-ahead batch or a submitted hash job
@@ -66,7 +68,7 @@ from tendermint_tpu_torch.crypto.keys import verify_any
 from tendermint_tpu_torch.libs import telemetry
 from tendermint_tpu_torch.libs.envknob import env_number as _env_number
 from tendermint_tpu_torch.merkle.simple import FlatTree, simple_hash_from_byteslices
-from tendermint_tpu_torch.ops import ed25519, ed25519_f32, ed25519_f32p, resolve_device
+from tendermint_tpu_torch.ops import ed25519, ed25519_f32, ed25519_f32p, faults, resolve_device
 from tendermint_tpu_torch.ops import merkle as ops_merkle
 
 logger = logging.getLogger("tendermint_tpu_torch.ops.gateway")
@@ -147,17 +149,6 @@ def _env_int(name: str, default: int) -> int:
     """An integer knob; unset or empty is the default, and a malformed
     value warns and falls back to it."""
     return int(_env_number(name, default, cast=int))
-
-
-def _refuse_sharded_plane() -> None:
-    """The multi-daemon device plane (TENDERMINT_DEVD_SOCKS) is not ported:
-    a Verifier or Hasher refuses it rather than serve one of its sockets."""
-    if os.environ.get("TENDERMINT_DEVD_SOCKS", "").strip():
-        raise ValueError(
-            "TENDERMINT_DEVD_SOCKS names a multi-daemon device plane, which the port "
-            "does not have yet (ROADMAP A.6b: ops/devd_shard.py); set "
-            "TENDERMINT_DEVD_SOCK to one daemon's socket"
-        )
 
 
 class CircuitBreaker:
@@ -375,10 +366,12 @@ def devd_breaker(endpoint: str | None = None) -> CircuitBreaker:
 
 
 def _breaker_on_close(endpoint: str) -> None:
-    """Re-arm devd_backend's version-skew latches when the breaker of the
-    socket its client talks to re-closes."""
-    from tendermint_tpu_torch.ops import devd_backend
+    """Re-arm the version-skew latches of the endpoint whose breaker
+    re-closed: the multi-daemon plane's latches for that endpoint, and
+    devd_backend's when it is the one daemon socket its client talks to."""
+    from tendermint_tpu_torch.ops import devd_backend, devd_shard
 
+    devd_shard.reset_endpoint_latches(endpoint)
     if endpoint == devd.sock_path():
         devd_backend.reset_stream_latches()
 
@@ -400,22 +393,37 @@ def reset_devd_breaker() -> None:
 # -- devd plane gating ----------------------------------------------------------
 #
 # Verifier and Hasher gate each batch through these. With one daemon they
-# are the one breaker; the multi-daemon plane, where the floor engages only
-# when every endpoint's breaker is open, is not ported.
+# are its breaker. With several (TENDERMINT_DEVD_SOCKS), the plane admits
+# work while any endpoint's breaker does, the dispatcher (ops/devd_shard)
+# counts each slice on the endpoint that ran it, and the CPU floor engages
+# only when every breaker is open.
 
 
 def devd_plane_allow() -> bool:
-    """Admission gate for the devd route."""
+    """Admission gate for the devd route as a whole."""
+    from tendermint_tpu_torch.ops import devd_shard
+
+    if devd_shard.enabled():
+        return devd_shard.plane_allow()
     return devd_breaker().allow()
 
 
 def devd_plane_failure() -> None:
-    """A devd-route batch raised: count it on the breaker."""
-    devd_breaker().record_failure()
+    """A devd-route batch raised. One daemon: count it on its breaker. A
+    fleet: the dispatcher already counted each failed slice on its
+    endpoint, and a batch raises only when no healthy endpoint was left,
+    so counting it again would count it twice."""
+    from tendermint_tpu_torch.ops import devd_shard
+
+    if not devd_shard.enabled():
+        devd_breaker().record_failure()
 
 
 def devd_plane_success() -> None:
-    devd_breaker().record_success()
+    from tendermint_tpu_torch.ops import devd_shard
+
+    if not devd_shard.enabled():
+        devd_breaker().record_success()
 
 
 class _PendingBatch:
@@ -468,7 +476,6 @@ class Verifier:
     the kernel in process on it."""
 
     def __init__(self, min_tpu_batch: int | None = None, device=None):
-        _refuse_sharded_plane()
         self.min_tpu_batch = (
             _env_int("TENDERMINT_TPU_MIN_BATCH", 32) if min_tpu_batch is None else min_tpu_batch
         )
@@ -695,13 +702,15 @@ class Verifier:
         with self._mtx:
             out = dict(self._stats)
         if self._kernel == "devd":
-            # the client's streamed-transport counters and the breaker's
-            # gauges, flat numeric keys as in the JAX gateway
+            # the client's streamed-transport counters, the breaker's gauges
+            # and the fault harness's counters (zeros with none installed),
+            # flat numeric keys as in the JAX gateway
             from tendermint_tpu_torch.ops import devd_backend
 
             for k, val in devd_backend.stream_stats().items():
                 out[k if k.startswith("stream") else f"stream_{k}"] = val
             out.update(devd_breaker().stats())
+            out.update(faults.global_counters())
         return out
 
     # -- adapters for the call sites --------------------------------------
@@ -884,7 +893,6 @@ class Hasher:
     kernel or submission failure raises instead of latching the CPU."""
 
     def __init__(self, min_tpu_batch: int | None = None, device=None):
-        _refuse_sharded_plane()
         if min_tpu_batch is None:
             min_tpu_batch = _env_int("TENDERMINT_TPU_HASH_MIN_BATCH", 16)
         env = os.environ.get("TENDERMINT_TPU_HASHES", "")
@@ -952,13 +960,14 @@ class Hasher:
         with self._mtx:
             out = dict(self._stats)
         if self._route == "devd":
-            # the client's hash-transport counters over the zeros, and the
-            # breaker the verify plane shares
+            # the client's hash-transport counters over the zeros, the
+            # breaker the verify plane shares, and the fault counters
             from tendermint_tpu_torch.ops import devd_backend
 
             for k, val in devd_backend.hash_stream_stats().items():
                 out[k if k.startswith("stream") else f"stream_{k}"] = val
             out.update(devd_breaker().stats())
+            out.update(faults.global_counters())
         return out
 
     def _use_offload(self, n: int) -> bool:

@@ -256,7 +256,6 @@ def sha256_words(words, first, nblocks) -> torch.Tensor:
 
 
 def _launch(algo: int, words, first, nblocks, out) -> None:
-    global ripemd160_launches, sha256_launches
     lib = kernels.load("hash_blocks")
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -264,10 +263,7 @@ def _launch(algo: int, words, first, nblocks, out) -> None:
                                 out.data_ptr(), first.shape[0], stream)
     if rc != 0:
         raise RuntimeError(f"hash_blocks kernel launch failed: cudaError {rc}")
-    if algo == RIPEMD160_ALGO:
-        ripemd160_launches += 1
-    else:
-        sha256_launches += 1
+    kernels.count_launch(__name__, "ripemd160_launches" if algo == RIPEMD160_ALGO else "sha256_launches")
 
 
 def _lanes(algo: int, width: int, words, first, nblocks, out):

@@ -15,6 +15,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -113,3 +114,39 @@ def load(name: str) -> ctypes.CDLL:
             fn.restype = _i32
             _libs[name] = lib
         return lib
+
+
+# -- launch counts --------------------------------------------------------------
+#
+# Each wrapper counts its kernel's launches in an attribute of its module
+# (`ed25519_f32p.launches`, read and reset by assignment where a run shows
+# that its work went through the kernel). The daemon's handler threads
+# launch concurrently, so every increment goes through one lock.
+LAUNCH_COUNTERS = {
+    "b1": ("tendermint_tpu_torch.ops.ed25519_f32p", "launches"),
+    "b2": ("tendermint_tpu_torch.ops.ed25519_pallas", "launches"),
+    "dsm": ("tendermint_tpu_torch.ops.ed25519", "launches"),
+    "comb": ("tendermint_tpu_torch.ops.ed25519_comb", "launches"),
+    "tables": ("tendermint_tpu_torch.ops.ed25519_comb", "table_launches"),
+    "ripemd160": ("tendermint_tpu_torch.ops.hashing", "ripemd160_launches"),
+    "sha256": ("tendermint_tpu_torch.ops.hashing", "sha256_launches"),
+    "merkle_tree": ("tendermint_tpu_torch.ops.merkle", "launches"),
+}
+_launch_lock = threading.Lock()
+
+
+def count_launch(module: str, attr: str = "launches") -> None:
+    """Add one to `module.attr`, a wrapper's launch count."""
+    mod = sys.modules[module]
+    with _launch_lock:
+        setattr(mod, attr, getattr(mod, attr) + 1)
+
+
+def launch_counts() -> dict[str, int]:
+    """Every wrapper's launch count in this process, by LAUNCH_COUNTERS key
+    (0 for a module not loaded)."""
+    out = {}
+    for key, (module, attr) in LAUNCH_COUNTERS.items():
+        mod = sys.modules.get(module)
+        out[key] = int(getattr(mod, attr, 0)) if mod is not None else 0
+    return out

@@ -120,7 +120,6 @@ def tree_lanes(nodes: torch.Tensor, n: int) -> torch.Tensor:
     """Fill every internal node of the int32 node buffer (2n rows of 5
     digest words, leaves in rows 0..n-1) in place, n >= 2. A CUDA tensor
     launches K3 once without synchronising; a CPU tensor runs `_run_tree`."""
-    global launches
     if n < 2 or nodes.shape != (2 * n, 5) or nodes.dtype != torch.int32:
         raise ValueError(f"nodes must be int32 ({2 * n}, 5) for {n} >= 2 leaves")
     dev = nodes.device
@@ -143,7 +142,7 @@ def tree_lanes(nodes: torch.Tensor, n: int) -> torch.Tensor:
                                 widths.data_ptr(), left.shape[0], left.shape[1], threads, stream)
     if rc != 0:
         raise RuntimeError(f"merkle_tree kernel launch failed: cudaError {rc}")
-    launches += 1
+    kernels.count_launch(__name__)
     return nodes
 
 

@@ -2,11 +2,12 @@
 registry, and the devd route's edges: the port's CircuitBreaker against
 the JAX package's under one injected clock, a daemon killed and restarted
 under a live Verifier and Hasher, exposition text against the JAX
-package's, the aggregate op, the round-trip probe, and the refusal of the
-multi-daemon plane. Daemons as in test_torch_devd."""
+package's, the aggregate op, the round-trip probe, and the multi-daemon
+plane's route. Daemons as in test_torch_devd."""
 
 from __future__ import annotations
 
+import shutil
 import time
 import types
 
@@ -16,6 +17,7 @@ from test_torch_devd import SIM_DAEMON_S, DevdProc, signed_items
 from tendermint_tpu.libs import telemetry as jtelemetry
 from tendermint_tpu.ops import gateway as jgateway
 from tendermint_tpu_torch import devd
+from tendermint_tpu_torch.crypto.hashing import ripemd160
 from tendermint_tpu_torch.libs import telemetry
 from tendermint_tpu_torch.ops import devd_backend, gateway
 
@@ -227,10 +229,65 @@ def test_daemon_without_the_agg_op_takes_the_floor_unpenalised(monkeypatch):
 
 
 @pytest.mark.parametrize("build", ["Verifier", "Hasher"])
-def test_multi_daemon_plane_is_refused(monkeypatch, build):
-    monkeypatch.setenv("TENDERMINT_DEVD_SOCKS", "/tmp/a.sock,/tmp/b.sock")
-    with pytest.raises(ValueError, match="A.6b"):
-        getattr(gateway, build)(device="cpu")
+def test_multi_daemon_plane_routes_through_devd_shard(monkeypatch, build):
+    """TENDERMINT_DEVD_SOCKS naming two daemons: a default Verifier or
+    Hasher takes the devd route and its batches split over both daemons
+    (ops/devd_shard), each endpoint's breaker CLOSED."""
+    import tempfile
+
+    from tendermint_tpu_torch.ops import devd_shard
+    from tendermint_tpu_torch.ops.faults import DaemonFleet
+
+    sock_dir = tempfile.mkdtemp(prefix="tmd", dir="/tmp")
+    fleet = DaemonFleet(2, sock_dir=sock_dir, extra_env=SIM)
+    for k in ("TENDERMINT_TPU_KERNEL", "TENDERMINT_DEVD_SOCK", "TENDERMINT_DEVD_STREAM_MIN"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("TENDERMINT_TPU_HASHES", "1")
+    monkeypatch.setenv("TENDERMINT_TPU_MIN_BATCH", "8")
+    monkeypatch.setenv("TENDERMINT_TPU_HASH_MIN_BATCH", "8")
+    monkeypatch.setattr(devd_backend, "_client", None)
+    gateway.reset_devd_breaker()
+    devd_shard.reset()
+    try:
+        fleet.start()
+        monkeypatch.setenv("TENDERMINT_DEVD_SOCKS", fleet.socks_env)
+        devd.bust_avail_cache()
+        assert devd_shard.enabled()
+        if build == "Verifier":
+            v = gateway.Verifier()
+            assert v.kernel == "devd" and v.device is None
+            # valid lanes only: a sim daemon verifies structurally
+            items = signed_items(8, tag=b"fleet")[:2] * 24
+
+            def run():
+                assert v.verify_batch(items) == [True] * 48
+        else:
+            h = gateway.Hasher()
+            assert h._route == "devd"
+            parts = [bytes([i]) * 900 for i in range(32)]
+
+            def run():
+                assert h.part_leaf_hashes(parts) == [ripemd160(p) for p in parts]
+        # one batch can leave an endpoint idle (its worker may start after
+        # the other took every slice): a few batches, bounded
+        for batches in range(1, 11):
+            run()
+            served = [d["dispatched_slices"] for d in devd_shard.endpoint_stats().values()]
+            if len(served) == 2 and all(served):
+                break
+        assert len(served) == 2 and all(served), devd_shard.endpoint_stats()
+        if build == "Verifier":
+            assert v.stats()["tpu_sigs"] == 48 * batches and v.stats()["cpu_sigs"] == 0
+        else:
+            assert h.stats()["tpu_part_batches"] == batches and h.stats()["cpu_leaves"] == 0
+        assert set(gateway.devd_breaker_states().values()) == {gateway.CircuitBreaker.CLOSED}
+    finally:
+        fleet.stop()
+        gateway.reset_devd_breaker()
+        devd_shard.reset()
+        devd_backend.reset_stream_latches()
+        devd.bust_avail_cache()
+        shutil.rmtree(sock_dir, ignore_errors=True)
 
 
 def test_round_trip_probe(monkeypatch):
