@@ -194,6 +194,35 @@ Phases, in order; any failure raises and exits non-zero:
    what is left (the socket and the daemon's scheduling), for
    `commit_large`, `make_block` at block_cap and the parts' stream.
 
+25. The ABCI application plane, in process (no daemon socket in the
+   environment; the default `Verifier` and `Hasher` must take the local
+   route on the card): a host-built `SignedKVStoreApp` of APP_STATE_KEYS
+   keys (`acct-%07d`, 64-byte values from the seed) snapshots, and a
+   fresh app whose state tree hashes through `default_hasher()` restores
+   it: its app hash equal to the host's, every wave of 32 or more one K1
+   launch, `tpu_leaves` equal to the tree's `gateway_nodes`. Then three
+   blocks of 10,000 signed txs (8,000 updates, 1,960 new keys, 30 `rm:`
+   deletions, 10 forged signatures), sharded over 4, through
+   `AppConns(LocalClientCreator(app))` as state/execution.py drives them
+   (begin_block, one `deliver_txs_async` of the block, end_block, commit),
+   beside the reference (the same app class, host hashing, a `Verifier`
+   whose gate sends every lane to the native CPU floor): responses, logs
+   and app hashes equal, exactly the forged txs refused, one B1 launch a
+   block (`tpu_sigs` up 10,000, `cpu_sigs` 0), K1 once for the block's
+   priorities and once a wide wave at commit, 3 sharded batches; 64
+   sampled keys (untouched, updated, deleted, absent) prove against the
+   committed root, the card app's proofs equal to the host's byte for
+   byte. Then a block of 1,000 through an `ABCIServer` and a
+   `SocketClient` to each app (tx by tx: each verifies on the host, the
+   commit's waves on K1): responses and app hashes equal.
+26. Times, the card against the host reference: the restore (best of 3;
+   its tree build, its hashing and the Hasher's K1 calls within it), the
+   three blocks replayed on freshly restored apps, each split into the
+   verify (B1 with its marshal, or the native CPU floor), the priorities,
+   the fold and the commit (its hashing, the K1 calls, the waves and their
+   widths), and K1's device time on the widest wave of a restore and of a
+   commit beside hashlib on the same preimages.
+
 Each path's launch counts are set to 0 just before it and read just after
 (the daemons', in phases 21 and 23, read from their logs before and after).
 The last lines are the kernels' JSON summary, the card line, and
@@ -203,6 +232,7 @@ no network, one card.
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import multiprocessing
@@ -301,6 +331,21 @@ FLEET = 2  # phase 23: daemons on cuda:0 behind TENDERMINT_DEVD_SOCKS
 FLEET_WARM = "1024"  # their warm-up shape (phase 21 ran the bake-off)
 FLEET_BLACKOUT_S = 3.0  # phase 23: endpoint 1 dark behind its FaultProxy
 FLEET_WAIT_S = 60.0  # the bound on endpoint 1's breaker opening, and re-closing
+# phases 25-26, the app_block cell: the state (5x the 50,000 keys of the JAX
+# package's statetree bench, BENCH_r13.json commit-vs-rebuild), and a block at
+# types/params.py's max_txs of 10,000 signed kv txs
+APP_STATE_KEYS = 250_000
+APP_VALUE_BYTES = 64
+APP_BLOCK = (("update", 8_000), ("new", 1_960), ("delete", 30), ("forged", 10))
+APP_SOCKET_BLOCK = (("update", 800), ("new", 190), ("delete", 8), ("forged", 2))
+APP_HEIGHTS = 3
+APP_SHARDS = 4  # the kvstore's keyspace shards (TENDERMINT_KVSTORE_SHARDS)
+APP_SIGNERS = 64
+APP_PROOF_KEYS = 16  # sampled keys of each kind: untouched, updated, deleted, absent
+APP_REF_GATE = 10_001  # the reference Verifier's size gate: a block's lanes on the native CPU floor
+APP_MIN_GATEWAY = 0.96  # a card restore's K1 leaves, at least this share of the state's keys
+# phase 25's launches beside B1's and K1's entries in the kernels line
+APP_LAUNCH_KEYS = {"ed25519_verify": "b1", "ripemd160": "ripemd160"}
 # phase 21's daemon launches beside each kernel's entry in the kernels line
 DEVD_LAUNCH_KEYS = {"ed25519_verify": "b1", "ed25519_comb": "comb", "ed25519_comb_tables": "tables",
                     "ed25519_dsm": "dsm", "ripemd160": "ripemd160", "merkle_tree": "merkle_tree"}
@@ -682,9 +727,12 @@ def main() -> int:
         bid10k, c10k = make_commit(pool, vs10k, seed_of, 1, b"c10k")
         vs400 = ValidatorSet(validators[: AGG_SIZES[1]])
         bid400, c400 = make_commit(pool, vs400, seed_of, 1, b"c400")
+        t_app = time.perf_counter()
+        app_inputs = make_app_inputs(pool, np.random.default_rng(SEED + 25))
     log({"phase": "setup", "keys": n_keys,
          "signatures": MIXED_LANES + n_small + 4 * n_mid + n_keys + AGG_SIZES[1],
-         "seconds": time.perf_counter() - t0})
+         "app_state_keys": APP_STATE_KEYS, "app_signed_txs": sum(len(b["txs"]) for b in app_inputs["blocks"]),
+         "app_inputs_s": time.perf_counter() - t_app, "seconds": time.perf_counter() - t0})
 
     # -- phase 2: kernel vs plain version on the card ---------------------------
     group_items = [it for bid, c, h in group for it in recorded_items(vs1000, h, bid, c)]
@@ -867,6 +915,12 @@ def main() -> int:
     fleet_launches = fleet_phase(name, power, commits, forged, sub_quorum, shapes, block_txs, params,
                                  one_daemon)
 
+    # -- phases 25 and 26: the ABCI application plane --------------------------------
+    app_ctx = app_phase(name, power, app_inputs)
+    app_time(name, power, app_ctx)
+    app_launches = app_ctx["launches"]
+    del app_ctx, app_inputs
+
     entries = []
     for kname, module, launches, err, ms, p_ms, lanes in (
             ("ed25519_verify", f32p, main_launches, max_err, kernel_ms[MIXED_LANES], plain_ms,
@@ -912,6 +966,8 @@ def main() -> int:
         if entry["name"] in DEVD_LAUNCH_KEYS:
             entry["devd_launches"] = devd_launches[DEVD_LAUNCH_KEYS[entry["name"]]]
             entry["fleet_launches"] = fleet_launches[DEVD_LAUNCH_KEYS[entry["name"]]]
+        if entry["name"] in APP_LAUNCH_KEYS:
+            entry["app_launches"] = app_launches[APP_LAUNCH_KEYS[entry["name"]]]
     log({"kernels": entries})
     log(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2601,7 +2657,8 @@ def claim_log(text: str) -> dict:
 class routed_to:
     """Inside the block this process's gateway routes to the daemon at the
     one socket given (TENDERMINT_DEVD_SOCK), or to the fleet of several
-    (TENDERMINT_DEVD_SOCKS), with TENDERMINT_TPU_KERNEL unset and the
+    (TENDERMINT_DEVD_SOCKS), or with none given to no daemon at all (the
+    local route), with TENDERMINT_TPU_KERNEL unset and the
     backend's client, the fleet's endpoints, the probe cache and the
     breakers fresh. All are put back after."""
 
@@ -2629,7 +2686,7 @@ class routed_to:
             os.environ.pop(k, None)
         if len(self.socks) == 1:
             os.environ["TENDERMINT_DEVD_SOCK"] = self.socks[0]
-        else:
+        elif self.socks:
             os.environ["TENDERMINT_DEVD_SOCKS"] = ",".join(self.socks)
         self._fresh()
         return self
@@ -3241,6 +3298,489 @@ def _fleet_times(fleet, tag, ctx, one) -> None:
                              left_one_daemon_s=warm_one[key] - known, left_fleet_s=warm[key] - known)
     log({"phase": "devd_wide_split", **tag, "chunk": width, "frames": {
         "verify": len(verify_frames), "tx": len(tx_frames), "parts": len(part_frames)}, "pieces": pieces})
+
+
+# -- phases 25 and 26: the ABCI application plane ------------------------------
+
+
+def make_app_inputs(pool, rng) -> dict:
+    """Phase 25's inputs, from their own generator so the earlier phases'
+    draws stay as they were: the state (APP_STATE_KEYS keys `acct-%07d`,
+    APP_VALUE_BYTES random bytes each), APP_HEIGHTS blocks of APP_BLOCK and
+    one socket block of APP_SOCKET_BLOCK, each a shuffle of updates of live
+    keys, new keys, `rm:` deletions and updates whose signature has a
+    flipped bit, signed by APP_SIGNERS keys in the pool; and the keys whose
+    proofs phase 25 checks, APP_PROOF_KEYS of each kind."""
+    from tendermint_tpu_torch.crypto import ed25519 as ed
+
+    n, width = APP_STATE_KEYS, APP_VALUE_BYTES
+    values = rng.bytes(n * width)
+    entries = {b"acct-%07d" % i: values[i * width:(i + 1) * width] for i in range(n)}
+    seeds = [rng.bytes(32) for _ in range(APP_SIGNERS)]
+    pubs = pool.map(ed.public_key, seeds)
+    live = sorted(entries)
+    next_key = n
+    plans = []
+    for shape in [APP_BLOCK] * APP_HEIGHTS + [APP_SOCKET_BLOCK]:
+        counts = dict(shape)
+        kinds = [k for k, c in shape for _ in range(c)]
+        kinds = [kinds[i] for i in rng.permutation(len(kinds))]
+        picks = iter(rng.choice(len(live), size=len(kinds) - counts["new"], replace=False).tolist())
+        plan = {"payloads": [], "forged": [], "updated": [], "deleted": [], "new": []}
+        for pos, kind in enumerate(kinds):
+            if kind == "new":
+                key = b"acct-%07d" % next_key
+                next_key += 1
+                plan["new"].append(key)
+                plan["payloads"].append(key + b"=" + rng.bytes(width))
+                continue
+            key = live[next(picks)]
+            if kind == "delete":
+                plan["deleted"].append(key)
+                plan["payloads"].append(b"rm:" + key)
+                continue
+            plan["payloads"].append(key + b"=" + rng.bytes(width))
+            if kind == "forged":
+                plan["forged"].append(pos)
+            else:
+                plan["updated"].append(key)
+        plan["signers"] = rng.integers(0, APP_SIGNERS, size=len(kinds)).tolist()
+        gone = set(plan["deleted"])
+        live = [k for k in live if k not in gone] + plan["new"]
+        plans.append(plan)
+    jobs = [(seeds[s], p) for plan in plans for s, p in zip(plan["signers"], plan["payloads"])]
+    sigs = iter(pool.starmap(ed.sign, jobs, chunksize=256))
+    blocks = []
+    for plan in plans:
+        forged = set(plan["forged"])
+        txs = []
+        for pos, (s, payload) in enumerate(zip(plan["signers"], plan["payloads"])):
+            sig = next(sigs)
+            if pos in forged:
+                sig = sig[:5] + bytes([sig[5] ^ 0x20]) + sig[6:]
+            txs.append(pubs[s] + sig + payload)
+        blocks.append({"txs": txs, "forged": sorted(forged)})
+    touched = {k for plan in plans[:APP_HEIGHTS] for kind in ("updated", "deleted") for k in plan[kind]}
+    pick = lambda keys: [keys[i] for i in rng.choice(len(keys), size=APP_PROOF_KEYS, replace=False)]  # noqa: E731
+    deleted = [k for plan in plans[:APP_HEIGHTS] for k in plan["deleted"]]
+    proof_keys = {
+        "untouched": pick([k for k in sorted(entries) if k not in touched]),
+        "updated": pick([k for plan in plans[:APP_HEIGHTS] for k in plan["updated"] if k not in deleted]),
+        "deleted": pick(deleted),
+        "absent": [b"acct-%07d" % (next_key + 1 + i) for i in range(APP_PROOF_KEYS // 2)]
+        + [b"zz-%d" % i for i in range(APP_PROOF_KEYS - APP_PROOF_KEYS // 2)],
+    }
+    return {"entries": entries, "blocks": blocks, "proof_keys": proof_keys}
+
+
+class wave_recorder:
+    """The state tree's hasher seam, with every batch it is handed recorded:
+    its width, the seconds the Hasher took, and the widest batch's
+    preimages (each batch is one K1 launch on the card)."""
+
+    def __init__(self, hasher):
+        self.hasher = hasher
+        self.widths: list[int] = []
+        self.seconds = 0.0
+        self.widest: list[bytes] = []
+
+    def part_leaf_hashes(self, chunks):
+        t0 = time.perf_counter()
+        out = self.hasher.part_leaf_hashes(chunks)
+        self.seconds += time.perf_counter() - t0
+        self.widths.append(len(chunks))
+        if len(chunks) > len(self.widest):
+            self.widest = list(chunks)
+        return out
+
+    def take(self) -> tuple[list[int], float]:
+        out = (self.widths, self.seconds)
+        self.widths, self.seconds = [], 0.0
+        return out
+
+
+class stage_clock:
+    """Inside the block, the seconds spent in each named method, patched on
+    its class (every instance's calls) or on one instance; put back after."""
+
+    _MISSING = object()
+
+    def __init__(self, **targets):
+        self.targets = targets
+        self.seconds = dict.fromkeys(targets, 0.0)
+
+    def __enter__(self):
+        self.saved = []
+        for label, (owner, attr) in self.targets.items():
+            orig = getattr(owner, attr)
+
+            def timed_call(*args, _orig=orig, _label=label, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return _orig(*args, **kwargs)
+                finally:
+                    self.seconds[_label] += time.perf_counter() - t0
+
+            self.saved.append((owner, attr, vars(owner).get(attr, self._MISSING)))
+            setattr(owner, attr, timed_call)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, prev in reversed(self.saved):
+            if prev is self._MISSING:
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, prev)
+        return False
+
+
+def _sync() -> None:
+    import torch
+
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _launch_delta(launches: dict[str, int], want: dict[str, int], label: str) -> None:
+    expected = dict.fromkeys(launches, 0)
+    expected.update(want)
+    if launches != expected:
+        raise AssertionError(f"{label}: launches {launches}, expected {expected}")
+
+
+def app_phase(name, power, inputs) -> dict:
+    """Phase 25: the ABCI application plane on the card, in process (no
+    daemon socket in the environment, the default Verifier and Hasher on
+    the local route, asserted). A host-built SignedKVStoreApp's snapshot
+    restores into an app whose tree hashes through `default_hasher()` (K1
+    on every wave of 32 or more); then APP_HEIGHTS blocks drive through
+    `AppConns(LocalClientCreator(app))` as state/execution.py drives them
+    (begin_block, one deliver_txs_async of the whole block, end_block,
+    commit), each verified in one B1 launch through `default_verifier()`
+    and sharded over APP_SHARDS, beside the reference: the same app class
+    with the host's hashing and a Verifier whose gate sends every lane to
+    the native CPU floor. Launches are reset just before each path and read
+    just after. Responses, app hashes and sampled proofs must be equal; a
+    socket block through ABCIServer / SocketClient too. Returns what phase
+    26 times and the launches a kernel over these paths."""
+    import torch
+
+    from tendermint_tpu_torch.abci.apps.signedkv import SignedKVStoreApp
+    from tendermint_tpu_torch.abci.client import ABCIServer, SocketClient
+    from tendermint_tpu_torch.abci.types import Header
+    from tendermint_tpu_torch.merkle.statetree_proof import TreeProof
+    from tendermint_tpu_torch.ops import gateway
+    from tendermint_tpu_torch.ops.gateway import Verifier
+    from tendermint_tpu_torch.proxy import AppConns, LocalClientCreator
+    from tendermint_tpu_torch.statetree import VersionedTree
+
+    tag = {"card": name, "power_limit": power}
+    dev_type = torch.device(DEVICE).type
+    total = {"b1": 0, "ripemd160": 0}
+    with routed_to():
+        gateway._default_verifier = gateway._default_hasher = None
+        verifier = gateway.default_verifier()
+        hasher = gateway.default_hasher()
+        if verifier.kernel != "f32p" or verifier.device is None or verifier.device.type != dev_type:
+            raise AssertionError(f"default Verifier: kernel {verifier.kernel}, device {verifier.device}")
+        if hasher._route != "local" or hasher.device is None or hasher.device.type != dev_type:
+            raise AssertionError(f"default Hasher: route {hasher._route}, device {hasher.device}")
+
+        # the host-built app and its snapshot
+        t0 = time.perf_counter()
+        entries = inputs["entries"]
+        host = SignedKVStoreApp()
+        host.tree = VersionedTree.from_entries(entries, 1)
+        host.state = {k.decode("latin-1"): v for k, v in entries.items()}
+        host.height, host.app_hash = 1, host.tree.root_hash()
+        host.deliver_verifier = Verifier(min_tpu_batch=APP_REF_GATE, device="cpu")
+        host.shards = APP_SHARDS
+        snap = host.snapshot()
+        host_build_s = time.perf_counter() - t0
+
+        # the restore on the card
+        rec = wave_recorder(hasher)
+        card = SignedKVStoreApp()
+        card.tree.hasher = rec
+        card.shards = APP_SHARDS
+        leaves0 = hasher.stats()["tpu_leaves"]
+        reset_launches()
+        t0 = time.perf_counter()
+        card.restore(snap)
+        _sync()
+        restore_s = time.perf_counter() - t0
+        launches = read_launches()
+        widths, k1_s = rec.take()
+        gw = card.tree.stats()["gateway_nodes"]
+        tpu_leaves = hasher.stats()["tpu_leaves"] - leaves0
+        if card.app_hash != host.app_hash or card.height != 1:
+            raise AssertionError("restore: the card app's hash differs from the host app's")
+        if not (tpu_leaves == gw == sum(widths) >= APP_MIN_GATEWAY * APP_STATE_KEYS):
+            raise AssertionError(f"restore: tpu_leaves {tpu_leaves}, gateway_nodes {gw}, waves {widths}")
+        if min(widths) < 32:
+            raise AssertionError(f"restore: a wave of {min(widths)} went to the Hasher")
+        _launch_delta(launches, {"ripemd160": len(widths)}, "restore")
+        total["ripemd160"] += launches["ripemd160"]
+        log({"phase": "app_restore", **tag, "keys": APP_STATE_KEYS, "snapshot_bytes": len(snap),
+             "app_hash": card.app_hash.hex(), "tpu_leaves": tpu_leaves, "gateway_nodes": gw,
+             "hashed_nodes": card.tree.stats()["hashed_nodes"], "k1_waves": len(widths),
+             "widest_wave": max(widths), "launches": launches, "first_restore_s": restore_s,
+             "hasher_s": k1_s, "host_build_s": host_build_s})
+
+        # the blocks through AppConns, card beside the host reference
+        apps = {"card": card, "host": host}
+        verifiers = {"card": verifier, "host": host.deliver_verifier}
+        conns = {label: AppConns(LocalClientCreator(app)) for label, app in apps.items()}
+        for c in conns.values():
+            c.start()
+        hashes = []
+        for height, blk in zip(range(2, 2 + APP_HEIGHTS), inputs["blocks"][:APP_HEIGHTS]):
+            txs, seen = blk["txs"], {}
+            for label, app in apps.items():
+                con = conns[label].consensus()
+                v0 = verifiers[label].stats()
+                header = Header(chain_id=CHAIN_ID, height=height, time_ns=BLOCK_TIME_NS + height,
+                                num_txs=len(txs), app_hash=app.app_hash)
+                reset_launches()
+                con.begin_block_sync(hashlib.sha256(b"app-block-%d" % height).digest()[:20], header)
+                t0 = time.perf_counter()
+                reses = [rr.response for rr in con.deliver_txs_async(txs)]
+                _sync()
+                deliver_s = time.perf_counter() - t0
+                end = con.end_block_sync(height)
+                l_deliver = read_launches()
+                deliver_widths, _ = rec.take()
+                reset_launches()
+                t0 = time.perf_counter()
+                commit = con.commit_sync()
+                _sync()
+                commit_s = time.perf_counter() - t0
+                l_commit = read_launches()
+                commit_widths, _ = rec.take()
+                v1 = verifiers[label].stats()
+                sigs = {k: v1[k] - v0[k] for k in ("tpu_batches", "tpu_sigs", "cpu_sigs")}
+                if label == "card":
+                    if sigs != {"tpu_batches": 1, "tpu_sigs": len(txs), "cpu_sigs": 0}:
+                        raise AssertionError(f"block {height}: card verifier {sigs}")
+                    if len(deliver_widths) != 1 or not commit_widths:
+                        raise AssertionError(f"block {height}: K1 batches {deliver_widths} / {commit_widths}")
+                    _launch_delta(l_deliver, {"b1": 1, "ripemd160": 1}, f"block {height} deliver")
+                    _launch_delta(l_commit, {"ripemd160": len(commit_widths)}, f"block {height} commit")
+                    total["b1"] += l_deliver["b1"]
+                    total["ripemd160"] += l_deliver["ripemd160"] + l_commit["ripemd160"]
+                else:
+                    if sigs != {"tpu_batches": 0, "tpu_sigs": 0, "cpu_sigs": len(txs)}:
+                        raise AssertionError(f"block {height}: host verifier {sigs}")
+                    _launch_delta(l_deliver, {}, f"block {height} host deliver")
+                    _launch_delta(l_commit, {}, f"block {height} host commit")
+                seen[label] = {"responses": [(r.code, r.log) for r in reses], "end": end.to_json(),
+                               "commit": commit.to_json()}
+                log({"phase": "app_block", **tag, "app": label, "height": height, "txs": len(txs),
+                     "refused": sum(r.code != 0 for r in reses), "sigs": sigs,
+                     "launches_deliver": l_deliver, "launches_commit": l_commit,
+                     "priority_batch": deliver_widths, "commit_waves_k1": commit_widths,
+                     "commit_nodes": app.tree.stats()["last_commit_nodes"],
+                     "deliver_s": deliver_s, "commit_s": commit_s, "app_hash": app.app_hash.hex()})
+            if seen["card"] != seen["host"]:
+                raise AssertionError(f"block {height}: the card app's responses or hash differ from the host's")
+            refused = [i for i, (code, _) in enumerate(seen["card"]["responses"]) if code != 0]
+            if refused != blk["forged"]:
+                raise AssertionError(f"block {height}: refused {refused}, forged {blk['forged']}")
+            hashes.append(card.app_hash)
+        if card.sharded_batches != APP_HEIGHTS or host.sharded_batches != APP_HEIGHTS:
+            raise AssertionError(f"sharded batches {card.sharded_batches} / {host.sharded_batches}")
+        if hasher.stats()["cpu_leaves"] != 0:
+            raise AssertionError(f"the Hasher hashed {hasher.stats()['cpu_leaves']} leaves on the host")
+
+        # proofs against the committed root, the card's equal to the host's
+        proofs = {}
+        for kind, keys in inputs["proof_keys"].items():
+            for key in keys:
+                got = conns["card"].query().query_sync(key, prove=True)
+                want = conns["host"].query().query_sync(key, prove=True)
+                if got.to_json() != want.to_json():
+                    raise AssertionError(f"proof of {key!r} ({kind}) differs from the host's")
+                proof = TreeProof.from_json(json.loads(got.proof))
+                member = kind in ("untouched", "updated")
+                if proof.is_membership != member or not proof.verify(card.app_hash):
+                    raise AssertionError(f"proof of {key!r} ({kind}) does not verify")
+                proofs[kind] = proofs.get(kind, 0) + 1
+        for c in conns.values():
+            c.stop()
+        log({"phase": "app_plane", **tag, "keys": APP_STATE_KEYS, "heights": APP_HEIGHTS,
+             "block": dict(APP_BLOCK), "shards": APP_SHARDS, "app_hashes": [h.hex() for h in hashes],
+             "sharded_batches": card.sharded_batches, "proofs_verified": proofs,
+             "verifier": verifier.stats(), "hasher": {k: hasher.stats()[k] for k in
+                                                      ("tpu_part_batches", "tpu_leaves", "cpu_leaves")},
+             "launches": total, "route": {"verify": verifier.kernel, "hash": hasher._route}})
+
+        # the socket wire, for correctness: tx by tx, so each verifies on the host
+        blk = inputs["blocks"][APP_HEIGHTS]
+        height = 2 + APP_HEIGHTS
+        servers = {label: ABCIServer(app, "127.0.0.1:0") for label, app in apps.items()}
+        clients = {}
+        seen = {}
+        try:
+            for label in apps:
+                servers[label].start()
+                clients[label] = SocketClient(servers[label].addr)
+                clients[label].start()
+            for label, cli in clients.items():
+                reset_launches()
+                t0 = time.perf_counter()
+                cli.begin_block_sync(hashlib.sha256(b"app-block-%d" % height).digest()[:20],
+                                     Header(chain_id=CHAIN_ID, height=height, num_txs=len(blk["txs"])))
+                rrs = [cli.deliver_tx_async(tx) for tx in blk["txs"]]
+                reses = [rr.wait(120) for rr in rrs]
+                if any(r is None for r in reses):
+                    raise AssertionError(f"socket block: {label} lost a response")
+                cli.end_block_sync(height)
+                commit = cli.commit_sync()
+                launches = read_launches()
+                seen[label] = ([(r.code, r.log) for r in reses], commit.to_json())
+                log({"phase": "app_socket", **tag, "app": label, "txs": len(blk["txs"]),
+                     "launches": launches, "wall_s": time.perf_counter() - t0,
+                     "app_hash": commit.data.hex()})
+                if label == "card":
+                    if launches["ripemd160"] < 1:
+                        raise AssertionError("socket block: the card app's commit launched no K1")
+                    _launch_delta(launches, {"ripemd160": launches["ripemd160"]}, "socket block")
+                    total["ripemd160"] += launches["ripemd160"]
+                else:
+                    _launch_delta(launches, {}, "socket block, host")
+        finally:
+            for cli in clients.values():
+                cli.stop()
+            for srv in servers.values():
+                srv.stop()
+        if seen["card"] != seen["host"]:
+            raise AssertionError("socket block: the card app's responses or hash differ from the host's")
+        refused = [i for i, (code, _) in enumerate(seen["card"][0]) if code != 0]
+        if refused != blk["forged"]:
+            raise AssertionError(f"socket block: refused {refused}, forged {blk['forged']}")
+    return {"snap": snap, "hasher": hasher, "verifier": verifier, "rec": rec, "hashes": hashes,
+            "blocks": inputs["blocks"][:APP_HEIGHTS], "launches": total}
+
+
+def app_time(name, power, ctx) -> None:
+    """Phase 26: warm best of 3, the card against the host reference: the
+    restore (its hashing, and the Hasher's K1 calls within it), and the
+    three blocks of phase 25 replayed on freshly restored apps, each split
+    into the verify (B1 and its marshal, or the native CPU floor), the
+    priorities, the fold and the commit (its hashing, the K1 calls, the
+    waves and their widths); then K1's device time on the widest wave of a
+    restore and of a commit beside the host's hashlib on the same
+    preimages. Card and host run in turns, each timed call after a full
+    collection of the heap."""
+    from tendermint_tpu_torch.abci.apps.signedkv import SignedKVStoreApp
+    from tendermint_tpu_torch.abci.types import Header
+    from tendermint_tpu_torch.crypto.hashing import ripemd160
+    from tendermint_tpu_torch.ops import hashing as th
+    from tendermint_tpu_torch.ops import merkle as ops_merkle
+    from tendermint_tpu_torch.ops.gateway import Verifier
+    from tendermint_tpu_torch.statetree.tree import VersionedTree
+
+    tag = {"card": name, "power_limit": power}
+    snap, hasher, verifier, rec = ctx["snap"], ctx["hasher"], ctx["verifier"], ctx["rec"]
+    best3 = lambda fn: min(timed(fn) for _ in range(3))  # noqa: E731
+
+    def fresh(label):
+        app = SignedKVStoreApp()
+        app.shards = APP_SHARDS
+        if label == "card":
+            app.tree.hasher = rec
+            app.deliver_verifier = verifier
+        else:
+            app.deliver_verifier = Verifier(min_tpu_batch=APP_REF_GATE, device="cpu")
+        return app
+
+    # card and host in turns, each timed call after a full collection: the
+    # cyclic collector's passes over a heap of millions of tree nodes
+    # otherwise land on whichever call crosses its threshold
+    restored, runs = {}, {"card": [], "host": []}
+    with routed_to():
+        for _ in range(3):
+            for label in ("card", "host"):
+                restored.pop(label, None)
+                app = fresh(label)
+                rec.take()
+                gc.collect()
+                with stage_clock(hash=(VersionedTree, "_hash_dirty"), build=(VersionedTree, "load_entries")) as clk:
+                    t0 = time.perf_counter()
+                    app.restore(snap)
+                    _sync()
+                    wall = time.perf_counter() - t0
+                widths, k1_s = rec.take()
+                runs[label].append({"restore_s": wall, "tree_build_s": clk.seconds["build"],
+                                    "hash_s": clk.seconds["hash"], "hasher_s": k1_s,
+                                    "parse_s": wall - clk.seconds["build"] - clk.seconds["hash"],
+                                    "k1_waves": len(widths)})
+                restored[label] = app
+        restore = {label: min(rows, key=lambda r: r["restore_s"]) for label, rows in runs.items()}
+        log({"phase": "app_plane_time", **tag, "what": "restore", "keys": APP_STATE_KEYS,
+             "card_best": restore["card"], "host_best": restore["host"],
+             "speedup": restore["host"]["restore_s"] / restore["card"]["restore_s"]})
+
+        commit_widest: list[bytes] = []
+        blocks = {"card": [], "host": []}
+        for i, blk in enumerate(ctx["blocks"]):
+            height = 2 + i
+            for label, app in restored.items():
+                v = app.deliver_verifier
+                app.begin_block(b"", Header(chain_id=CHAIN_ID, height=height))
+                st0 = app.tree.stats()
+                rec.take()
+                gc.collect()
+                with stage_clock(verify=(v, "verify_batch"), priorities=(app, "_batch_priorities"),
+                                 hash=(VersionedTree, "_hash_dirty")) as clk:
+                    t0 = time.perf_counter()
+                    app.deliver_txs(blk["txs"])
+                    _sync()
+                    deliver_s = time.perf_counter() - t0
+                    _, prio_k1_s = rec.take()
+                    rec.widest = []
+                    t0 = time.perf_counter()
+                    app.commit()
+                    _sync()
+                    commit_s = time.perf_counter() - t0
+                widths, k1_s = rec.take()
+                if len(rec.widest) > len(commit_widest):
+                    commit_widest = rec.widest
+                st1 = app.tree.stats()
+                if app.app_hash != ctx["hashes"][i]:
+                    raise AssertionError(f"replayed block {height}: {label}'s app hash differs from phase 25's")
+                blocks[label].append({
+                    "block_s": deliver_s + commit_s, "deliver_s": deliver_s,
+                    "verify_s": clk.seconds["verify"], "priorities_s": clk.seconds["priorities"],
+                    "priorities_hasher_s": prio_k1_s,
+                    "fold_s": deliver_s - clk.seconds["verify"] - clk.seconds["priorities"],
+                    "commit_s": commit_s, "commit_hash_s": clk.seconds["hash"], "commit_hasher_s": k1_s,
+                    "commit_nodes": st1["last_commit_nodes"],
+                    "waves": st1["hash_waves"] - st0["hash_waves"], "k1_waves": widths,
+                })
+        best = {label: min(rows, key=lambda r: r["block_s"]) for label, rows in blocks.items()}
+        log({"phase": "app_plane_time", **tag, "what": "block", "txs": len(ctx["blocks"][0]["txs"]),
+             "card_best": best["card"], "host_best": best["host"], "card_blocks": blocks["card"],
+             "host_blocks": blocks["host"], "speedup": best["host"]["block_s"] / best["card"]["block_s"],
+             "verify_speedup": best["host"]["verify_s"] / best["card"]["verify_s"]})
+
+        # K1 alone on the widest wave of a commit and of a restore
+        rec.widest = []
+        app = fresh("card")
+        app.restore(snap)
+        for label, pre in (("restore", rec.widest), ("commit", commit_widest)):
+            words, first, nblocks = th.pack_ragged(pre, True)
+            args = th.to_device(words, first, nblocks, DEVICE)
+            try:
+                dev_ms = device_ms(lambda: th.ripemd160_lanes(*args), "hash_blocks_kernel")
+            except RuntimeError:  # no device event in any trace: the CUDA events' time stands
+                dev_ms = None
+            log({"phase": "app_plane_time", **tag, "what": "k1_widest_wave", "wave": label,
+                 "preimages": len(pre), "compressions": len(words), "device_ms": dev_ms,
+                 "kernel_ms": cuda_ms(lambda: th.ripemd160_lanes(*args)),
+                 "hasher_call_ms": 1e3 * best3(lambda: ops_merkle.part_leaf_hashes(pre, DEVICE)),
+                 "hashlib_ms": 1e3 * best3(lambda: [ripemd160(p) for p in pre])})
+        del app, restored
 
 
 if __name__ == "__main__":

@@ -1,0 +1,537 @@
+"""KVStore app — the reference's "dummy" Merkle key-value store, the app
+behind the 4-node testnet north star and most consensus tests
+(consensus/common_test.go:26-27).
+
+Txs are "key=value" (or raw bytes stored as key=key). The app hash is
+the root of an AUTHENTICATED state tree (statetree.VersionedTree — a
+canonical merkleized treap) instead of a full
+simple_hash_from_map rebuild per commit: commits recompute only the
+O(changed * log n) dirty nodes (batched through the gateway hash plane
+when wired: K1 on the card), `query(prove=True)` answers with a real membership/absence
+proof a light client verifies against a header's app_hash, and the
+versioned roots power delta snapshots (statesync/producer.py). The
+plain `state` dict stays as the serialization/iteration mirror; the
+tree is the commitment.
+
+The persistent variant survives restarts (handshake/replay tests) and
+accepts validator-set change txs: "val:<pubkey_hex>/<power>" — the
+reference's persistent_dummy behavior.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+
+from tendermint_tpu_torch.abci.types import (
+    ABCIValidator,
+    Application,
+    CODE_OK,
+    CODE_UNAUTHORIZED,
+    Header,
+    ResponseCheckTx,
+    ResponseCommit,
+    ResponseDeliverTx,
+    ResponseEndBlock,
+    ResponseInfo,
+    ResponseQuery,
+)
+from tendermint_tpu_torch.libs.envknob import env_number
+from tendermint_tpu_torch.statetree import VersionedTree
+from tendermint_tpu_torch.statetree.tree import TreeError
+
+VAL_TX_PREFIX = b"val:"
+# "rm:<key>" deletes a key (beyond the reference dummy, which
+# never deletes — an authenticated tree without delete coverage would
+# leave the absence-proof/delta-delete planes untested end to end)
+DEL_TX_PREFIX = b"rm:"
+# App-visible mempool lane hints. A "pri:"
+# key routes to the priority lane, "bulk:" to the bulk lane; delivery is
+# untouched (the prefix stays part of the key, so blocks are
+# byte-identical whether or not the mempool honors the hint).
+PRI_TX_PREFIX = b"pri:"
+BULK_TX_PREFIX = b"bulk:"
+
+
+def tx_priority_hint(tx: bytes) -> int:
+    if tx.startswith(PRI_TX_PREFIX):
+        return 1
+    if tx.startswith(BULK_TX_PREFIX):
+        return -1
+    return 0
+
+# Keyspace-sharded parallel apply.
+# TENDERMINT_KVSTORE_SHARDS=N (>1) routes whole-block DeliverTx batches
+# through deliver_txs(): keys shard by their canonical key_priority
+# prefix, N workers fold each shard's ops IN TX ORDER to a final per-key
+# op, priorities batch through the gateway's RIPEMD plane, and ONE
+# deterministic merge (sorted key order) mutates state + tree — the
+# canonical-treap shape is a pure function of the final key set, so the
+# commit root is byte-identical to the serial per-tx apply (asserted in
+# tests/test_torch_abci.py, against the JAX package too). Default 0 = the
+# serial loop.
+SHARDS_DEFAULT = int(env_number("TENDERMINT_KVSTORE_SHARDS", 0, cast=int))
+SHARD_MIN_TXS = max(2, int(env_number("TENDERMINT_KVSTORE_SHARD_MIN", 32,
+                                      cast=int)))
+
+
+class KVStoreApp(Application):
+    def __init__(self):
+        self.state: dict[str, bytes] = {}
+        self.height = 0
+        self.app_hash = b""
+        # the authenticated commitment over the state map: one immutable
+        # root per committed height. node/node.py (and DevChain) inject
+        # the gateway Hasher post-construction so dirty-node recompute
+        # batches onto the device plane.
+        self.tree = VersionedTree()
+        # sharded parallel apply shape (see module docstring);
+        # assignable per instance for benches/tests
+        self.shards = SHARDS_DEFAULT
+        self.shard_min_txs = SHARD_MIN_TXS
+        self.sharded_batches = 0  # deliver_txs batches that took the
+        #                           parallel path (observability/tests)
+
+    def info(self) -> ResponseInfo:
+        return ResponseInfo(
+            data=f"{{\"size\":{len(self.state)}}}",
+            last_block_height=self.height,
+            last_block_app_hash=self.app_hash,
+        )
+
+    def check_tx(self, tx: bytes) -> ResponseCheckTx:
+        return ResponseCheckTx(code=CODE_OK, priority=tx_priority_hint(tx))
+
+    def deliver_tx(self, tx: bytes) -> ResponseDeliverTx:
+        if tx.startswith(DEL_TX_PREFIX):
+            k = tx[len(DEL_TX_PREFIX):]
+            self.state.pop(k.decode("latin-1"), None)
+            self.tree.delete(k)
+            return ResponseDeliverTx(code=CODE_OK)
+        if b"=" in tx:
+            k, v = tx.split(b"=", 1)
+        else:
+            k, v = tx, tx
+        # latin-1 is a lossless byte<->str bijection: distinct byte keys
+        # stay distinct (the reference dummy app keys on raw bytes)
+        self.state[k.decode("latin-1")] = v
+        self.tree.set(k, v)
+        return ResponseDeliverTx(code=CODE_OK)
+
+    # -- sharded parallel apply -------------------------------------------
+
+    def _shardable_op(self, tx: bytes):
+        """("set", key, value) | ("del", key, None) for a pure key-value
+        tx, or None for a tx the sharded fold cannot commute (those apply
+        via deliver_tx, in tx order, during the merge)."""
+        if tx.startswith(DEL_TX_PREFIX):
+            return ("del", tx[len(DEL_TX_PREFIX):], None)
+        if b"=" in tx:
+            k, v = tx.split(b"=", 1)
+            return ("set", k, v)
+        return ("set", tx, tx)
+
+    def _batch_priorities(self, keys: list[bytes]) -> dict[bytes, bytes]:
+        """Canonical key_priority for every key in ONE batched RIPEMD
+        pass (the gateway when the tree carries a hasher: K1 on the card,
+        or the device daemon) instead of one hashlib call per key — the
+        measured win of the sharded path at wide blocks.
+
+        Trade-off, accepted: shard ROUTING needs a priority for every
+        touched key (the shard-by-key_priority-prefix contract), while
+        the serial path only hashes keys NEW to the tree — on an
+        update-heavy block without a gateway hasher this batch does more
+        raw hashing than serial; with one wired it still wins on the
+        batched dispatch."""
+        from tendermint_tpu_torch.merkle.statetree_proof import _PRIO_PREFIX
+
+        preimages = [_PRIO_PREFIX + k for k in keys]
+        hasher = getattr(self.tree, "hasher", None)
+        if hasher is not None and len(preimages) >= 16:
+            digests = hasher.part_leaf_hashes(preimages)
+        else:
+            from tendermint_tpu_torch.crypto.hashing import ripemd160
+
+            digests = [ripemd160(p) for p in preimages]
+        return dict(zip(keys, digests))
+
+    def deliver_txs(self, txs: list[bytes],
+                    deliver_one=None) -> list[ResponseDeliverTx]:
+        """Whole-block DeliverTx (state/execution.py routes here through
+        AppConnConsensus.deliver_txs_async when the app offers it).
+        Serial loop below the shard floor; above it, the keyspace-sharded
+        parallel fold + deterministic merge described in the module
+        docstring. Final state, responses, AND the committed tree root
+        are byte-identical to the serial per-tx path.
+
+        `deliver_one` overrides the per-tx fallback/non-shardable path —
+        a subclass that pre-processes the batch (signedkv strips verified
+        envelopes) passes the PLAIN kv apply so its own deliver_tx's
+        per-tx preprocessing is not re-entered on the stripped bytes."""
+        deliver_one = deliver_one if deliver_one is not None else self.deliver_tx
+        n = int(self.shards)
+        if n <= 1 or len(txs) < self.shard_min_txs:
+            return [deliver_one(tx) for tx in txs]
+        self.sharded_batches += 1
+        plan = [self._shardable_op(tx) for tx in txs]
+        keys = sorted({op[1] for op in plan if op is not None})
+        prios = self._batch_priorities(keys)
+        shard_of = {k: prios[k][0] % n for k in keys}
+        buckets: list[list] = [[] for _ in range(n)]
+        for op in plan:
+            if op is not None:
+                buckets[shard_of[op[1]]].append(op)
+        # parallel fold: each worker reduces its shard's ops — kept in
+        # global tx order, and a key lives in exactly one shard, so
+        # per-key order (the only order that matters in a kv store) is
+        # the serial one
+        folded: list[dict | None] = [None] * n
+        def fold(si: int) -> None:
+            final: dict = {}
+            for kind, k, v in buckets[si]:
+                final[k] = (kind, v)
+            folded[si] = final
+        workers = [
+            threading.Thread(target=fold, args=(si,), name=f"kv.shard{si}")
+            for si in range(1, n)
+        ]
+        for w in workers:
+            w.start()
+        fold(0)
+        for w in workers:
+            w.join()
+
+        from tendermint_tpu_torch.state.fail import pipeline_point
+
+        pipeline_point("mid_parallel_apply")
+
+        # responses in tx order; non-shardable txs (validator txs in the
+        # persistent variant) apply HERE, in tx order — they touch state
+        # disjoint from the kv fold, so the interleave is immaterial
+        responses = []
+        for tx, op in zip(txs, plan):
+            if op is None:
+                responses.append(deliver_one(tx))
+            else:
+                responses.append(ResponseDeliverTx(code=CODE_OK))
+        # deterministic merge: one mutation per final key, sorted key
+        # order (the treap shape is a function of the key SET; the order
+        # only has to be deterministic)
+        merged: dict = {}
+        for final in folded:
+            merged.update(final)  # shard key ranges are disjoint
+        for k in sorted(merged):
+            kind, v = merged[k]
+            if kind == "del":
+                self.state.pop(k.decode("latin-1"), None)
+                self.tree.delete(k)
+            else:
+                self.state[k.decode("latin-1")] = v
+                self.tree.set(k, v, prio=prios[k])
+        return responses
+
+    def commit(self) -> ResponseCommit:
+        self.height += 1
+        self.app_hash = self.tree.commit(self.height)
+        return ResponseCommit(code=CODE_OK, data=self.app_hash)
+
+    def query(self, data: bytes, path: str = "", height: int = 0, prove: bool = False) -> ResponseQuery:
+        key = data.decode("latin-1")
+        if not prove:
+            value = self.state.get(key)
+            if value is None:
+                return ResponseQuery(code=CODE_OK, key=data, log="does not exist")
+            return ResponseQuery(code=CODE_OK, key=data, value=value, log="exists")
+        # proof-backed read: prove against a COMMITTED root (the proof's
+        # height binds to header (height+1).app_hash on the light side)
+        version = int(height) if height else self.height
+        if version < 1:
+            return ResponseQuery(
+                code=CODE_UNAUTHORIZED, key=data,
+                log="no committed state to prove against",
+            )
+        try:
+            proof = self.tree.prove(data, version)
+        except TreeError as exc:
+            return ResponseQuery(
+                code=CODE_UNAUTHORIZED, key=data, height=version,
+                log=f"cannot prove at height {version}: {exc}",
+            )
+        proof_bytes = json.dumps(proof.to_json(), sort_keys=True).encode()
+        if proof.value is None:
+            return ResponseQuery(
+                code=CODE_OK, key=data, proof=proof_bytes, height=version,
+                log="does not exist",
+            )
+        return ResponseQuery(
+            code=CODE_OK, key=data, value=proof.value, proof=proof_bytes,
+            height=version, log="exists",
+        )
+
+    # -- state-sync hooks --------------------------------------------------
+
+    def snapshot(self) -> bytes | None:
+        """Canonical JSON of the committed (height, app_hash, state) —
+        sorted keys, so two replicas at the same height serialize
+        byte-identically (the statesync manifest digests depend on it)."""
+        return json.dumps(
+            {
+                "height": self.height,
+                "app_hash": self.app_hash.hex(),
+                "state": {k: v.hex() for k, v in self.state.items()},
+            },
+            sort_keys=True,
+        ).encode()
+
+    def restore(
+        self, data: bytes, height: int | None = None, app_hash: bytes | None = None
+    ) -> None:
+        if self.height != 0 or self.state:
+            raise ValueError("restore only valid on a fresh app")
+        obj = json.loads(data)
+        # shape-check before touching fields: a non-dict here would raise
+        # AttributeError, which escapes the restorer's ValueError net
+        if not isinstance(obj, dict) or not isinstance(obj.get("state"), dict):
+            raise ValueError("snapshot app state must be an object")
+        new_height = obj["height"]
+        claimed_hash = bytes.fromhex(obj["app_hash"])
+        state = {k: bytes.fromhex(v) for k, v in obj["state"].items()}
+        if not isinstance(new_height, int) or isinstance(new_height, bool) or new_height < 1:
+            raise ValueError(f"bad snapshot height {new_height!r}")
+        # the app hash is a pure function of the state map (the tree's
+        # shape is canonical in the key set): recompute it rather than
+        # trust the snapshot's claim — a payload whose hash and state
+        # disagree must refuse here, before anything mutates
+        tree = VersionedTree.from_entries(
+            {k.encode("latin-1"): v for k, v in state.items()},
+            new_height,
+            hasher=self.tree.hasher, keep_recent=self.tree.keep_recent,
+        )
+        recomputed = tree.root_hash()
+        if recomputed != claimed_hash:
+            raise ValueError("snapshot app_hash does not match its state")
+        if height is not None and new_height != height:
+            raise ValueError(
+                f"snapshot is at height {new_height}, expected {height}"
+            )
+        if app_hash is not None and claimed_hash != app_hash:
+            raise ValueError("snapshot app_hash does not match the verified hash")
+        self.height = new_height
+        self.app_hash = claimed_hash
+        self.state = state
+        self.tree = tree
+
+    def restore_delta(
+        self,
+        upserts: dict[bytes, bytes],
+        deletes: list[bytes],
+        height: int,
+        app_hash: bytes,
+        aux: dict | None = None,
+    ) -> None:
+        """Advance a restored app from its current height to `height` by
+        applying a verified delta. The recomputed tree root MUST equal
+        the light-verified `app_hash`; on mismatch the tree rolls back
+        to its base and nothing is applied or persisted (the delta-
+        restore contract)."""
+        base = self.height
+        if base < 1:
+            raise ValueError("delta restore needs a restored base state")
+        if not isinstance(height, int) or height <= base:
+            raise ValueError(
+                f"stale delta: app at height {base}, delta targets {height}"
+            )
+        self.tree.rollback_to(base)  # drop any stray staging first
+        for k, v in sorted(upserts.items()):
+            self.tree.set(k, v)
+        for k in deletes:
+            self.tree.delete(k)
+        root = self.tree.commit(height)
+        if root != app_hash:
+            self.tree.rollback_to(base)
+            raise ValueError(
+                "delta does not reproduce the verified app hash at "
+                f"height {height}"
+            )
+        for k, v in upserts.items():
+            self.state[k.decode("latin-1")] = v
+        for k in deletes:
+            self.state.pop(k.decode("latin-1"), None)
+        self.height = height
+        self.app_hash = root
+
+
+class PersistentKVStoreApp(KVStoreApp):
+    """KVStore plus disk persistence and validator-set changes via
+    val-txs; the backbone of the crash-restart test tier
+    (test/persist/*.sh in the reference)."""
+
+    def __init__(self, db_dir: str):
+        super().__init__()
+        self.db_path = os.path.join(db_dir, "kvstore_app.json")
+        os.makedirs(db_dir, exist_ok=True)
+        self.val_diffs: list[ABCIValidator] = []
+        self.validators: dict[str, int] = {}  # pubkey hex -> power
+        self._load()
+
+    # -- persistence -------------------------------------------------------
+
+    def _load(self) -> None:
+        if not os.path.exists(self.db_path):
+            return
+        with open(self.db_path) as f:
+            obj = json.load(f)
+        self.height = obj["height"]
+        self.app_hash = bytes.fromhex(obj["app_hash"])
+        self.state = {k: bytes.fromhex(v) for k, v in obj["state"].items()}
+        self.validators = obj.get("validators", {})
+        # rebuild the commitment tree at the persisted height; the
+        # canonical shape guarantees the rebuilt root IS the persisted
+        # app hash — a mismatch means the home predates the state tree
+        # (or rotted) and continuing would diverge at the next commit
+        if self.height > 0:
+            self.tree = VersionedTree.from_entries(
+                {k.encode("latin-1"): v for k, v in self.state.items()},
+                self.height,
+                hasher=self.tree.hasher, keep_recent=self.tree.keep_recent,
+            )
+            if self.tree.root_hash() != self.app_hash:
+                raise ValueError(
+                    f"{self.db_path}: persisted app_hash does not match the "
+                    "state tree root (pre-state-tree home?)"
+                )
+
+    def _save(self) -> None:
+        tmp = self.db_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(
+                {
+                    "height": self.height,
+                    "app_hash": self.app_hash.hex(),
+                    "state": {k: v.hex() for k, v in self.state.items()},
+                    "validators": self.validators,
+                },
+                f,
+            )
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, self.db_path)
+
+    # -- validator updates -------------------------------------------------
+
+    def init_chain(self, validators: list[ABCIValidator]) -> None:
+        for v in validators:
+            self.validators[v.pub_key_json[1]] = v.power
+
+    def begin_block(self, block_hash: bytes, header: Header) -> None:
+        self.val_diffs = []
+
+    def check_tx(self, tx: bytes) -> ResponseCheckTx:
+        if tx.startswith(VAL_TX_PREFIX):
+            err = self._parse_val_tx(tx) is None
+            if err:
+                return ResponseCheckTx(code=CODE_UNAUTHORIZED, log="bad val tx")
+        return ResponseCheckTx(code=CODE_OK, priority=tx_priority_hint(tx))
+
+    def _parse_val_tx(self, tx: bytes):
+        try:
+            body = tx[len(VAL_TX_PREFIX) :].decode()
+            pubkey_hex, power_s = body.split("/")
+            bytes.fromhex(pubkey_hex)
+            return pubkey_hex.upper(), int(power_s)
+        except (ValueError, IndexError):
+            return None
+
+    def _shardable_op(self, tx: bytes):
+        # validator txs mutate the registry + val_diffs (order-sensitive
+        # among themselves): excluded from the kv fold, applied in tx
+        # order during the merge via deliver_tx
+        if tx.startswith(VAL_TX_PREFIX):
+            return None
+        return super()._shardable_op(tx)
+
+    def deliver_tx(self, tx: bytes) -> ResponseDeliverTx:
+        if tx.startswith(VAL_TX_PREFIX):
+            parsed = self._parse_val_tx(tx)
+            if parsed is None:
+                return ResponseDeliverTx(code=CODE_UNAUTHORIZED, log="bad val tx")
+            pubkey_hex, power = parsed
+            if power == 0:
+                self.validators.pop(pubkey_hex, None)
+            else:
+                self.validators[pubkey_hex] = power
+            from tendermint_tpu_torch.crypto.keys import TYPE_ED25519
+
+            self.val_diffs.append(ABCIValidator([TYPE_ED25519, pubkey_hex], power))
+            return ResponseDeliverTx(code=CODE_OK)
+        return super().deliver_tx(tx)
+
+    def end_block(self, height: int) -> ResponseEndBlock:
+        return ResponseEndBlock(diffs=list(self.val_diffs))
+
+    def commit(self) -> ResponseCommit:
+        res = super().commit()
+        self._save()
+        return res
+
+    # -- state-sync hooks: the persistent variant also carries its
+    # validator registry, and a restore lands on disk immediately so a
+    # restart handshakes at the snapshot height instead of replaying a
+    # chain whose pre-snapshot blocks the restored node never had ------
+
+    def snapshot(self) -> bytes | None:
+        obj = json.loads(super().snapshot())
+        obj["validators"] = self.validators
+        return json.dumps(obj, sort_keys=True).encode()
+
+    def snapshot_aux(self) -> dict | None:
+        """App-private sidecar state a DELTA snapshot must carry beyond
+        the tree diff (the registry is not part of the kv commitment).
+        The restorer cross-checks it against the header-verified
+        validator set before restore_delta applies it."""
+        return {"validators": dict(self.validators)}
+
+    @staticmethod
+    def _check_validators_obj(validators) -> None:
+        if not isinstance(validators, dict):
+            raise ValueError("snapshot validators must be an object")
+        for k, power in validators.items():
+            if not isinstance(power, int) or isinstance(power, bool) or power < 1:
+                raise ValueError(f"bad validator power {power!r}")
+            try:
+                bytes.fromhex(k)
+            except (TypeError, ValueError):
+                raise ValueError("bad validator pubkey in snapshot")
+
+    def restore(
+        self, data: bytes, height: int | None = None, app_hash: bytes | None = None
+    ) -> None:
+        obj = json.loads(data)
+        if not isinstance(obj, dict):
+            raise ValueError("snapshot app state must be an object")
+        validators = obj.get("validators", {})
+        self._check_validators_obj(validators)
+        super().restore(data, height=height, app_hash=app_hash)
+        self.validators = validators
+        self._save()
+
+    def restore_delta(
+        self,
+        upserts: dict[bytes, bytes],
+        deletes: list[bytes],
+        height: int,
+        app_hash: bytes,
+        aux: dict | None = None,
+    ) -> None:
+        validators = None
+        if aux is not None:
+            if not isinstance(aux, dict):
+                raise ValueError("bad delta aux")
+            validators = aux.get("validators")
+            if validators is not None:
+                self._check_validators_obj(validators)
+        super().restore_delta(upserts, deletes, height, app_hash, aux=aux)
+        if validators is not None:
+            self.validators = validators
+        self._save()

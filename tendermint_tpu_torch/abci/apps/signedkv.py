@@ -1,0 +1,116 @@
+"""Signed KVStore: the sig-carrying demo app behind mempool batch
+signature pre-verification (BASELINE config 5).
+
+Tx format: `pubkey(32) || sig(64) || payload` where payload is the
+kvstore's "key=value" and sig is Ed25519 over the payload. The reference
+has no such app — its mempool sends every tx straight to the app, which
+would verify one signature at a time on CPU (mempool/mempool.go:166-205).
+Here the app publishes `tx_sig_parser`, the node wires the mempool's
+SigBatcher to it (node/node.py), and a CheckTx burst's signatures verify
+in ONE gateway batch (B1 on the card when wide) before any app dispatch.
+
+DeliverTx ALWAYS verifies: blocks arrive from peers whose mempool this
+node never saw, so consensus-path txs cannot trust pre-verification.
+CheckTx verifies only when `verify_in_app` (i.e. when no mempool
+pre-verification is wired) — otherwise the signature work would be done
+twice and the batch win measured away.
+"""
+
+from __future__ import annotations
+
+from tendermint_tpu_torch.abci.types import (
+    CODE_UNAUTHORIZED,
+    ResponseCheckTx,
+    ResponseDeliverTx,
+)
+from tendermint_tpu_torch.abci.apps.kvstore import KVStoreApp, tx_priority_hint
+
+SIG_TX_OVERHEAD = 96  # pubkey(32) + sig(64)
+
+
+def parse_sig_tx(tx: bytes):
+    """(pubkey, payload, signature) — the gateway's Item order — or None
+    for a tx too short to carry the envelope (rejected in CheckTx)."""
+    if len(tx) <= SIG_TX_OVERHEAD:
+        return None
+    return (tx[:32], tx[SIG_TX_OVERHEAD:], tx[32:SIG_TX_OVERHEAD])
+
+
+def make_sig_tx(seed: bytes, payload: bytes) -> bytes:
+    """Signed tx from a 32-byte Ed25519 seed (test/bench helper)."""
+    from tendermint_tpu_torch.crypto import ed25519 as ed
+
+    return ed.public_key(seed) + ed.sign(seed, payload) + payload
+
+
+class SignedKVStoreApp(KVStoreApp):
+    tx_sig_parser = staticmethod(parse_sig_tx)
+
+    def __init__(self, verify_in_app: bool = True):
+        super().__init__()
+        self.verify_in_app = verify_in_app
+        self.check_tx_calls = 0  # observable by tests/benches
+        # the whole-block DeliverTx batch verifies through this gateway
+        # Verifier (None = the process default: the card, or the device
+        # daemon when one serves; on a host with neither it raises)
+        self.deliver_verifier = None
+
+    def _verify(self, tx: bytes) -> bool:
+        item = parse_sig_tx(tx)
+        if item is None:
+            return False
+        from tendermint_tpu_torch.crypto import ed25519 as ed
+
+        pub, payload, sig = item
+        return ed.verify(pub, payload, sig)
+
+    def check_tx(self, tx: bytes) -> ResponseCheckTx:
+        self.check_tx_calls += 1
+        if parse_sig_tx(tx) is None:
+            return ResponseCheckTx(code=CODE_UNAUTHORIZED, log="malformed signed tx")
+        if self.verify_in_app and not self._verify(tx):
+            return ResponseCheckTx(code=CODE_UNAUTHORIZED, log="invalid signature")
+        # lane hint rides the inner payload: a signed "pri:..." kv tx
+        # lands in the priority lane just like its unsigned counterpart
+        return ResponseCheckTx(priority=tx_priority_hint(tx[SIG_TX_OVERHEAD:]))
+
+    def deliver_tx(self, tx: bytes) -> ResponseDeliverTx:
+        if not self._verify(tx):
+            return ResponseDeliverTx(code=CODE_UNAUTHORIZED, log="invalid signature")
+        return super().deliver_tx(tx[SIG_TX_OVERHEAD:])
+
+    def deliver_txs(self, txs: list[bytes]) -> list[ResponseDeliverTx]:
+        """Whole-block DeliverTx: the block's signatures verify in
+        ONE gateway batch (B1 on the card — off the
+        per-tx pure-Python path, and GIL-releasing so a pipelined apply
+        genuinely overlaps the next height's consensus work), then the
+        surviving payloads ride the kvstore fold (sharded when armed).
+        Verdicts and responses are identical to the per-tx loop."""
+        if len(txs) < 2:
+            return [self.deliver_tx(tx) for tx in txs]
+        from tendermint_tpu_torch.ops import gateway
+
+        verifier = self.deliver_verifier or gateway.default_verifier()
+        items = [parse_sig_tx(tx) for tx in txs]
+        idx = [i for i, it in enumerate(items) if it is not None]
+        verdicts = verifier.verify_batch([items[i] for i in idx]) if idx else []
+        ok = {i: bool(v) for i, v in zip(idx, verdicts)}
+        responses: list[ResponseDeliverTx | None] = [None] * len(txs)
+        payloads = []
+        for i, tx in enumerate(txs):
+            if ok.get(i):
+                payloads.append(tx[SIG_TX_OVERHEAD:])
+            else:
+                responses[i] = ResponseDeliverTx(
+                    code=CODE_UNAUTHORIZED, log="invalid signature"
+                )
+        # the payloads are already verified + stripped: the fold's per-tx
+        # fallback must apply them as PLAIN kv bytes, not re-enter this
+        # class's signed deliver_tx (which would reject them all)
+        payload_res = iter(super().deliver_txs(
+            payloads, deliver_one=lambda t: KVStoreApp.deliver_tx(self, t)
+        ))
+        for i in range(len(txs)):
+            if responses[i] is None:
+                responses[i] = next(payload_res)
+        return responses

@@ -1,0 +1,519 @@
+"""Versioned authenticated key/value tree: a persistent merkleized treap.
+
+Structure (proof side + hash domains: merkle/statetree_proof.py): every
+node holds one key/value entry; BST order on raw key bytes, max-heap
+order on `key_priority(key)` — a hash of the key, so the tree SHAPE is a
+pure function of the key set. That canonical-shape property is what lets
+a node restored from a snapshot's sorted map, a node that applied a
+delta chain, and a node that replayed every tx from genesis land on
+byte-identical roots (the consensus requirement an insertion-order-
+dependent AVL/IAVL shape would break without a separate tree-import
+protocol).
+
+Persistence is copy-on-write path copying: mutating ops copy the
+O(log n) nodes on the search path (plus rotation/merge spines) and share
+everything else, so `commit(version)` pins an immutable root per
+committed height at O(changes) extra memory. Committed nodes are never
+mutated; a node is "dirty" exactly while its `hash` is None.
+
+Hashing at commit is batched: dirty nodes are grouped into child-first
+waves and each wave's preimages go through ONE `Hasher.part_leaf_hashes`
+call (K1 on the card, or the device daemon's hash stream when one
+serves — ops.gateway routing). A bulk load (snapshot restore) is a
+single O(n) Cartesian-tree build whose n node hashes ride the same
+waves: the widest batches of K1 work a node issues.
+
+Thread safety: one RLock around every public op — reads included, since
+the RPC query path proves against versions the consensus thread is
+concurrently committing/pruning.
+"""
+
+from __future__ import annotations
+
+import threading
+
+from tendermint_tpu_torch.codec.binary import encode_bytes
+from tendermint_tpu_torch.crypto.hashing import ripemd160
+from tendermint_tpu_torch.libs.envknob import env_number
+from tendermint_tpu_torch.merkle.statetree_proof import (
+    EMPTY_HASH,
+    ProofStep,
+    TreeProof,
+    key_priority,
+)
+
+_LEAF_PREFIX = b"\x00"
+_NODE_PREFIX = b"\x01"
+
+# below this many preimages a wave hashes on the CPU: the gateway call's
+# fixed dispatch overhead loses on narrow waves (same spirit as the
+# Hasher's own min-batch floor)
+_GATEWAY_WAVE_MIN = 32
+
+DEFAULT_KEEP_VERSIONS = 64
+
+
+class _Node:
+    __slots__ = ("key", "value", "prio", "left", "right", "vh", "hash")
+
+    def __init__(self, key: bytes, value: bytes, prio: bytes, left, right,
+                 vh: bytes | None = None):
+        self.key = key
+        self.value = value
+        self.prio = prio
+        self.left = left
+        self.right = right
+        self.vh = vh  # ripemd160 of the value, leaf domain
+        self.hash: bytes | None = None  # None == dirty (uncommitted)
+
+
+def _copy(node: _Node) -> _Node:
+    """A dirty copy sharing the children (and the value hash — the value
+    is unchanged when only the shape around a node moves)."""
+    return _Node(node.key, node.value, node.prio, node.left, node.right,
+                 vh=node.vh)
+
+
+class TreeError(Exception):
+    pass
+
+
+class VersionedTree:
+    def __init__(self, hasher=None, keep_recent: int | None = None):
+        self.hasher = hasher
+        if keep_recent is None:
+            keep_recent = int(env_number(
+                "TENDERMINT_STATETREE_KEEP_VERSIONS", DEFAULT_KEEP_VERSIONS,
+                cast=int,
+            ))
+        self.keep_recent = max(int(keep_recent), 1)
+        self._mtx = threading.RLock()
+        self._root: _Node | None = None
+        self._size = 0
+        self._versions: dict[int, _Node | None] = {}
+        self._version_order: list[int] = []  # ascending
+        self._version_sizes: dict[int, int] = {}
+        # per-commit changed-key journal: diff(v0, v1) folds these — the
+        # exact O(changes) record a delta snapshot needs, with no tree
+        # walk at all
+        self._journal: dict[int, frozenset[bytes]] = {}
+        self._pending: set[bytes] = set()
+        # gauges (statetree_* via node/telemetry.py)
+        self._stats = {
+            "commits": 0, "sets": 0, "deletes": 0,
+            "nodes_created": 0, "hashed_nodes": 0, "hash_waves": 0,
+            "gateway_nodes": 0, "proofs": 0,
+            "last_commit_nodes": 0, "bulk_loads": 0,
+        }
+
+    # -- reads ---------------------------------------------------------------
+
+    @property
+    def size(self) -> int:
+        with self._mtx:
+            return self._size
+
+    def versions(self) -> list[int]:
+        with self._mtx:
+            return list(self._version_order)
+
+    def latest_version(self) -> int | None:
+        with self._mtx:
+            return self._version_order[-1] if self._version_order else None
+
+    def has_version(self, version: int) -> bool:
+        with self._mtx:
+            return version in self._versions
+
+    def _resolve_root(self, version: int | None) -> _Node | None:
+        if version is None:
+            return self._root
+        if version not in self._versions:
+            raise TreeError(f"version {version} not retained")
+        return self._versions[version]
+
+    def get(self, key: bytes, version: int | None = None) -> bytes | None:
+        with self._mtx:
+            node = self._resolve_root(version)
+            while node is not None:
+                if key == node.key:
+                    return node.value
+                node = node.left if key < node.key else node.right
+            return None
+
+    def entries(self, version: int | None = None) -> list[tuple[bytes, bytes]]:
+        """All (key, value) pairs in sorted key order (iterative inorder)."""
+        with self._mtx:
+            out: list[tuple[bytes, bytes]] = []
+            stack: list[_Node] = []
+            node = self._resolve_root(version)
+            while stack or node is not None:
+                while node is not None:
+                    stack.append(node)
+                    node = node.left
+                node = stack.pop()
+                out.append((node.key, node.value))
+                node = node.right
+            return out
+
+    def root_hash(self, version: int | None = None) -> bytes:
+        """The committed root at `version` (latest committed when None).
+        Raises on an uncommitted/unretained version — the working root's
+        hash does not exist until commit()."""
+        with self._mtx:
+            if version is None:
+                version = self.latest_version()
+                if version is None:
+                    return EMPTY_HASH
+            root = self._resolve_root(version)
+            if root is None:
+                return EMPTY_HASH
+            if root.hash is None:  # pragma: no cover - commit() always hashes
+                raise TreeError(f"version {version} root is unhashed")
+            return root.hash
+
+    # -- writes (staging; visible at the next commit) ------------------------
+
+    def set(self, key: bytes, value: bytes, prio: bytes | None = None) -> None:
+        """`prio`, when given, MUST equal key_priority(key) — it lets a
+        batch caller (the sharded kvstore apply) precompute the
+        priorities through the gateway's batched RIPEMD plane instead of
+        one hashlib call per new key; the shape (and therefore the root)
+        is byte-identical by construction."""
+        if not isinstance(key, bytes) or not isinstance(value, bytes):
+            raise TypeError("tree keys and values are bytes")
+        with self._mtx:
+            self._stats["sets"] += 1
+            self._pending.add(key)
+            self._root = self._insert(self._root, key, value, prio=prio)
+
+    def delete(self, key: bytes) -> bool:
+        with self._mtx:
+            if self.get(key) is None:
+                return False
+            self._stats["deletes"] += 1
+            self._pending.add(key)
+            self._root = self._remove(self._root, key)
+            self._size -= 1
+            return True
+
+    def _new_node(self, key, value, prio, left, right, vh=None) -> _Node:
+        self._stats["nodes_created"] += 1
+        return _Node(key, value, prio, left, right, vh=vh)
+
+    def _dirty_copy(self, node: _Node) -> _Node:
+        self._stats["nodes_created"] += 1
+        return _copy(node)
+
+    def _insert(self, root: _Node | None, key: bytes, value: bytes,
+                prio: bytes | None = None) -> _Node:
+        # iterative COW descent: copy every node on the search path
+        path: list[tuple[_Node, int]] = []  # (fresh copy, side taken: 0/1)
+        node = root
+        while node is not None and node.key != key:
+            c = self._dirty_copy(node)
+            side = 0 if key < node.key else 1
+            path.append((c, side))
+            node = node.left if side == 0 else node.right
+        if node is not None:
+            # value replacement: same key, same priority, same shape
+            cur = self._new_node(key, value, node.prio, node.left, node.right)
+        else:
+            cur = self._new_node(
+                key, value,
+                prio if prio is not None else key_priority(key),
+                None, None,
+            )
+            self._size += 1
+        # link upward; a NEW node bubbles up by rotation while its
+        # priority beats its parent's (treap heap repair)
+        while path:
+            parent, side = path.pop()
+            if side == 0:
+                parent.left = cur
+            else:
+                parent.right = cur
+            if cur.prio > parent.prio:
+                # rotate cur above parent (both are fresh copies)
+                if side == 0:
+                    parent.left = cur.right
+                    cur.right = parent
+                else:
+                    parent.right = cur.left
+                    cur.left = parent
+            else:
+                cur = parent
+                while path:  # heap order holds above; just link
+                    parent, side = path.pop()
+                    if side == 0:
+                        parent.left = cur
+                    else:
+                        parent.right = cur
+                    cur = parent
+                break
+        return cur
+
+    def _remove(self, root: _Node, key: bytes) -> _Node | None:
+        path: list[tuple[_Node, int]] = []
+        node = root
+        while node.key != key:
+            c = self._dirty_copy(node)
+            side = 0 if key < node.key else 1
+            path.append((c, side))
+            node = node.left if side == 0 else node.right
+        cur = self._merge(node.left, node.right)
+        while path:
+            parent, side = path.pop()
+            if side == 0:
+                parent.left = cur
+            else:
+                parent.right = cur
+            cur = parent
+        return cur
+
+    def _merge(self, a: _Node | None, b: _Node | None) -> _Node | None:
+        """Join two treaps where every key in `a` < every key in `b`,
+        copying only the merge spine."""
+        root: _Node | None = None
+        attach: tuple[_Node, int] | None = None
+        while True:
+            if a is None or b is None:
+                res = a if b is None else b
+                break
+            if a.prio > b.prio:
+                c = self._dirty_copy(a)
+                a = a.right
+                side = 1
+            else:
+                c = self._dirty_copy(b)
+                b = b.left
+                side = 0
+            if attach is None:
+                root = c
+            else:
+                parent, pside = attach
+                if pside == 0:
+                    parent.left = c
+                else:
+                    parent.right = c
+            attach = (c, side)
+        if attach is None:
+            return res
+        parent, pside = attach
+        if pside == 0:
+            parent.left = res
+        else:
+            parent.right = res
+        return root
+
+    # -- bulk load -----------------------------------------------------------
+
+    def load_entries(self, entries: dict[bytes, bytes] | list) -> None:
+        """Replace the working tree wholesale with `entries` (snapshot
+        restore). O(n) Cartesian-tree construction over the sorted keys;
+        the resulting shape is identical to n incremental inserts in any
+        order (canonical-shape property — tested against the oracle)."""
+        items = sorted(entries.items() if isinstance(entries, dict) else entries)
+        with self._mtx:
+            self._stats["bulk_loads"] += 1
+            spine: list[_Node] = []  # right spine, priorities decreasing
+            root: _Node | None = None
+            for key, value in items:
+                n = self._new_node(key, value, key_priority(key), None, None)
+                last_popped: _Node | None = None
+                while spine and spine[-1].prio < n.prio:
+                    last_popped = spine.pop()
+                n.left = last_popped
+                if spine:
+                    spine[-1].right = n
+                else:
+                    root = n
+                spine.append(n)
+            self._root = root
+            self._size = len(items)
+            self._pending = {k for k, _ in items}
+
+    @classmethod
+    def from_entries(cls, entries, version: int, hasher=None,
+                     keep_recent: int | None = None) -> "VersionedTree":
+        t = cls(hasher=hasher, keep_recent=keep_recent)
+        t.load_entries(entries)
+        t.commit(version)
+        return t
+
+    # -- commit / versions ---------------------------------------------------
+
+    def commit(self, version: int) -> bytes:
+        """Hash every dirty node (batched waves through the gateway when
+        wired), pin the working root as `version`, and return the root
+        hash (EMPTY_HASH for an empty tree). Versions must strictly
+        increase; retention drops the oldest beyond keep_recent."""
+        with self._mtx:
+            last = self.latest_version()
+            if last is not None and version <= last:
+                raise TreeError(
+                    f"commit version {version} <= latest {last}"
+                )
+            n_hashed = self._hash_dirty(self._root)
+            self._versions[version] = self._root
+            self._version_order.append(version)
+            self._version_sizes[version] = self._size
+            self._journal[version] = frozenset(self._pending)
+            self._pending = set()
+            self._stats["commits"] += 1
+            self._stats["last_commit_nodes"] = n_hashed
+            while len(self._version_order) > self.keep_recent:
+                old = self._version_order.pop(0)
+                self._versions.pop(old, None)
+                self._version_sizes.pop(old, None)
+                self._journal.pop(old, None)
+            root = self._versions[version]
+            return root.hash if root is not None else EMPTY_HASH
+
+    def rollback_to(self, version: int | None = None) -> None:
+        """Discard uncommitted staging AND any versions newer than
+        `version` (latest remaining when None) — the failed-delta-apply
+        escape hatch: a delta whose recomputed root contradicts the
+        verified app hash must leave the tree exactly at its base."""
+        with self._mtx:
+            if version is not None:
+                while self._version_order and self._version_order[-1] > version:
+                    v = self._version_order.pop()
+                    self._versions.pop(v, None)
+                    self._version_sizes.pop(v, None)
+                    self._journal.pop(v, None)
+            last = self.latest_version()
+            self._root = self._versions[last] if last is not None else None
+            self._size = self._version_sizes.get(last, 0) if last is not None else 0
+            self._pending = set()
+
+    def _hash_dirty(self, root: _Node | None) -> int:
+        if root is None or root.hash is not None:
+            return 0
+        # dirty nodes are upward-closed (path copying), so a preorder
+        # walk that only descends into dirty children finds them all;
+        # reversed preorder puts every descendant before its ancestor
+        dirty: list[_Node] = []
+        stack = [root]
+        while stack:
+            n = stack.pop()
+            dirty.append(n)
+            for c in (n.left, n.right):
+                if c is not None and c.hash is None:
+                    stack.append(c)
+        wave_of: dict[int, int] = {}
+        waves: list[list[_Node]] = []
+        need_vh: list[_Node] = []
+        for n in reversed(dirty):
+            w = 0
+            for c in (n.left, n.right):
+                if c is not None and c.hash is None:
+                    w = max(w, wave_of[id(c)] + 1)
+            wave_of[id(n)] = w
+            while len(waves) <= w:
+                waves.append([])
+            waves[w].append(n)
+            if n.vh is None:
+                need_vh.append(n)
+        # wave -1: the value hashes (one batch for every new value)
+        if need_vh:
+            digests = self._hash_batch(
+                [_LEAF_PREFIX + encode_bytes(n.value) for n in need_vh]
+            )
+            for n, d in zip(need_vh, digests):
+                n.vh = d
+        # child-first node waves: within a wave no node depends on
+        # another, so each wave is one gateway batch
+        for wave in waves:
+            pre = [
+                _NODE_PREFIX
+                + encode_bytes(n.key)
+                + encode_bytes(n.vh)
+                + encode_bytes(n.left.hash if n.left is not None else EMPTY_HASH)
+                + encode_bytes(n.right.hash if n.right is not None else EMPTY_HASH)
+                for n in wave
+            ]
+            for n, d in zip(wave, self._hash_batch(pre)):
+                n.hash = d
+        self._stats["hashed_nodes"] += len(dirty)
+        self._stats["hash_waves"] += len(waves) + (1 if need_vh else 0)
+        return len(dirty)
+
+    def _hash_batch(self, preimages: list[bytes]) -> list[bytes]:
+        if self.hasher is not None and len(preimages) >= _GATEWAY_WAVE_MIN:
+            self._stats["gateway_nodes"] += len(preimages)
+            # part_leaf_hashes = batched raw RIPEMD-160 (K1 on the card,
+            # or the device daemon's hash stream)
+            return self.hasher.part_leaf_hashes(preimages)
+        return [ripemd160(p) for p in preimages]
+
+    # -- diffs (delta snapshots) ---------------------------------------------
+
+    def diff(self, v0: int, v1: int) -> tuple[dict[bytes, bytes], list[bytes]]:
+        """(upserts, deletes) taking version v0's tree to v1's, folded
+        from the commit journals — exact and O(changed log n). Raises
+        TreeError when either version (or any journal between) was
+        pruned; callers (the snapshot producer) fall back to a full
+        snapshot."""
+        with self._mtx:
+            if v0 not in self._versions or v1 not in self._versions:
+                raise TreeError(f"diff versions {v0}..{v1} not retained")
+            if not v0 < v1:
+                raise TreeError(f"diff needs v0 < v1, got {v0}..{v1}")
+            changed: set[bytes] = set()
+            for v in self._version_order:
+                if v0 < v <= v1:
+                    changed.update(self._journal[v])
+            upserts: dict[bytes, bytes] = {}
+            deletes: list[bytes] = []
+            for k in sorted(changed):
+                new = self.get(k, v1)
+                old = self.get(k, v0)
+                if new is None:
+                    if old is not None:
+                        deletes.append(k)
+                elif new != old:
+                    upserts[k] = new
+            return upserts, deletes
+
+    # -- proofs --------------------------------------------------------------
+
+    def prove(self, key: bytes, version: int | None = None) -> TreeProof:
+        """Membership (key present) or absence proof against the
+        committed root at `version` (latest when None). Raises TreeError
+        for unretained versions."""
+        with self._mtx:
+            if version is None:
+                version = self.latest_version()
+                if version is None:
+                    return TreeProof(key, None, [])
+            node = self._resolve_root(version)
+            path: list[_Node] = []
+            value: bytes | None = None
+            while node is not None:
+                path.append(node)
+                if key == node.key:
+                    value = node.value
+                    break
+                node = node.left if key < node.key else node.right
+            steps = [
+                ProofStep(
+                    n.key, n.vh,
+                    n.left.hash if n.left is not None else EMPTY_HASH,
+                    n.right.hash if n.right is not None else EMPTY_HASH,
+                )
+                for n in reversed(path)
+            ]
+            self._stats["proofs"] += 1
+            return TreeProof(key, value, steps)
+
+    # -- observability -------------------------------------------------------
+
+    def stats(self) -> dict:
+        with self._mtx:
+            out = dict(self._stats)
+            out["size"] = self._size
+            out["versions_retained"] = len(self._version_order)
+            last = self.latest_version()
+            out["latest_version"] = last if last is not None else 0
+            return out

@@ -1,3 +1,4 @@
-"""The types a commit verification needs: BlockID, Vote, Validator, Commit,
-AggregateCommit, ValidatorSet and VoteSet. Block, Header and PartSet come
-with a later slice of the port."""
+"""The types a commit verification and a block build need: BlockID, Vote,
+Validator, Commit, AggregateCommit, ValidatorSet, VoteSet, Block, Header
+and PartSet, and the ABCI bridge of validators and headers
+(`types.protobuf`)."""

@@ -250,6 +250,15 @@ def test_stalled_daemon_hits_stream_budget_not_io_timeout(chaos_env, sock_dir, m
     try:
         client = devd.DevdClient(chaos_env)
         assert client.stream_timeout == 0.5
+        items = _items(32)
+        # warm the daemon's stream path (its first stream imports the chunk
+        # decoder's numpy, ~0.3 s idle and more than the 0.5 s budget on a
+        # loaded host) through the proxy on a client with a long budget, so
+        # the daemon's first-stream cost cannot spend the budget with no
+        # frame relayed and the stall never firing
+        warm = devd.DevdClient(chaos_env, stream_timeout=30.0)
+        assert warm.verify_stream(items, chunk=8) == [True] * 32
+        warm.close()
         # warm the relay (the proxy's accept and its upstream dial) before
         # the stall is armed, so a slow first accept cannot spend the budget
         # with no frame relayed; the rule fires from the first frame after
@@ -257,7 +266,7 @@ def test_stalled_daemon_hits_stream_budget_not_io_timeout(chaos_env, sock_dir, m
         plan.add("stall", "s2c", first=1, every=1, limit=1 << 30, stall_s=5.0)
         t0 = time.monotonic()
         with pytest.raises(Exception):
-            client.verify_stream(_items(32), chunk=8)
+            client.verify_stream(items, chunk=8)
         elapsed = time.monotonic() - t0
         assert elapsed < 8.0, f"stalled read took {elapsed:.1f}s to surface"
         assert plan.stats()["faults_stall"] >= 1

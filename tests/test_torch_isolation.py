@@ -41,6 +41,30 @@ def test_no_jax_or_jax_package_import(path):
         assert top != "tendermint_tpu", f"{path}: imports {mod}"
 
 
+def _module_level_imports(path: pathlib.Path):
+    """Imports that run when the module is imported: every import outside
+    a function body."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+        stack.extend(ast.iter_child_nodes(node))
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_grpc_only_inside_functions(path):
+    """The card's machine has no grpc: a port module asks for it only in
+    the function that needs it, never at import."""
+    for mod in _module_level_imports(path):
+        assert mod.split(".")[0] != "grpc", f"{path}: imports {mod} at module level"
+
+
 def test_every_module_imports_with_jax_blocked():
     """A fresh interpreter where `import jax` fails imports every port
     module and chip_smoke."""
@@ -49,6 +73,7 @@ def test_every_module_imports_with_jax_blocked():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['tendermint_tpu'] = None\n"
+        "sys.modules['grpc'] = None\n"
         f"import importlib\nfor n in {names!r}:\n    importlib.import_module(n)\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
         "print('ok', len(" + repr(names) + "))\n"
