@@ -223,6 +223,40 @@ Phases, in order; any failure raises and exits non-zero:
    widths), and K1's device time on the widest wave of a restore and of a
    commit beside hashlib on the same preimages.
 
+27. The execution path, in process (no daemon socket; the default
+   `Verifier` and `Hasher` must take the local route on the card): phase
+   3's 100 validators in a genesis with `upgrade_height` 3 to aggregate
+   commits, wired by hand as node/node.py wires a node in a temp directory
+   (sqlite `state`, `blockstore` and `tx_index`, `State.get_state` with a
+   `KVTxIndexer`, a `SignedKVStoreApp` on 4 shards behind `AppConns`
+   hashing through `default_hasher()`, a `Mempool` with a WAL gated by
+   `SigBatcher(default_verifier(), parse_sig_tx)`), beside the same chain
+   on the host reference (`host_hasher()`, a `Verifier` whose gate sends
+   every lane to the native CPU floor, the default verifier around its
+   aggregate height). Three heights: 10,010 signed txs (10 forged)
+   through `check_tx`, drained; `reap(10_000)`; the block built as
+   consensus builds it (`make_block_with`, the LastCommit full at height 2
+   and aggregate at 3); `apply_block` with `commit_batch_verifier()`;
+   the height's 100 precommits signed and `save_block`. Exactly the
+   forged txs refused at the gate and none of them at the app; block
+   bytes, part-set header, state bytes, app hash, deliver responses,
+   store records and 64 sampled tx-index entries equal to the
+   reference's, and the mempool WALs too; a forged precommit in block 2's
+   LastCommit and a dropped signer in block 3's refused. Launches: B1 once
+   a gate batch of 32 or more (`tpu_sigs` / `cpu_sigs` from the recorded
+   batch sizes), once for block 2's LastCommit and once a deliver; dsm
+   once, for block 3's 101-lane aggregate; K1 2 and K3 2 a block built,
+   K1 once a wave the app hands its Hasher; the reference none. Then the
+   sqlite files reopen to the same state and blocks, and a fresh card
+   app replays the stored blocks through `exec_commit_block` to the same
+   app hashes.
+28. Times, warm best of 3, card and host in turns on fresh chains (a
+   fresh `Hasher` each card run), each height after a full collection of
+   the heap: the burst (first check_tx to drained, and the gate thread's
+   seconds in the verifier), `make_block`, `validate_block`, `apply_block`
+   split into the deliver, the app commit and the state save with
+   indexing, and `save_block`.
+
 Each path's launch counts are set to 0 just before it and read just after
 (the daemons', in phases 21 and 23, read from their logs before and after).
 The last lines are the kernels' JSON summary, the card line, and
@@ -237,9 +271,11 @@ import hashlib
 import json
 import multiprocessing
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -346,6 +382,22 @@ APP_REF_GATE = 10_001  # the reference Verifier's size gate: a block's lanes on 
 APP_MIN_GATEWAY = 0.96  # a card restore's K1 leaves, at least this share of the state's keys
 # phase 25's launches beside B1's and K1's entries in the kernels line
 APP_LAUNCH_KEYS = {"ed25519_verify": "b1", "ripemd160": "ripemd160"}
+# phases 27-28, the exec_chain cell: phase 3's 100-validator set (BASELINE.json's
+# VerifyCommit size, the Cosmos Hub's launch max_validators) with an upgrade to
+# aggregate commits at height 3 (docs/upgrade.md), and bursts of types/params.py's
+# max_txs of 10,000 signed kv txs and 10 forged ones a height
+EXEC_HEIGHTS = 3
+EXEC_UPGRADE_HEIGHT = 3  # block 2 carries a full LastCommit, block 3 an aggregate one
+EXEC_FIRST_BLOCK = (("new", 10_000), ("forged", 10))
+EXEC_BLOCK = (("update", 7_000), ("new", 3_000), ("forged", 10))
+EXEC_VALUE_BYTES = 64
+EXEC_SIGNERS = 64
+EXEC_INDEX_SAMPLE = 64  # txs whose tx-index entries are compared each height
+EXEC_TIME_RUNS = 3  # phase 28: warm best of 3
+EXEC_DRAIN_S = 300.0  # the bound on a burst's drain
+# phase 27's launches beside the kernels' entries in the kernels line
+EXEC_LAUNCH_KEYS = {"ed25519_verify": "b1", "ed25519_dsm": "dsm", "ripemd160": "ripemd160",
+                    "merkle_tree": "merkle_tree"}
 # phase 21's daemon launches beside each kernel's entry in the kernels line
 DEVD_LAUNCH_KEYS = {"ed25519_verify": "b1", "ed25519_comb": "comb", "ed25519_comb_tables": "tables",
                     "ed25519_dsm": "dsm", "ripemd160": "ripemd160", "merkle_tree": "merkle_tree"}
@@ -729,10 +781,14 @@ def main() -> int:
         bid400, c400 = make_commit(pool, vs400, seed_of, 1, b"c400")
         t_app = time.perf_counter()
         app_inputs = make_app_inputs(pool, np.random.default_rng(SEED + 25))
+        app_inputs_s = time.perf_counter() - t_app
+        t_exec = time.perf_counter()
+        exec_inputs = make_exec_inputs(pool, np.random.default_rng(SEED + 27))
     log({"phase": "setup", "keys": n_keys,
          "signatures": MIXED_LANES + n_small + 4 * n_mid + n_keys + AGG_SIZES[1],
          "app_state_keys": APP_STATE_KEYS, "app_signed_txs": sum(len(b["txs"]) for b in app_inputs["blocks"]),
-         "app_inputs_s": time.perf_counter() - t_app, "seconds": time.perf_counter() - t0})
+         "app_inputs_s": app_inputs_s, "exec_signed_txs": sum(len(b["txs"]) for b in exec_inputs),
+         "exec_inputs_s": time.perf_counter() - t_exec, "seconds": time.perf_counter() - t0})
 
     # -- phase 2: kernel vs plain version on the card ---------------------------
     group_items = [it for bid, c, h in group for it in recorded_items(vs1000, h, bid, c)]
@@ -921,6 +977,12 @@ def main() -> int:
     app_launches = app_ctx["launches"]
     del app_ctx, app_inputs
 
+    # -- phases 27 and 28: the execution path --------------------------------------
+    exec_ctx = exec_phase(name, power, vs100, seed_of, exec_inputs)
+    exec_time(name, power, exec_ctx)
+    exec_launches = exec_ctx["launches"]
+    del exec_ctx, exec_inputs
+
     entries = []
     for kname, module, launches, err, ms, p_ms, lanes in (
             ("ed25519_verify", f32p, main_launches, max_err, kernel_ms[MIXED_LANES], plain_ms,
@@ -968,6 +1030,8 @@ def main() -> int:
             entry["fleet_launches"] = fleet_launches[DEVD_LAUNCH_KEYS[entry["name"]]]
         if entry["name"] in APP_LAUNCH_KEYS:
             entry["app_launches"] = app_launches[APP_LAUNCH_KEYS[entry["name"]]]
+        if entry["name"] in EXEC_LAUNCH_KEYS:
+            entry["exec_launches"] = exec_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
     log({"kernels": entries})
     log(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2071,17 +2135,20 @@ def host_hasher():
     return h
 
 
-def make_block_with(h, txs, commit_args, part_size):
+def make_block_with(h, txs, commit_args, part_size, height=2, app_hash=APP_HASH,
+                    time_ns=BLOCK_TIME_NS):
     """Block.make_block wired to h as consensus wires its Hasher
     (consensus/state.py:944-959): the tx root through set_batch_tx_root,
-    the part set through the part hashers and the tree submitter."""
+    the part set through the part hashers and the tree submitter.
+    `commit_args` is (the height's validator set, the last block's ID,
+    the LastCommit)."""
     from tendermint_tpu_torch.types import tx as ptx
     from tendermint_tpu_torch.types.block import Block
 
     vs, bid, commit = commit_args
     ptx.set_batch_tx_root(h.tx_merkle_root)
     return Block.make_block(
-        2, CHAIN_ID, txs, commit, bid, vs.hash(), APP_HASH, part_size, time_ns=BLOCK_TIME_NS,
+        height, CHAIN_ID, txs, commit, bid, vs.hash(), app_hash, part_size, time_ns=time_ns,
         part_hasher=h.part_leaf_hashes, part_tree_hasher=h.part_set_tree,
         part_tree_submitter=h.submit_part_set_tree,
     )
@@ -3781,6 +3848,562 @@ def app_time(name, power, ctx) -> None:
                  "hasher_call_ms": 1e3 * best3(lambda: ops_merkle.part_leaf_hashes(pre, DEVICE)),
                  "hashlib_ms": 1e3 * best3(lambda: [ripemd160(p) for p in pre])})
         del app, restored
+
+
+# -- phases 27-28: the execution path ------------------------------------------------
+
+
+def make_exec_inputs(pool, rng) -> list[dict]:
+    """Phase 27's bursts, from their own generator so the earlier phases'
+    draws stay as they were: EXEC_HEIGHTS of them, the first of
+    EXEC_FIRST_BLOCK and the rest of EXEC_BLOCK, each a shuffle of new keys
+    (`exec-%07d`), updates of the earlier heights' keys and txs whose
+    signature has a flipped bit, EXEC_VALUE_BYTES random bytes a value,
+    signed by EXEC_SIGNERS keys in the pool."""
+    from tendermint_tpu_torch.crypto import ed25519 as ed
+
+    seeds = [rng.bytes(32) for _ in range(EXEC_SIGNERS)]
+    pubs = pool.map(ed.public_key, seeds)
+    live: list[bytes] = []
+    next_key = 0
+    plans = []
+    for height in range(1, EXEC_HEIGHTS + 1):
+        shape = EXEC_FIRST_BLOCK if height == 1 else EXEC_BLOCK
+        kinds = [k for k, c in shape for _ in range(c)]
+        kinds = [kinds[i] for i in rng.permutation(len(kinds))]
+        old = sum(k != "new" for k in kinds)
+        picks = iter(rng.choice(len(live), size=old, replace=False).tolist()) if live else None
+        payloads, forged, new = [], [], []
+        for pos, kind in enumerate(kinds):
+            if kind == "new" or picks is None:
+                key = b"exec-%07d" % next_key
+                next_key += 1
+                if kind == "new":
+                    new.append(key)
+            else:
+                key = live[next(picks)]
+            payloads.append(key + b"=" + rng.bytes(EXEC_VALUE_BYTES))
+            if kind == "forged":
+                forged.append(pos)
+        live += new
+        plans.append((payloads, forged, rng.integers(0, EXEC_SIGNERS, size=len(kinds)).tolist()))
+    jobs = [(seeds[s], pl) for payloads, _, signers in plans for s, pl in zip(signers, payloads)]
+    sigs = iter(pool.starmap(ed.sign, jobs, chunksize=256))
+    bursts = []
+    for payloads, forged, signers in plans:
+        bad = set(forged)
+        txs = []
+        for pos, (s, payload) in enumerate(zip(signers, payloads)):
+            sig = next(sigs)
+            if pos in bad:
+                sig = sig[:5] + bytes([sig[5] ^ 0x20]) + sig[6:]
+            txs.append(pubs[s] + sig + payload)
+        bursts.append({"txs": txs, "forged": forged})
+    return bursts
+
+
+def exec_genesis(vs):
+    """The exec_chain genesis: the validator set at its power, CHAIN_ID, the
+    default ConsensusParams, and the upgrade to aggregate commits at
+    EXEC_UPGRADE_HEIGHT."""
+    from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+
+    return GenesisDoc(
+        genesis_time_ns=BLOCK_TIME_NS, chain_id=CHAIN_ID,
+        validators=[GenesisValidator(v.pub_key, v.voting_power) for v in vs.validators],
+        upgrade_height=EXEC_UPGRADE_HEIGHT, upgrade_format="aggregate",
+    )
+
+
+def sign_commit(vs, seed_of, height: int, bid):
+    """The height's precommits for `bid`, every validator of `vs` signing:
+    the seen commit a node saves with its block, and the next block's
+    LastCommit."""
+    from tendermint_tpu_torch.crypto import ed25519 as ed
+    from tendermint_tpu_torch.crypto.keys import SignatureEd25519
+    from tendermint_tpu_torch.types.block import Commit
+    from tendermint_tpu_torch.types.vote import VOTE_TYPE_PRECOMMIT, Vote
+
+    votes = [Vote(v.address, idx, height, 0, VOTE_TYPE_PRECOMMIT, bid) for idx, v in enumerate(vs.validators)]
+    sb = votes[0].sign_bytes(CHAIN_ID)  # identical for every validator
+    return Commit(bid, [vote.with_signature(SignatureEd25519(ed.sign(seed_of[vote.validator_address], sb)))
+                        for vote in votes])
+
+
+def tampered_refusal(state, block) -> str:
+    """validate_block on a copy of `block` whose LastCommit is tampered, which
+    must raise InvalidBlockError: a forged precommit in a full commit, a
+    dropped signer (its bit and its R) in an aggregate one."""
+    from tendermint_tpu_torch.crypto.keys import SignatureEd25519
+    from tendermint_tpu_torch.state import validate_block
+    from tendermint_tpu_torch.state.execution import InvalidBlockError
+    from tendermint_tpu_torch.types.agg_commit import AggregateCommit
+    from tendermint_tpu_torch.types.block import Block
+
+    bad = Block.from_bytes(block.to_bytes())
+    lc = bad.last_commit
+    if isinstance(lc, AggregateCommit):
+        signers = lc.signers.copy()
+        signers.set_index(signers.indices()[0], False)
+        bad.last_commit = AggregateCommit(lc.block_id, lc.height(), lc.round_(), signers, lc.rs[1:], lc.s_agg)
+    else:
+        pre = lc.precommits[7]
+        raw = bytearray(pre.signature.raw)
+        raw[5] ^= 0x20
+        lc.precommits[7] = pre.with_signature(SignatureEd25519(bytes(raw)))
+        lc._hash = None
+    bad.header.last_commit_hash = bad.last_commit.hash()
+    bad.fill_header()
+    try:
+        validate_block(state, bad)
+    except InvalidBlockError as exc:
+        return str(exc)[:80]
+    raise AssertionError(f"height {block.header.height}: a tampered LastCommit was accepted")
+
+
+class batch_recorder:
+    """The gate's verifier, with the size of every batch the SigBatcher
+    hands it recorded (the gate batches by time, so its batch count varies
+    between runs), and the seconds the gate's thread spends in the
+    verifier: dispatching each batch and resolving its verdicts."""
+
+    def __init__(self, verifier):
+        self.verifier = verifier
+        self.sizes: list[int] = []
+        self.seconds = 0.0
+
+    def verify_batch_async(self, items):
+        self.sizes.append(len(items))
+        t0 = time.perf_counter()
+        resolve = self.verifier.verify_batch_async(items)
+        self.seconds += time.perf_counter() - t0
+
+        def timed_resolve():
+            t1 = time.perf_counter()
+            try:
+                return resolve()
+            finally:
+                self.seconds += time.perf_counter() - t1
+
+        return timed_resolve
+
+    def take(self) -> tuple[list[int], float]:
+        out = (self.sizes, self.seconds)
+        self.sizes, self.seconds = [], 0.0
+        return out
+
+
+class exec_chain:
+    """One chain of the exec_chain cell, wired by hand as node/node.py wires
+    a node, in a temp directory of its own: sqlite `state`, `blockstore` and
+    `tx_index` DBs (the default db_backend), State.get_state with a
+    KVTxIndexer, a SignedKVStoreApp (verify_in_app off, its tree hashing
+    through `hasher`, its block verify through `verifier`, APP_SHARDS
+    shards) behind AppConns(LocalClientCreator), and a Mempool rooted in the
+    directory with a WAL, gated by SigBatcher(verifier, parse_sig_tx).
+    `agg_default`, when given, is installed as the gateway's default
+    verifier around apply_block (an aggregate LastCommit verifies there)."""
+
+    def __init__(self, doc, verifier, hasher, agg_default=None):
+        from tendermint_tpu_torch.abci.apps.signedkv import SignedKVStoreApp, parse_sig_tx
+        from tendermint_tpu_torch.blockchain import BlockStore
+        from tendermint_tpu_torch.config import test_config
+        from tendermint_tpu_torch.libs.db import db_provider
+        from tendermint_tpu_torch.libs.events import EventSwitch
+        from tendermint_tpu_torch.mempool.mempool import Mempool, SigBatcher
+        from tendermint_tpu_torch.proxy import AppConns, LocalClientCreator
+        from tendermint_tpu_torch.state import State
+        from tendermint_tpu_torch.state.txindex import KVTxIndexer
+
+        self.doc, self.verifier, self.hasher, self.agg_default = doc, verifier, hasher, agg_default
+        self.root = tempfile.mkdtemp(prefix="exec-chain-")
+        self.dbs = {n: db_provider(n, "sqlite", self.root) for n in ("state", "blockstore", "tx_index")}
+        self.state = State.get_state(self.dbs["state"], doc)
+        self.state.tx_indexer = KVTxIndexer(self.dbs["tx_index"])
+        self.store = BlockStore(self.dbs["blockstore"])
+        self.app = SignedKVStoreApp(verify_in_app=False)
+        self.rec = wave_recorder(hasher)
+        self.app.tree.hasher = self.rec
+        self.app.deliver_verifier = verifier
+        self.app.shards = APP_SHARDS
+        self.conns = AppConns(LocalClientCreator(self.app))
+        self.conns.start()
+        self.cfg = test_config().mempool
+        self.cfg.root_dir = self.root
+        self.gate = batch_recorder(verifier)
+        self.batcher = SigBatcher(self.gate, parse_sig_tx)
+        self.mempool = Mempool(self.cfg, self.conns.mempool(), sig_batcher=self.batcher)
+        self.mempool.init_wal()
+        self.evsw = EventSwitch()
+        self.seen = None  # the last height's seen commit
+
+    def burst(self, txs: list[bytes], forged: list[int]) -> dict:
+        """check_tx every tx, then wait until the pool holds the valid ones
+        and every tx has its answer."""
+        codes: dict[int, int] = {}
+        want = len(txs) - len(forged)
+        t0 = time.perf_counter()
+        for i, tx in enumerate(txs):
+            self.mempool.check_tx(tx, cb=lambda res, i=i: codes.__setitem__(i, res.code))
+        deadline = time.monotonic() + EXEC_DRAIN_S
+        while self.mempool.size() < want or len(codes) < len(txs):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"burst: {self.mempool.size()} in the pool, {len(codes)} answered")
+            time.sleep(0.0005)
+        wall = time.perf_counter() - t0
+        sizes, verify_s = self.gate.take()
+        return {"gate_s": wall, "gate_verify_s": verify_s, "sizes": sizes,
+                "refused": sorted(i for i, c in codes.items() if c)}
+
+    def build(self, height: int):
+        """Reap and build the height's block as consensus builds it: the
+        LastCommit in the format the schedule requires (consensus/state.py
+        _commit_for_proposal), the Hasher wired as make_block_with wires it."""
+        from tendermint_tpu_torch.types.agg_commit import AggregateCommit
+        from tendermint_tpu_torch.types.block import empty_commit
+
+        st = self.state
+        reaped = self.mempool.reap(self.doc.consensus_params.block_size.max_txs)
+        if height == 1:
+            last = empty_commit()
+        elif self.doc.aggregate_commits_at(height):
+            last = AggregateCommit.from_commit(self.seen, CHAIN_ID, st.last_validators)
+        else:
+            last = self.seen
+        t0 = time.perf_counter()
+        block, parts = make_block_with(
+            self.hasher, reaped, (st.validators, st.last_block_id, last),
+            self.doc.consensus_params.block_gossip.block_part_size_bytes, height=height,
+            app_hash=st.app_hash, time_ns=BLOCK_TIME_NS + height * 10**9)
+        _sync()
+        return block, parts, time.perf_counter() - t0
+
+    def apply(self, block, parts) -> dict:
+        """apply_block with the gateway's batch verifier, each stage clocked:
+        validate_block, the deliver (BeginBlock, the block's DeliverTx,
+        EndBlock), the app commit with the mempool update, and the state
+        save with indexing."""
+        from tendermint_tpu_torch.libs.events import EventCache
+        from tendermint_tpu_torch.ops import gateway
+        from tendermint_tpu_torch.state import State, apply_block
+        from tendermint_tpu_torch.state import execution
+
+        saved = gateway._default_verifier
+        if self.agg_default is not None:
+            gateway._default_verifier = self.agg_default
+        cache = EventCache(self.evsw)
+        try:
+            with stage_clock(validate=(execution, "validate_block"),
+                             deliver=(execution, "exec_block_on_proxy_app"),
+                             commit=(execution, "commit_state_update_mempool"),
+                             index=(execution, "index_txs"),
+                             responses=(State, "save_abci_responses"), save=(State, "save")) as clk:
+                t0 = time.perf_counter()
+                apply_block(self.state, cache, self.conns.consensus(), block, parts.header(), self.mempool,
+                            batch_verifier=self.verifier.commit_batch_verifier())
+                _sync()
+                wall = time.perf_counter() - t0
+        finally:
+            gateway._default_verifier = saved
+        cache.flush()
+        sec = clk.seconds
+        return {"apply_s": wall, "validate_s": sec["validate"], "deliver_s": sec["deliver"],
+                "app_commit_s": sec["commit"],
+                "save_and_index_s": sec["index"] + sec["responses"] + sec["save"]}
+
+    def save(self, seed_of, block, parts) -> float:
+        """Sign the height's precommits, then save_block with them as the
+        seen commit."""
+        st = self.state
+        self.seen = sign_commit(st.last_validators, seed_of, block.header.height, st.last_block_id)
+        t0 = time.perf_counter()
+        self.store.save_block(block, parts, self.seen)
+        return time.perf_counter() - t0
+
+    def records(self, height: int, sample: list[bytes]) -> dict:
+        """What a node holds for `height`: the stored block, meta and
+        commits, the state and the last ABCI responses, and the tx-index
+        entries of `sample`."""
+        from tendermint_tpu_torch.types.tx import tx_hash
+
+        s = self.store
+        return {
+            "block": s.load_block(height).to_bytes(), "meta": s.load_block_meta(height).to_json(),
+            "commit": s.load_block_commit(height - 1).to_json(), "seen": s.load_seen_commit(height).to_json(),
+            "state": self.state.bytes_(), "app_hash": self.state.app_hash,
+            "responses": self.state.load_abci_responses().bytes_(),
+            "index": [self.state.tx_indexer.get(tx_hash(tx)).to_json() for tx in sample],
+        }
+
+    def wal(self) -> bytes:
+        with open(self.cfg.wal_dir(), "rb") as f:
+            return f.read()
+
+    def close(self) -> None:
+        self.batcher.stop()
+        self.mempool.close_wal()
+        self.conns.stop()
+        for db in self.dbs.values():
+            db.close()
+
+    def discard(self) -> None:
+        shutil.rmtree(self.root, ignore_errors=True)
+
+
+def exec_phase(name, power, vs, seed_of, bursts) -> dict:
+    """Phase 27: the execution path on the card, in process (no daemon
+    socket; the default Verifier and Hasher on the local route, asserted).
+    An exec_chain on `default_verifier()` and `default_hasher()` and one on
+    the host reference (host_hasher(), a Verifier whose gate sends every
+    lane to the native CPU floor, installed as the default around its
+    apply_block) each take EXEC_HEIGHTS heights: the burst through
+    check_tx, reap, the block build, apply_block, the precommits and
+    save_block. Launches are reset just before each stage and read just
+    after. Then the sqlite files reopen (the restart) and a fresh card app
+    replays the stored blocks through exec_commit_block (the handshake).
+    Returns what phase 28 needs and the launches a kernel over these paths."""
+    import torch
+
+    from tendermint_tpu_torch.abci.apps.signedkv import SignedKVStoreApp
+    from tendermint_tpu_torch.blockchain import BlockStore
+    from tendermint_tpu_torch.libs.db import db_provider
+    from tendermint_tpu_torch.ops import gateway
+    from tendermint_tpu_torch.ops.gateway import Verifier
+    from tendermint_tpu_torch.proxy import AppConns, LocalClientCreator
+    from tendermint_tpu_torch.state import State, exec_commit_block
+    from tendermint_tpu_torch.types import tx as ptx
+
+    tag = {"card": name, "power_limit": power}
+    dev_type = torch.device(DEVICE).type
+    doc = exec_genesis(vs)
+    total = dict.fromkeys(("b1", "dsm", "ripemd160", "merkle_tree"), 0)
+    sample_rng = np.random.default_rng(SEED + 28)
+    with routed_to():
+        gateway._default_verifier = gateway._default_hasher = None
+        verifier = gateway.default_verifier()
+        hasher = gateway.default_hasher()
+        if verifier.kernel != "f32p" or verifier.device is None or verifier.device.type != dev_type:
+            raise AssertionError(f"default Verifier: kernel {verifier.kernel}, device {verifier.device}")
+        if hasher._route != "local" or hasher.device is None or hasher.device.type != dev_type:
+            raise AssertionError(f"default Hasher: route {hasher._route}, device {hasher.device}")
+        ref_v = Verifier(min_tpu_batch=APP_REF_GATE, device="cpu")
+        chains = {"card": exec_chain(doc, verifier, hasher),
+                  "host": exec_chain(doc, ref_v, host_hasher(), agg_default=ref_v)}
+        gate_min = verifier.min_tpu_batch
+        records = {"card": [], "host": []}
+        app_hashes = []
+        try:
+            for height, burst in enumerate(bursts, 1):
+                txs, forged = burst["txs"], burst["forged"]
+                for label, ch in chains.items():
+                    v, app = ch.verifier, ch.app
+                    v0, calls0 = v.stats(), app.check_tx_calls
+                    gc.collect()
+                    reset_launches()
+                    gate = ch.burst(txs, forged)
+                    l_gate = read_launches()
+                    v1 = v.stats()
+                    sigs = {k: v1[k] - v0[k] for k in ("tpu_batches", "tpu_sigs", "cpu_sigs")}
+                    if gate["refused"] != forged:
+                        raise AssertionError(f"{label} height {height}: refused {gate['refused']}, forged {forged}")
+                    if app.check_tx_calls - calls0 != len(txs) - len(forged):
+                        raise AssertionError(f"{label} height {height}: {app.check_tx_calls - calls0} CheckTx calls")
+                    sizes = gate["sizes"]
+                    wide = [n for n in sizes if n >= gate_min]
+                    if sum(sizes) != len(txs):
+                        raise AssertionError(f"{label} height {height}: gate batches {sizes}")
+                    if label == "card":
+                        want = {"tpu_batches": len(wide), "tpu_sigs": sum(wide), "cpu_sigs": len(txs) - sum(wide)}
+                        if sigs != want or not wide:
+                            raise AssertionError(f"card height {height}: gate {sigs}, batches {sizes}")
+                        _launch_delta(l_gate, {"b1": len(wide)}, f"height {height} gate")
+                        total["b1"] += l_gate["b1"]
+                    else:
+                        if sigs != {"tpu_batches": 0, "tpu_sigs": 0, "cpu_sigs": len(txs)}:
+                            raise AssertionError(f"host height {height}: gate {sigs}")
+                        _launch_delta(l_gate, {}, f"host height {height} gate")
+
+                    reset_launches()
+                    block, parts, make_s = ch.build(height)
+                    l_build = read_launches()
+                    if label == "card":
+                        _launch_delta(l_build, {"ripemd160": 2, "merkle_tree": 2}, f"height {height} build")
+                        total["ripemd160"] += 2
+                        total["merkle_tree"] += 2
+                    else:
+                        _launch_delta(l_build, {}, f"host height {height} build")
+                    refusal = tampered_refusal(ch.state, block) if label == "card" and height >= 2 else None
+
+                    v0 = v.stats()
+                    ch.rec.take()
+                    reset_launches()
+                    times = ch.apply(block, parts)
+                    l_apply = read_launches()
+                    widths, _ = ch.rec.take()
+                    v1 = v.stats()
+                    d = {k: v1[k] - v0[k] for k in ("tpu_sigs", "cpu_sigs", "agg_lanes_device", "agg_lanes_cpu")}
+                    full = height == 2
+                    agg = doc.aggregate_commits_at(height) and height > 1
+                    n_vals = vs.size()
+                    if label == "card":
+                        want = {"tpu_sigs": len(block.data.txs) + (n_vals if full else 0), "cpu_sigs": 0,
+                                "agg_lanes_device": n_vals + 1 if agg else 0, "agg_lanes_cpu": 0}
+                        if d != want:
+                            raise AssertionError(f"card height {height}: apply verify {d}, expected {want}")
+                        _launch_delta(l_apply, {"b1": 1 + full, "dsm": int(agg), "ripemd160": len(widths)},
+                                      f"height {height} apply")
+                        if not widths:
+                            raise AssertionError(f"height {height}: the app hashed nothing on the card")
+                        for k in ("b1", "dsm", "ripemd160"):
+                            total[k] += l_apply[k]
+                    else:
+                        _launch_delta(l_apply, {}, f"host height {height} apply")
+                    if ch.mempool.size() != 0:
+                        raise AssertionError(f"{label} height {height}: {ch.mempool.size()} txs left in the pool")
+                    save_s = ch.save(seed_of, block, parts)
+                    if label == "card":  # the host's block is the same: checked below
+                        picks = sample_rng.choice(len(block.data.txs), size=EXEC_INDEX_SAMPLE, replace=False)
+                        sample = [block.data.txs[i] for i in sorted(picks)]
+                    records[label].append(ch.records(height, sample))
+                    log({"phase": "exec_chain", **tag, "chain": label, "height": height,
+                         "txs": len(block.data.txs), "refused": len(gate["refused"]), "gate_batches": sizes,
+                         "gate_sigs": sigs, "parts": parts.total, "block_bytes": len(records[label][-1]["block"]),
+                         "last_commit": block.commit_format() if height > 1 else None,
+                         "launches": {"gate": l_gate, "build": l_build, "apply": l_apply},
+                         "commit_waves_k1": widths, "refusal": refusal, "gate_s": gate["gate_s"],
+                         "gate_verify_s": gate["gate_verify_s"], "make_block_s": make_s, **times, "save_block_s": save_s,
+                         "app_hash": ch.state.app_hash.hex()})
+                if records["card"][-1] != records["host"][-1]:
+                    diff = [k for k in records["card"][-1] if records["card"][-1][k] != records["host"][-1][k]]
+                    raise AssertionError(f"height {height}: the card chain differs from the host's in {diff}")
+                app_hashes.append(chains["card"].state.app_hash)
+            if chains["card"].wal() != chains["host"].wal():
+                raise AssertionError("the mempool WALs differ")
+            wal_lines = chains["card"].wal().count(b"\n")
+            if hasher.stats()["cpu_leaves"] != 0:
+                raise AssertionError(f"the Hasher hashed {hasher.stats()['cpu_leaves']} leaves on the host")
+            live = {label: ch.state.bytes_() for label, ch in chains.items()}
+            blocks = [chains["card"].store.load_block(h) for h in range(1, len(bursts) + 1)]
+        finally:
+            for ch in chains.values():
+                ch.close()
+
+        # the restart: the sqlite files reopen to the same state and blocks
+        card = chains["card"]
+        dbs = {n: db_provider(n, "sqlite", card.root) for n in ("state", "blockstore")}
+        try:
+            reloaded = State.load_state(dbs["state"], doc)
+            store = BlockStore(dbs["blockstore"])
+            if reloaded is None or reloaded.bytes_() != live["card"]:
+                raise AssertionError("restart: the reloaded state differs from the live one")
+            if store.height() != len(bursts) or [store.load_block(h).to_bytes() for h in range(1, len(bursts) + 1)] \
+                    != [b.to_bytes() for b in blocks]:
+                raise AssertionError(f"restart: the block store holds {store.height()} other blocks")
+        finally:
+            for db in dbs.values():
+                db.close()
+
+        # the handshake's replay on a fresh card app
+        app = SignedKVStoreApp(verify_in_app=False)
+        rec = wave_recorder(hasher)
+        app.tree.hasher = rec
+        app.deliver_verifier = verifier
+        app.shards = APP_SHARDS
+        conns = AppConns(LocalClientCreator(app))
+        conns.start()
+        replayed = []
+        reset_launches()
+        t0 = time.perf_counter()
+        for block in blocks:
+            replayed.append(exec_commit_block(conns.consensus(), block))
+        _sync()
+        replay_s = time.perf_counter() - t0
+        l_replay = read_launches()
+        widths, _ = rec.take()
+        conns.stop()
+        if replayed != app_hashes:
+            raise AssertionError("replay: the fresh app's hashes differ from the chain's")
+        _launch_delta(l_replay, {"b1": len(blocks), "ripemd160": len(widths)}, "replay")
+        total["b1"] += l_replay["b1"]
+        total["ripemd160"] += l_replay["ripemd160"]
+        for ch in chains.values():
+            ch.discard()
+        ptx.set_batch_tx_root(None)
+        log({"phase": "exec_plane", **tag, "validators": vs.size(), "heights": len(bursts),
+             "upgrade_height": EXEC_UPGRADE_HEIGHT, "txs_per_height": [len(b["txs"]) for b in bursts],
+             "app_hashes": [h.hex() for h in app_hashes], "wal_lines": wal_lines,
+             "restart": "equal", "replay_s": replay_s, "replay_launches": l_replay,
+             "verifier": verifier.stats(), "launches": total,
+             "route": {"verify": verifier.kernel, "hash": hasher._route}})
+    return {"doc": doc, "vs": vs, "seed_of": seed_of, "bursts": bursts, "records": records["card"],
+            "launches": total}
+
+
+EXEC_STAGES = ("gate_s", "gate_verify_s", "make_block_s", "validate_s", "deliver_s", "app_commit_s", "save_and_index_s",
+               "apply_s", "save_block_s")
+
+
+def exec_time(name, power, ctx) -> None:
+    """Phase 28: warm best of EXEC_TIME_RUNS, card and host reference in
+    turns, the three heights replayed on fresh chains (a fresh Hasher on
+    the card each run: no tx root comes from its cache), each height after
+    a full collection of the heap: the burst from the first check_tx to
+    drained, make_block, validate_block (height 2 on B1, height 3 on dsm),
+    apply_block split into the deliver, the app commit and the state save
+    with indexing, and save_block. Every run's blocks and app hashes must
+    equal phase 27's."""
+    from tendermint_tpu_torch.ops import gateway
+    from tendermint_tpu_torch.ops.gateway import Hasher, Verifier
+    from tendermint_tpu_torch.types import tx as ptx
+
+    tag = {"card": name, "power_limit": power}
+    doc, seed_of, bursts = ctx["doc"], ctx["seed_of"], ctx["bursts"]
+    runs = {"card": [], "host": []}
+    with routed_to():
+        gateway._default_verifier = None
+        verifier = gateway.default_verifier()
+        ref_v = Verifier(min_tpu_batch=APP_REF_GATE, device="cpu")
+        for _ in range(EXEC_TIME_RUNS):
+            for label in ("card", "host"):
+                if label == "card":
+                    ch = exec_chain(doc, verifier, Hasher(device=DEVICE))
+                else:
+                    ch = exec_chain(doc, ref_v, host_hasher(), agg_default=ref_v)
+                heights = []
+                try:
+                    for height, burst in enumerate(bursts, 1):
+                        gc.collect()
+                        gate = ch.burst(burst["txs"], burst["forged"])
+                        block, parts, make_s = ch.build(height)
+                        times = ch.apply(block, parts)
+                        save_s = ch.save(seed_of, block, parts)
+                        want = ctx["records"][height - 1]
+                        if block.to_bytes() != want["block"] or ch.state.app_hash != want["app_hash"]:
+                            raise AssertionError(f"{label} run, height {height}: block or app hash differs")
+                        row = {"gate_s": gate["gate_s"], "gate_verify_s": gate["gate_verify_s"],
+                               "gate_batches": len(gate["sizes"]), "make_block_s": make_s, **times,
+                               "save_block_s": save_s}
+                        row["height_s"] = row["gate_s"] + make_s + times["apply_s"] + save_s
+                        heights.append(row)
+                finally:
+                    ch.close()
+                    ch.discard()
+                runs[label].append(heights)
+        ptx.set_batch_tx_root(None)
+    for height in range(1, len(bursts) + 1):
+        best = {label: min((r[height - 1] for r in rows), key=lambda row: row["height_s"])
+                for label, rows in runs.items()}
+        stage_best = {label: {k: min(r[height - 1][k] for r in rows) for k in EXEC_STAGES + ("height_s",)}
+                      for label, rows in runs.items()}
+        log({"phase": "exec_chain_time", **tag, "height": height,
+             "last_commit": None if height == 1 else ("aggregate" if doc.aggregate_commits_at(height) else "full"),
+             "card_best": best["card"], "host_best": best["host"],
+             "card_stage_best": stage_best["card"], "host_stage_best": stage_best["host"],
+             "speedup": best["host"]["height_s"] / best["card"]["height_s"],
+             "stage_speedup": {k: stage_best["host"][k] / stage_best["card"][k] for k in EXEC_STAGES
+                               if stage_best["card"][k] > 0},
+             "card_runs": [r[height - 1] for r in runs["card"]],
+             "host_runs": [r[height - 1] for r in runs["host"]]})
 
 
 if __name__ == "__main__":

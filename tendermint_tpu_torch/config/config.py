@@ -1,0 +1,372 @@
+"""Typed configuration tree (reference: config/config.go).
+
+One Config struct per subsystem — Base, RPC, P2P, Mempool, Consensus —
+with defaults mirroring the reference's (config/config.go:10-19 structs,
+367-385 consensus timeout schedule) and faster "test" presets. Consensus-
+critical parameters (block size limits etc.) do NOT live here; they travel
+in the genesis doc (types/params.py), exactly as in the reference.
+
+Durations are seconds as floats (the reference uses milliseconds — values
+converted, not renamed). Timeouts follow the reference's linear round
+schedule: timeout_X + round * timeout_X_delta (config/config.go:338-357).
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field, replace
+
+
+@dataclass
+class BaseConfig:
+    """Top-level node options (config/config.go:57-135)."""
+
+    root_dir: str = ""
+    chain_id: str = ""
+    genesis: str = "genesis.json"
+    priv_validator: str = "priv_validator.json"
+    moniker: str = "anonymous"
+    proxy_app: str = "tcp://127.0.0.1:46658"
+    abci: str = "socket"  # socket | grpc (in-proc apps use names: kvstore, ...)
+    log_level: str = "info"
+    prof_laddr: str = ""
+    fast_sync: bool = True
+    filter_peers: bool = False
+    tx_index: str = "kv"  # kv | null
+    # sqlite (bounded-RAM persistent store, the LevelDB-default
+    # equivalent) so a restarted node resumes its chain AND steady-state
+    # RSS stays flat as the chain grows (filedb's in-memory key index
+    # grows with the chain; libs/db.py SqliteDB docstring). filedb
+    # (crash-safe journal, offset-indexed) remains selectable; memdb is for tests
+    # (the kill_all localnet scenario catches a non-persistent default).
+    # NOTE: homes initialized before this default changed carry the OLD
+    # explicit backend in config.toml and must edit it by hand — the
+    # loader honors whatever the file says.
+    db_backend: str = "sqlite"  # sqlite | filedb | memdb
+    db_path: str = "data"
+
+    def genesis_file(self) -> str:
+        return _root_join(self.root_dir, self.genesis)
+
+    def priv_validator_file(self) -> str:
+        return _root_join(self.root_dir, self.priv_validator)
+
+    def db_dir(self) -> str:
+        return _root_join(self.root_dir, self.db_path)
+
+
+@dataclass
+class RPCConfig:
+    """RPC server options (config/config.go:163-193)."""
+
+    root_dir: str = ""
+    laddr: str = "tcp://0.0.0.0:46657"
+    grpc_laddr: str = ""
+    unsafe: bool = False
+    # -- ingress admission (docs/serving.md) ------------------
+    # every knob here has a TENDERMINT_RPC_* env twin (env wins, read
+    # per request — live-tunable under fire). 0 disables a limit.
+    max_connections: int = 512  # concurrent HTTP/WS connections
+    max_inflight: int = 256  # concurrently-executing requests
+    rate_limit: float = 0.0  # per-client-IP requests/s (unix peers exempt)
+    rate_burst: float = 0.0  # bucket depth; 0 -> 2x rate_limit
+    deadline_s: float = 0.0  # per-request budget; waits inside handlers obey it
+    ws_send_queue: int = 256  # per-WS-client bounded event queue
+    ws_max_clients: int = 200  # concurrent WS subscribers
+
+
+@dataclass
+class P2PConfig:
+    """Peer-to-peer options (config/config.go:199-253)."""
+
+    root_dir: str = ""
+    laddr: str = "tcp://0.0.0.0:46656"
+    seeds: str = ""  # comma-separated host:port
+    skip_upnp: bool = False
+    addr_book_file: str = "addrbook.json"
+    addr_book_strict: bool = True
+    pex_reactor: bool = False
+    max_num_peers: int = 50
+    flush_throttle_timeout: float = 0.100
+    max_msg_packet_payload_size: int = 1024
+    send_rate: int = 512_000  # bytes/sec (p2p/connection.go:33-34)
+    recv_rate: int = 512_000
+
+    def addr_book(self) -> str:
+        return _root_join(self.root_dir, self.addr_book_file)
+
+
+@dataclass
+class MempoolConfig:
+    """Mempool options (config/config.go:267-291)."""
+
+    root_dir: str = ""
+    recheck: bool = True
+    recheck_empty: bool = True
+    broadcast: bool = True
+    wal_path: str = "data/mempool.wal"
+    # -- priority lanes (docs/serving.md) ---------------------
+    # per-lane count/byte caps; reap drains priority -> default -> bulk.
+    # TENDERMINT_MEMPOOL_LANE_<LANE>_MAX_TXS / _MAX_BYTES env twins win.
+    lane_priority_max_txs: int = 10_000
+    lane_priority_max_bytes: int = 32 * 1024 * 1024
+    lane_default_max_txs: int = 50_000
+    lane_default_max_bytes: int = 64 * 1024 * 1024
+    lane_bulk_max_txs: int = 20_000
+    lane_bulk_max_bytes: int = 32 * 1024 * 1024
+    # per-source in-pool tx cap (source = rpc client IP or peer id);
+    # 0 disables. TENDERMINT_MEMPOOL_SOURCE_MAX_TXS wins.
+    source_max_txs: int = 0
+
+    def wal_dir(self) -> str:
+        return _root_join(self.root_dir, self.wal_path)
+
+
+@dataclass
+class ConsensusConfig:
+    """Consensus timeouts + policies (config/config.go:295-385).
+
+    Defaults match DefaultConsensusConfig (config/config.go:367-385):
+    3s propose (+0.5s/round), 1s prevote/precommit (+0.5s/round),
+    1s commit; empty blocks on, 0s empty-blocks interval.
+    """
+
+    root_dir: str = ""
+    wal_path: str = "data/cs.wal/wal"
+    wal_light: bool = False
+    # group-commit durability window (docs/crash-recovery.md):
+    # non-ENDHEIGHT records are fsynced at most this many seconds after
+    # they buffer; #ENDHEIGHT markers always fsync synchronously
+    wal_flush_interval_s: float = 0.1
+    # True restores the fsync-per-record bound (10-40x slower
+    # commit hot path; benches/bench_wal.py measures the gap)
+    wal_sync_every_write: bool = False
+
+    timeout_propose: float = 3.0
+    timeout_propose_delta: float = 0.5
+    timeout_prevote: float = 1.0
+    timeout_prevote_delta: float = 0.5
+    timeout_precommit: float = 1.0
+    timeout_precommit_delta: float = 0.5
+    timeout_commit: float = 1.0
+    skip_timeout_commit: bool = False
+
+    max_block_size_txs: int = 10000
+    max_block_size_bytes: int = 1  # unused in reference too (config/config.go:309)
+
+    create_empty_blocks: bool = True
+    create_empty_blocks_interval: float = 0.0
+
+    # pipelined execution plane (docs/execution-pipeline.md):
+    # defer apply(H) + snapshot hook + events to the ordered executor
+    # while consensus advances to H+1; False restores the fully serial
+    # finalize_commit (benches/bench_pipeline.py measures the gap)
+    pipeline_apply: bool = True
+
+    peer_gossip_sleep_duration: float = 0.100
+    peer_query_maj23_sleep_duration: float = 2.0
+
+    # has-vote-aware gossip dedup (docs/localnet.md): feed the
+    # per-peer vote bit-arrays from STATE-channel HasVote announcements
+    # (arrays ensured on arrival, last-commit heights accepted),
+    # broadcast HasBlockPart part announcements so peers skip votes and
+    # parts we already hold, and hold RE-pushes of a just-received vote
+    # for one gossip tick so those announcements win the relay race
+    # (reactor.VOTE_RELAY_DELAY). False restores the undeduplicated
+    # gossip (benches/bench_localnet.py measures the duplicate-ratio
+    # gap — ~30% fewer duplicate votes at n=10 real processes).
+    gossip_dedup: bool = True
+
+    def wal_file(self) -> str:
+        return _root_join(self.root_dir, self.wal_path)
+
+    # -- round-indexed timeout schedule (config/config.go:338-357) --------
+
+    def propose(self, round_: int) -> float:
+        return self.timeout_propose + self.timeout_propose_delta * round_
+
+    def prevote(self, round_: int) -> float:
+        return self.timeout_prevote + self.timeout_prevote_delta * round_
+
+    def precommit(self, round_: int) -> float:
+        return self.timeout_precommit + self.timeout_precommit_delta * round_
+
+    def commit(self, wall_time: float, block_time: float) -> float:
+        """Absolute deadline for starting the next height: block time +
+        timeout_commit, as a delay from wall_time (config/config.go:353-357)."""
+        return max(0.0, block_time + self.timeout_commit - wall_time)
+
+
+@dataclass
+class StateSyncConfig:
+    """State-sync snapshot subsystem (docs/state-sync.md).
+    Both sides of the protocol live here: producing snapshots at height
+    intervals, and restoring from peers' snapshots on a cold start."""
+
+    root_dir: str = ""
+    # restore side: on an empty node, discover peer snapshots, light-
+    # verify + restore the newest, then fast-sync only the tail
+    enable: bool = False
+    # comma-separated RPC endpoints the light client verifies headers
+    # against during restore (empty + enable=True is a config error the
+    # node reports at startup)
+    rpc_servers: str = ""
+    # operator-pinned trust anchor; 0 walks trust from genesis
+    trust_height: int = 0
+    # producer side: snapshot every N committed heights (0 = off)
+    snapshot_interval: int = 0
+    snapshot_keep_recent: int = 2
+    chunk_size: int = 65536
+    # every K-th snapshot is FULL; the ones between are deltas against
+    # the previous snapshot (state-tree apps only; 1 = always
+    # full). keep_recent is clamped to cover the chain.
+    snapshot_full_every: int = 4
+
+    def snapshot_dir(self) -> str:
+        return _root_join(self.root_dir, "data/snapshots")
+
+
+@dataclass
+class PruningConfig:
+    """Bounded-retention lifecycle (docs/state-sync.md §
+    Retention): automatic block-store + WAL pruning so disk is bounded
+    by retention, not chain length. Off by default — archive nodes keep
+    everything.
+
+    The configured `retain_blocks` is an OPERATOR TARGET, not the
+    effective retention: the coordinator (node/retention.py) prunes to
+    the MINIMUM of this target, the oldest published snapshot height
+    (the statesync producer must stay serviceable), the oldest pending
+    evidence height, and the app state tree's oldest retained version —
+    whichever plane needs the deepest history wins."""
+
+    root_dir: str = ""
+    # keep at least the newest N blocks (0 = pruning disabled). Values
+    # below 2 are clamped: consensus always needs the head block's seen
+    # commit and last-commit linkage.
+    retain_blocks: int = 0
+    # run the retention check every N committed heights (the prune
+    # itself rides the apply executor's tail, off the consensus
+    # critical path)
+    interval_heights: int = 10
+
+
+@dataclass
+class DeviceConfig:
+    """Device plane topology (docs/device-daemon.md § Sharded
+    device plane): which devd daemon socket(s) the gateway dispatches
+    verify/hash batches to. Empty = the TENDERMINT_DEVD_SOCK/default
+    single-socket behavior, unchanged."""
+
+    root_dir: str = ""
+    # comma-separated devd socket paths. One entry behaves byte-for-byte
+    # like setting TENDERMINT_DEVD_SOCK; two or more arm the sharded
+    # dispatcher (ops/devd_shard: slice sharding, work stealing,
+    # per-endpoint circuit breakers). Node assembly exports this as
+    # TENDERMINT_DEVD_SOCKS unless the env var is already set (the env
+    # wins — it is the operator's per-process override).
+    socks: str = ""
+
+
+@dataclass
+class ReplicaConfig:
+    """Verified read-replica daemon (docs/serving.md § Read
+    replicas): a stateless, proof-carrying read cache that follows an
+    upstream node's RPC with the light client and serves the read
+    surface. Every knob has a TENDERMINT_REPLICA_* env twin (env wins,
+    read per use — live-tunable)."""
+
+    root_dir: str = ""
+    # upstream RPC endpoint ("host:port" or "unix:///path.sock"). May
+    # itself be a replica — tiered fan-out; proofs compose unchanged.
+    upstream: str = ""
+    # the replica's own read listener (same transports as a node's RPC)
+    laddr: str = "tcp://0.0.0.0:46659"
+    # bounded staleness: a latest-height read is served from cache only
+    # while the cached proof sits within this many heights of the
+    # replica's verified head, and refused entirely when the replica
+    # itself lags its upstream by more than this
+    max_lag_heights: int = 10
+    # proof-carrying cache entry cap (LRU over (path, key, height))
+    cache_entries: int = 10_000
+    # verified block/commit responses kept for block / blockchain_info /
+    # commit serving and downstream replica chaining (also sizes the
+    # light client's verified-header memo)
+    keep_blocks: int = 64
+    # upstream WS resubscribe backoff: initial seconds, doubling per
+    # consecutive failure up to the max
+    reconnect_backoff_s: float = 0.25
+    reconnect_backoff_max_s: float = 4.0
+
+
+@dataclass
+class Config:
+    base: BaseConfig = field(default_factory=BaseConfig)
+    rpc: RPCConfig = field(default_factory=RPCConfig)
+    p2p: P2PConfig = field(default_factory=P2PConfig)
+    mempool: MempoolConfig = field(default_factory=MempoolConfig)
+    consensus: ConsensusConfig = field(default_factory=ConsensusConfig)
+    statesync: StateSyncConfig = field(default_factory=StateSyncConfig)
+    pruning: PruningConfig = field(default_factory=PruningConfig)
+    device: DeviceConfig = field(default_factory=DeviceConfig)
+    replica: ReplicaConfig = field(default_factory=ReplicaConfig)
+
+    def set_root(self, root: str) -> "Config":
+        self.base.root_dir = root
+        self.rpc.root_dir = root
+        self.p2p.root_dir = root
+        self.mempool.root_dir = root
+        self.consensus.root_dir = root
+        self.statesync.root_dir = root
+        self.pruning.root_dir = root
+        self.device.root_dir = root
+        self.replica.root_dir = root
+        return self
+
+    def copy(self) -> "Config":
+        return Config(
+            replace(self.base),
+            replace(self.rpc),
+            replace(self.p2p),
+            replace(self.mempool),
+            replace(self.consensus),
+            replace(self.statesync),
+            replace(self.pruning),
+            replace(self.device),
+            replace(self.replica),
+        )
+
+
+def _root_join(root: str, path: str) -> str:
+    if os.path.isabs(path) or not root:
+        return path
+    return os.path.join(root, path)
+
+
+def default_config() -> Config:
+    return Config()
+
+
+def test_config() -> Config:
+    """Fast preset for tests (Test*Config variants in config/config.go):
+    10x-shorter consensus timeouts, skip timeout-commit, ephemeral ports,
+    in-memory db."""
+    cfg = Config()
+    cfg.base.chain_id = "tendermint_test"
+    cfg.base.proxy_app = "kvstore"
+    cfg.base.fast_sync = False
+    cfg.base.db_backend = "memdb"
+    cfg.rpc.laddr = "tcp://0.0.0.0:36657"
+    cfg.p2p.laddr = "tcp://0.0.0.0:36656"
+    cfg.p2p.skip_upnp = True
+    c = cfg.consensus
+    c.wal_light = True
+    c.timeout_propose = 0.1
+    c.timeout_propose_delta = 0.001
+    c.timeout_prevote = 0.01
+    c.timeout_prevote_delta = 0.001
+    c.timeout_precommit = 0.01
+    c.timeout_precommit_delta = 0.001
+    c.timeout_commit = 0.01
+    c.skip_timeout_commit = True
+    return cfg

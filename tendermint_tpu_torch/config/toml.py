@@ -1,0 +1,125 @@
+"""Config root bootstrap + TOML round-trip (reference: config/toml.go).
+
+ensure_root writes a default config.toml into a fresh node home dir;
+reset_test_root is the test scaffold (config/toml.go:51): root dir with
+config.toml, a one-validator test genesis, and a priv_validator.json.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+from tendermint_tpu_torch.config.config import Config, default_config, test_config
+
+_CONFIG_FILE = "config.toml"
+
+
+def _toml_value(v) -> str:
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, (int, float)):
+        return repr(v)
+    # json string escaping is valid TOML basic-string escaping (handles
+    # newlines/control chars, which a naive quote-wrap would corrupt)
+    import json
+
+    return json.dumps(str(v))
+
+
+def config_to_toml(cfg: Config) -> str:
+    """Serialize the full tree; section names match the reference's
+    mapstructure tags so a reference-style config.toml reads naturally."""
+    # the header line is part of the file format: both packages write
+    # the same bytes, so a home initialised by either loads in the other
+    out = ["# generated by tendermint_tpu — edit and restart the node\n"]
+    sections = [
+        ("", cfg.base),
+        ("rpc", cfg.rpc),
+        ("p2p", cfg.p2p),
+        ("mempool", cfg.mempool),
+        ("consensus", cfg.consensus),
+        ("statesync", cfg.statesync),
+        ("pruning", cfg.pruning),
+        ("device", cfg.device),
+        ("replica", cfg.replica),
+    ]
+    for name, section in sections:
+        if name:
+            out.append(f"[{name}]")
+        for k, v in vars(section).items():
+            if k == "root_dir":
+                continue
+            out.append(f"{k} = {_toml_value(v)}")
+        out.append("")
+    return "\n".join(out)
+
+
+def load_config(root: str) -> Config:
+    """Read config.toml under root (tomllib), overlaying defaults."""
+    try:
+        import tomllib
+    except ImportError:  # Python < 3.11: same API under the PyPI name
+        import tomli as tomllib
+
+    cfg = default_config()
+    path = os.path.join(root, _CONFIG_FILE)
+    if os.path.exists(path):
+        with open(path, "rb") as f:
+            data = tomllib.load(f)
+        _apply(cfg.base, data)
+        _apply(cfg.rpc, data.get("rpc", {}))
+        _apply(cfg.p2p, data.get("p2p", {}))
+        _apply(cfg.mempool, data.get("mempool", {}))
+        _apply(cfg.consensus, data.get("consensus", {}))
+        _apply(cfg.statesync, data.get("statesync", {}))
+        _apply(cfg.pruning, data.get("pruning", {}))
+        _apply(cfg.device, data.get("device", {}))
+        _apply(cfg.replica, data.get("replica", {}))
+    cfg.set_root(root)
+    return cfg
+
+
+def _apply(section, data: dict) -> None:
+    for k, v in data.items():
+        if hasattr(section, k) and not isinstance(v, dict):
+            cur = getattr(section, k)
+            if isinstance(cur, float) and isinstance(v, int):
+                v = float(v)
+            setattr(section, k, v)
+
+
+def ensure_root(root: str, cfg: Config | None = None) -> Config:
+    """Create the node home dir + data dir and write config.toml if absent
+    (config/toml.go:14-26)."""
+    cfg = cfg or default_config()
+    cfg.set_root(root)
+    os.makedirs(os.path.join(root, "data"), exist_ok=True)
+    path = os.path.join(root, _CONFIG_FILE)
+    if not os.path.exists(path):
+        with open(path, "w") as f:
+            f.write(config_to_toml(cfg))
+    return cfg
+
+
+def reset_test_root(root: str, chain_id: str = "tendermint_test") -> Config:
+    """Fresh test node home: config + 1-validator genesis + privval
+    (config/toml.go:51-77)."""
+    import shutil
+
+    from tendermint_tpu_torch.types import GenesisDoc, GenesisValidator, PrivValidatorFS
+
+    if os.path.isdir(root):
+        shutil.rmtree(root)
+    cfg = test_config()
+    ensure_root(root, cfg)
+
+    pv = PrivValidatorFS.generate(cfg.base.priv_validator_file())
+    pv.save()
+    doc = GenesisDoc(
+        genesis_time_ns=time.time_ns(),
+        chain_id=chain_id,
+        validators=[GenesisValidator(pv.get_pub_key(), 10, "test")],
+    )
+    doc.save_as(cfg.base.genesis_file())
+    return cfg

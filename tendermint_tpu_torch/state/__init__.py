@@ -1,5 +1,5 @@
-"""State execution's crash-injection points (`state.fail`). `State` and
-`apply_block` come with a later slice of the port."""
+"""Chain state and block execution (`State`, `apply_block`) and their
+crash-injection points (`state.fail`)."""
 
 from tendermint_tpu_torch.state.fail import (
     EXIT_CODE,
@@ -9,8 +9,19 @@ from tendermint_tpu_torch.state.fail import (
     rotate_point,
     wal_write,
 )
+from tendermint_tpu_torch.state.state import ABCIResponses, State
+from tendermint_tpu_torch.state.execution import (
+    apply_block,
+    exec_commit_block,
+    validate_block,
+)
 
 __all__ = [
+    "State",
+    "ABCIResponses",
+    "apply_block",
+    "exec_commit_block",
+    "validate_block",
     "EXIT_CODE",
     "fail_point",
     "pipeline_point",

@@ -1,0 +1,246 @@
+"""Block execution pipeline (reference: state/execution.go):
+validate -> BeginBlock -> DeliverTx (async) -> EndBlock ->
+save ABCIResponses -> update validators -> Commit (mempool locked) ->
+update mempool -> save state. Fail points at the same crash-critical
+boundaries as the reference (state/execution.go:224,232,243).
+
+The LastCommit verification here (validate_block -> verify_commit,
+reference state/execution.go:198) is a consumer of the gateway's batch
+verifier: a whole commit's signatures go to the card's kernel (B1) in one
+batch, and an aggregate LastCommit to the dsm kernel through
+`default_verifier()`. The port's copy of the JAX package's
+`state/execution.py`.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+
+from tendermint_tpu_torch.crypto.keys import PubKeyEd25519, pub_key_from_json
+from tendermint_tpu_torch.state.fail import fail_point
+from tendermint_tpu_torch.state.state import ABCIResponses, State
+from tendermint_tpu_torch.types import Validator, ValidatorSet
+from tendermint_tpu_torch.types.events import EventDataTx, fire_event_tx
+from tendermint_tpu_torch.types.tx import TxResult
+
+logger = logging.getLogger("state.execution")
+
+
+class InvalidBlockError(Exception):
+    pass
+
+
+class ProxyAppConnError(Exception):
+    pass
+
+
+def update_validators(validators: ValidatorSet, diffs) -> None:
+    """Apply EndBlock diffs: power 0 removes, new address adds, else update
+    (state/execution.go:120-159)."""
+    for d in diffs:
+        pub_key = pub_key_from_json(d.pub_key_json)
+        address = pub_key.address()
+        power = d.power
+        if power < 0:
+            raise ValueError(f"negative power {power}")
+        _, val = validators.get_by_address(address)
+        if val is None:
+            if not validators.add(Validator.new(pub_key, power)):
+                raise ValueError(f"failed to add validator {address.hex()}")
+        elif power == 0:
+            _, removed = validators.remove(address)
+            if not removed:
+                raise ValueError(f"failed to remove validator {address.hex()}")
+        else:
+            val.voting_power = power
+            if not validators.update(val):
+                raise ValueError(f"failed to update validator {address.hex()}")
+
+
+def validate_block(state: State, block, batch_verifier=None) -> None:
+    """state/execution.go:180-206. Raises InvalidBlockError."""
+    err = block.validate_basic(
+        state.chain_id, state.last_block_height, state.last_block_id, state.app_hash,
+        commit_format=state.genesis_doc.commit_format_at(block.header.height),
+    )
+    if err:
+        raise InvalidBlockError(err)
+
+    if block.header.height == 1:
+        if block.last_commit.is_commit():
+            raise InvalidBlockError("first block should have no LastCommit precommits")
+    else:
+        if block.last_commit.size() != state.last_validators.size():
+            raise InvalidBlockError(
+                f"invalid commit size: expected {state.last_validators.size()}, "
+                f"got {block.last_commit.size()}"
+            )
+        from tendermint_tpu_torch.types.validator_set import CommitError
+
+        try:
+            state.last_validators.verify_commit(
+                state.chain_id,
+                state.last_block_id,
+                block.header.height - 1,
+                block.last_commit,
+                batch_verifier=batch_verifier,
+            )
+        except CommitError as e:
+            raise InvalidBlockError(str(e)) from e
+
+    # the evidence section is PROPOSER-CONTROLLED input: every piece must
+    # be a provable prior-height double-sign by a validator of this chain
+    # before any honest node prevotes the block (types/evidence.py);
+    # every piece's signatures through the same batch
+    # verifier the commit above rode — one gateway call, per-lane
+    # attribution
+    from tendermint_tpu_torch.types.evidence import EvidenceError
+
+    try:
+        block.evidence.validate(
+            state.chain_id, block.header.height, state.validators,
+            batch_verifier=batch_verifier,
+        )
+    except EvidenceError as e:
+        raise InvalidBlockError(f"invalid evidence: {e}") from e
+
+
+def exec_block_on_proxy_app(event_cache, proxy_app_conn, block) -> ABCIResponses:
+    """BeginBlock -> streamed DeliverTx -> EndBlock
+    (state/execution.go:43-118)."""
+    from tendermint_tpu_torch.abci.types import Header as ABCIHeader
+
+    responses = ABCIResponses.for_block(block)
+    valid_txs = invalid_txs = 0
+
+    proxy_app_conn.begin_block_sync(
+        block.hash(),
+        ABCIHeader(
+            chain_id=block.header.chain_id,
+            height=block.header.height,
+            time_ns=block.header.time_ns,
+            num_txs=block.header.num_txs,
+            app_hash=block.header.app_hash,
+        ),
+    )
+    if proxy_app_conn.error():
+        raise ProxyAppConnError(str(proxy_app_conn.error()))
+
+    # stream txs asynchronously; responses arrive in order. The whole
+    # block dispatches in ONE grouped call when the connection offers it
+    # — a batch-capable app (the signed kvstore's one B1 launch a block)
+    # sees the txs together, a local client pays one lock round trip,
+    # and the socket client's default keeps the per-tx pipelining.
+    # TENDERMINT_DELIVER_BATCH=0 restores the per-tx dispatch
+    deliver_many = getattr(proxy_app_conn, "deliver_txs_async", None)
+    if os.environ.get("TENDERMINT_DELIVER_BATCH", "") == "0":
+        deliver_many = None
+    if deliver_many is not None and len(block.data.txs) > 1:
+        reqres = deliver_many(list(block.data.txs))
+        if proxy_app_conn.error():
+            raise ProxyAppConnError(str(proxy_app_conn.error()))
+    else:
+        reqres = []
+        for tx in block.data.txs:
+            reqres.append(proxy_app_conn.deliver_tx_async(tx))
+            if proxy_app_conn.error():
+                raise ProxyAppConnError(str(proxy_app_conn.error()))
+
+    for i, rr in enumerate(reqres):
+        res = rr.wait(timeout=60)
+        if res is None:
+            raise ProxyAppConnError("deliver_tx timed out")
+        responses.deliver_tx[i] = res
+        if res.is_ok:
+            valid_txs += 1
+        else:
+            invalid_txs += 1
+        if event_cache is not None:
+            fire_event_tx(
+                event_cache,
+                EventDataTx(
+                    height=block.header.height,
+                    tx=block.data.txs[i],
+                    data=res.data,
+                    log=res.log,
+                    code=res.code,
+                    error="" if res.is_ok else str(res.code),
+                ),
+            )
+
+    responses.end_block = proxy_app_conn.end_block_sync(block.header.height)
+    logger.info(
+        "executed block h=%d valid=%d invalid=%d",
+        block.header.height, valid_txs, invalid_txs,
+    )
+    return responses
+
+
+def val_exec_block(state: State, event_cache, proxy_app_conn, block, batch_verifier=None) -> ABCIResponses:
+    validate_block(state, block, batch_verifier=batch_verifier)
+    return exec_block_on_proxy_app(event_cache, proxy_app_conn, block)
+
+
+def apply_block(
+    state: State,
+    event_cache,
+    proxy_app_conn,
+    block,
+    parts_header,
+    mempool,
+    batch_verifier=None,
+) -> None:
+    """The one entry point that processes and commits an entire block
+    (state/execution.go:216-249)."""
+    responses = val_exec_block(state, event_cache, proxy_app_conn, block, batch_verifier)
+
+    fail_point()
+
+    index_txs(state, responses)
+    state.save_abci_responses(responses)
+
+    fail_point()
+
+    state.set_block_and_validators(block.header, parts_header, responses)
+
+    commit_state_update_mempool(state, proxy_app_conn, block, mempool)
+
+    fail_point()
+
+    state.save()
+
+
+def commit_state_update_mempool(state: State, proxy_app_conn, block, mempool) -> None:
+    """Mempool locked across app-Commit and mempool.Update so no CheckTx
+    runs against stale app state (state/execution.go:254-277)."""
+    mempool.lock()
+    try:
+        res = proxy_app_conn.commit_sync()
+        if not res.is_ok:
+            raise ProxyAppConnError(f"commit failed: {res.log}")
+        state.app_hash = res.data
+        mempool.update(block.header.height, block.data.txs)
+    finally:
+        mempool.unlock()
+
+
+def index_txs(state: State, responses: ABCIResponses) -> None:
+    from tendermint_tpu_torch.state.txindex import Batch
+
+    batch = Batch()
+    for i, d in enumerate(responses.deliver_tx):
+        batch.add(
+            TxResult(height=responses.height, index=i, tx=responses.txs[i], result=d)
+        )
+    state.tx_indexer.add_batch(batch)
+
+
+def exec_commit_block(proxy_app_conn, block) -> bytes:
+    """Execute and commit a block without touching State — used by
+    handshake replay (state/execution.go:297-314)."""
+    exec_block_on_proxy_app(None, proxy_app_conn, block)
+    res = proxy_app_conn.commit_sync()
+    if not res.is_ok:
+        raise ProxyAppConnError(f"commit failed: {res.log}")
+    return res.data

@@ -1,0 +1,113 @@
+"""Transaction indexing (reference: state/txindex/ — interface, KV impl
+keyed by tx hash, and null impl).
+
+Bounded retention: the kv index was the last per-height disk term a
+pruned node kept growing forever, so `add_batch` also writes a
+height-ordered secondary key per tx so `prune_to(height)` can drop
+every indexed tx below the retention coordinator's safe height without
+scanning the primary records (node/retention.py drives it on the same
+pass that prunes the block store and WAL)."""
+
+from __future__ import annotations
+
+import json
+
+from tendermint_tpu_torch.libs.db import DB
+from tendermint_tpu_torch.types.tx import TxResult, tx_hash
+
+# secondary key layout: b"h/" + zero-padded height + b"/" + tx hash.
+# Zero-padding keeps lexicographic order == height order; primary tx
+# records keep their raw-hash keys (no reindex on upgrade — txs indexed
+# before the height keys existed have none and outlive pruning, which is
+# the safe failure direction for an index).
+_HEIGHT_PREFIX = b"h/"
+_HEIGHT_DIGITS = 20
+
+
+def _height_key(height: int, h: bytes) -> bytes:
+    return _HEIGHT_PREFIX + b"%0*d/" % (_HEIGHT_DIGITS, height) + h
+
+
+class Batch:
+    def __init__(self):
+        self.ops: list[TxResult] = []
+
+    def add(self, result: TxResult) -> None:
+        self.ops.append(result)
+
+
+class TxIndexer:
+    def add_batch(self, batch: Batch) -> None:
+        raise NotImplementedError
+
+    def get(self, h: bytes) -> TxResult | None:
+        raise NotImplementedError
+
+    def prune_to(self, height: int) -> int:
+        """Drop indexed txs BELOW `height`. Returns txs removed."""
+        return 0
+
+
+class NullTxIndexer(TxIndexer):
+    """state/txindex/null: stores nothing."""
+
+    def add_batch(self, batch: Batch) -> None:
+        pass
+
+    def get(self, h: bytes) -> TxResult | None:
+        return None
+
+
+class KVTxIndexer(TxIndexer):
+    """state/txindex/kv: tx-hash -> TxResult in a KV store, plus the
+    per-height secondary index that makes pruning O(pruned)."""
+
+    def __init__(self, db: DB):
+        self.db = db
+        self.pruned_txs = 0
+
+    def add_batch(self, batch: Batch) -> None:
+        for result in batch.ops:
+            h = tx_hash(result.tx)
+            self.db.set(h, json.dumps(result.to_json()).encode())
+            self.db.set(_height_key(result.height, h), b"")
+
+    def get(self, h: bytes) -> TxResult | None:
+        from tendermint_tpu_torch.abci.types import ResponseDeliverTx
+
+        buf = self.db.get(h)
+        if buf is None:
+            return None
+        obj = json.loads(buf)
+        return TxResult(
+            height=obj["height"],
+            index=obj["index"],
+            tx=bytes.fromhex(obj["tx"]),
+            result=ResponseDeliverTx.from_json(obj["result"]) if obj["result"] else None,
+        )
+
+    def prune_to(self, height: int) -> int:
+        """Remove every indexed tx whose height is below `height` (the
+        retention coordinator's safe height — heights >= it survive).
+        Crash-safe by construction: the primary record is deleted before
+        its height key, so an interrupted pass leaves only height keys
+        whose primaries are gone — re-deleting those is idempotent."""
+        # materialize first: backends may not tolerate deletes under an
+        # open prefix iteration (sqlite cursor semantics)
+        doomed = []
+        for key, _value in self.db.iterate_prefix(_HEIGHT_PREFIX):
+            try:
+                hgt = int(key[len(_HEIGHT_PREFIX):len(_HEIGHT_PREFIX) + _HEIGHT_DIGITS])
+            except ValueError:
+                continue  # foreign key shape — never delete what we can't parse
+            if hgt < height:
+                doomed.append(key)
+        pruned = 0
+        for key in doomed:
+            h = key[len(_HEIGHT_PREFIX) + _HEIGHT_DIGITS + 1:]
+            if self.db.get(h) is not None:
+                self.db.delete(h)
+                pruned += 1
+            self.db.delete(key)
+        self.pruned_txs += pruned
+        return pruned

@@ -148,6 +148,12 @@ class Commit:
         fp = self.first_precommit()
         return fp.round_ if fp else 0
 
+    def size(self) -> int:
+        return len(self.precommits)
+
+    def is_commit(self) -> bool:
+        return len(self.precommits) != 0
+
     def validate_basic(self) -> str | None:
         """None if structurally valid; else an error string
         (types/block.go:305-338)."""

@@ -35,8 +35,11 @@ class ValidatorSet:
         if validators:
             self.increment_accum(1)
 
+    def _addresses(self) -> list[bytes]:
+        return [v.address for v in self.validators]
+
     def get_by_address(self, address: bytes) -> tuple[int, Validator | None]:
-        i = bisect.bisect_left([v.address for v in self.validators], address)
+        i = bisect.bisect_left(self._addresses(), address)
         if i < len(self.validators) and self.validators[i].address == address:
             return i, self.validators[i].copy()
         return 0, None
@@ -81,6 +84,46 @@ class ValidatorSet:
                 p = v.compare_accum(p)
             self.proposer = p
         return self.proposer.copy()
+
+    # -- membership changes (applied from ABCI EndBlock diffs,
+    #    state/execution.go:120-159) ----------------------------------------
+
+    def _invalidate(self) -> None:
+        self.proposer = None
+        self._total_voting_power = 0
+        self._hash = None
+
+    def add(self, val: Validator) -> bool:
+        val = val.copy()
+        i = bisect.bisect_left(self._addresses(), val.address)
+        if i < len(self.validators) and self.validators[i].address == val.address:
+            return False
+        self.validators.insert(i, val)
+        self._invalidate()
+        return True
+
+    def update(self, val: Validator) -> bool:
+        i, existing = self.get_by_address(val.address)
+        if existing is None:
+            return False
+        self.validators[i] = val.copy()
+        self._invalidate()
+        return True
+
+    def remove(self, address: bytes) -> tuple[Validator | None, bool]:
+        i = bisect.bisect_left(self._addresses(), address)
+        if i >= len(self.validators) or self.validators[i].address != address:
+            return None, False
+        removed = self.validators.pop(i)
+        self._invalidate()
+        return removed, True
+
+    def copy(self) -> "ValidatorSet":
+        vs = ValidatorSet(None)
+        vs.validators = [v.copy() for v in self.validators]
+        vs.proposer = self.proposer.copy() if self.proposer else None
+        vs._total_voting_power = self._total_voting_power
+        return vs
 
     def hash(self) -> bytes:
         """Merkle root of validator identity hashes

@@ -10,8 +10,11 @@ equal. Beside them: a signed-kvstore block verified in one batch on
 each side, app state carried across the packages by snapshot and by the
 persistent app's file, the socket wire between a client of one package
 and a server of the other, and the slice as a whole at a small size.
-`State` and block execution come with a later slice, as do the gRPC
-node tests.
+tests/test_abci_state.py's TestStatePersistence and TestExecution (State,
+apply_block, the tx index) run through both packages too, and so does the
+execution path as a whole: a 4-validator chain across its upgrade height,
+gated, built, applied and stored. The gRPC node tests come with a later
+slice.
 """
 
 from __future__ import annotations
@@ -58,6 +61,24 @@ def _pkg(root: str) -> types.SimpleNamespace:
         keys=importlib.import_module(f"{root}.crypto.keys"),
         protobuf=importlib.import_module(f"{root}.types.protobuf"),
         StateTreeProof=importlib.import_module(f"{root}.merkle.statetree_proof").TreeProof,
+        ABCIValidator=abci_types.ABCIValidator,
+        AppConnMempool=importlib.import_module(f"{root}.proxy.app_conn").AppConnMempool,
+        LocalClient=client.LocalClient,
+        parse_sig_tx=signedkv.parse_sig_tx,
+        state=importlib.import_module(f"{root}.state"),
+        execution=importlib.import_module(f"{root}.state.execution"),
+        KVTxIndexer=importlib.import_module(f"{root}.state.txindex").KVTxIndexer,
+        db=importlib.import_module(f"{root}.libs.db"),
+        levents=importlib.import_module(f"{root}.libs.events"),
+        events=importlib.import_module(f"{root}.types.events"),
+        types=importlib.import_module(f"{root}.types"),
+        block=importlib.import_module(f"{root}.types.block"),
+        agg=importlib.import_module(f"{root}.types.agg_commit"),
+        tx=importlib.import_module(f"{root}.types.tx"),
+        MockMempool=importlib.import_module(f"{root}.types.services").MockMempool,
+        mempool=importlib.import_module(f"{root}.mempool.mempool"),
+        BlockStore=importlib.import_module(f"{root}.blockchain.store").BlockStore,
+        make_test_config=importlib.import_module(f"{root}.config").test_config,
     )
 
 
@@ -777,3 +798,395 @@ def test_slice_restore_then_signed_blocks_through_app_conns():
         assert proof.verify(port.app_hash)
     for c in conns.values():
         c[1].stop()
+
+
+# -- State and block execution (tests/test_abci_state.py) ---------------------
+
+
+def _make_val_set(p, n: int, power: int = 10):
+    """n equal-power validators from seeded keys, and their signers in the
+    set's address order."""
+    privs = [p.types.PrivValidatorFS(p.keys.gen_priv_key_ed25519(f"val-{i}".encode()), None)
+             for i in range(n)]
+    vs = p.types.ValidatorSet([p.types.Validator.new(pv.get_pub_key(), power) for pv in privs])
+    privs.sort(key=lambda pv: pv.get_address())
+    return vs, privs
+
+
+def _make_genesis(p, n=4, power=10, chain_id="exec-chain", **schedule):
+    vs, privs = _make_val_set(p, n, power)
+    doc = p.types.GenesisDoc(
+        genesis_time_ns=0, chain_id=chain_id,
+        validators=[p.types.GenesisValidator(v.pub_key, v.voting_power) for v in vs.validators],
+        **schedule,
+    )
+    return doc, vs, privs
+
+
+def _commit_for(p, chain_id, vs, privs, height, block_id):
+    """The +2/3 precommits (here all) of `height` for `block_id`, as a
+    VoteSet makes them."""
+    voteset = p.types.VoteSet(chain_id, height, 0, p.types.VOTE_TYPE_PRECOMMIT, vs)
+    for pv in privs:
+        idx, _ = vs.get_by_address(pv.get_address())
+        vote = p.types.Vote(validator_address=pv.get_address(), validator_index=idx, height=height,
+                            round_=0, type_=p.types.VOTE_TYPE_PRECOMMIT, block_id=block_id)
+        voteset.add_vote(pv.sign_vote(chain_id, vote))
+    return voteset.make_commit()
+
+
+def _make_next_block(p, state, txs, privs, part_size=4096):
+    """A valid next block with a proper commit for the last block."""
+    height = state.last_block_height + 1
+    if height == 1:
+        commit = p.block.empty_commit()
+    else:
+        commit = _commit_for(p, state.chain_id, state.last_validators, privs, height - 1,
+                             state.last_block_id)
+    return p.types.Block.make_block(
+        height, state.chain_id, txs, commit, state.last_block_id, state.validators.hash(),
+        state.app_hash, part_size, time_ns=height * 10**9,
+    )
+
+
+class TestStatePersistence:
+    def test_genesis_and_reload(self):
+        def body(p):
+            doc, vs, _ = _make_genesis(p)
+            db = p.db.MemDB()
+            s = p.state.State.get_state(db, doc)
+            s2 = p.state.State.get_state(db, doc)
+            return (s.last_block_height, s.validators.hash() == vs.hash(), s2.equals(s), s.bytes_(),
+                    sorted(db._data.items()))
+
+        got = both(body)
+        assert got[:3] == (0, True, True)
+
+    def test_validators_history(self):
+        def body(p):
+            doc, vs, privs = _make_genesis(p)
+            db = p.db.MemDB()
+            s = p.state.State.get_state(db, doc)
+            # heights 1..3 without changes: the pointer chain resolves to the genesis set
+            conns = p.AppConns(p.LocalClientCreator(p.KVStoreApp()))
+            conns.start()
+            for h in range(1, 4):
+                block, ps = _make_next_block(p, s, [b"tx%d" % h], privs)
+                p.state.apply_block(s, None, conns.consensus(), block, ps.header(), p.MockMempool())
+            conns.stop()
+            return ([s.load_validators(h).hash() == vs.hash() for h in range(1, 4)], s.bytes_(),
+                    sorted(db._data.items()))
+
+        assert both(body)[0] == [True] * 3
+
+
+class TestExecution:
+    @staticmethod
+    def _setup(p, app=None):
+        doc, vs, privs = _make_genesis(p)
+        s = p.state.State.get_state(p.db.MemDB(), doc)
+        s.tx_indexer = p.KVTxIndexer(p.db.MemDB())
+        conns = p.AppConns(p.LocalClientCreator(app or p.KVStoreApp()))
+        conns.start()
+        return s, conns, privs
+
+    def test_apply_blocks_advances_state(self):
+        def body(p):
+            s, conns, privs = self._setup(p)
+            seen = []
+            for h in range(1, 4):
+                block, ps = _make_next_block(p, s, [b"key%d=val%d" % (h, h)], privs)
+                p.state.apply_block(s, None, conns.consensus(), block, ps.header(), p.MockMempool())
+                seen.append((s.last_block_height, s.last_block_id.hash == block.hash(), s.bytes_()))
+            # the app hash binds the app state, and the tx is indexed
+            q = conns.query().query_sync(b"key1")
+            r = s.tx_indexer.get(p.tx.tx_hash(b"key1=val1"))
+            conns.stop()
+            return seen, q.value, r.to_json(), sorted(s.tx_indexer.db._data.items())
+
+        seen, value, indexed, _ = both(body)
+        assert [x[:2] for x in seen] == [(1, True), (2, True), (3, True)]
+        assert value == b"val1" and indexed["height"] == 1
+
+    def test_validate_block_rejects(self):
+        def body(p):
+            s, conns, privs = self._setup(p)
+            block, ps = _make_next_block(p, s, [b"a=1"], privs)
+            p.state.apply_block(s, None, conns.consensus(), block, ps.header(), p.MockMempool())
+            errs = []
+            # the wrong height
+            bad, _ = _make_next_block(p, s, [b"b=2"], privs)
+            bad.header.height = 99
+            with pytest.raises(p.execution.InvalidBlockError) as e:
+                p.state.validate_block(s, bad)
+            errs.append(str(e.value))
+            # a tampered commit: two signatures dropped leave it below quorum
+            bad2, _ = _make_next_block(p, s, [b"b=2"], privs)
+            signed = [i for i, pre in enumerate(bad2.last_commit.precommits) if pre]
+            for i in signed[:2]:
+                bad2.last_commit.precommits[i] = None
+            bad2.header.last_commit_hash = bad2.last_commit.hash()
+            bad2.header.data_hash = b""
+            bad2.fill_header()
+            with pytest.raises(p.execution.InvalidBlockError) as e:
+                p.state.validate_block(s, bad2)
+            errs.append(str(e.value))
+            conns.stop()
+            return errs
+
+        errs = both(body)
+        assert "height" in errs[0] and "voting power" in errs[1]
+
+    def test_events_fired_on_flush(self):
+        def body(p):
+            s, conns, privs = self._setup(p)
+            evsw = p.levents.EventSwitch()
+            got = []
+            tx = b"watched=1"
+            evsw.add_listener_for_event("t", p.events.event_string_tx(p.tx.tx_hash(tx)), got.append)
+            cache = p.levents.EventCache(evsw)
+            block, ps = _make_next_block(p, s, [tx], privs)
+            p.state.apply_block(s, cache, conns.consensus(), block, ps.header(), p.MockMempool())
+            before = len(got)  # not yet flushed
+            cache.flush()
+            conns.stop()
+            return before, [d.to_json() for d in got]
+
+        before, got = both(body)
+        assert before == 0 and len(got) == 1 and got[0]["height"] == 1
+
+    def test_valset_change_via_endblock(self, tmp_path):
+        def body(p):
+            d = tmp_path / p.root
+            app = p.PersistentKVStoreApp(str(d))
+            s, conns, privs = self._setup(p, app)
+            new_pub = p.keys.gen_priv_key_ed25519(b"newval").pub_key()
+            block, ps = _make_next_block(p, s, [b"val:" + new_pub.raw.hex().encode() + b"/7"], privs)
+            p.state.apply_block(s, None, conns.consensus(), block, ps.header(), p.MockMempool())
+            _, v = s.validators.get_by_address(new_pub.address())
+            out = [s.validators.size(), s.last_height_validators_changed, v.voting_power, s.bytes_()]
+            # removal
+            block2, ps2 = _make_next_block(p, s, [b"val:" + new_pub.raw.hex().encode() + b"/0"], privs)
+            p.state.apply_block(s, None, conns.consensus(), block2, ps2.header(), p.MockMempool())
+            out += [s.validators.size(), s.bytes_(), s.load_validators(3).to_json()]
+            conns.stop()
+            return out
+
+        got = both(body)
+        assert got[:3] == [5, 2, 7] and got[4] == 4
+
+    def test_exec_commit_block(self):
+        def body(p):
+            s, conns, privs = self._setup(p)
+            block, _ = _make_next_block(p, s, [b"z=9"], privs)
+            app_hash = p.state.exec_commit_block(conns.consensus(), block)
+            conns.stop()
+            return app_hash
+
+        assert len(both(body)) == 20
+
+    def test_update_validators_errors(self):
+        def body(p):
+            _, vs, _ = _make_genesis(p)
+            missing = p.keys.gen_priv_key_ed25519(b"missing").pub_key()
+            diff = p.ABCIValidator([p.keys.TYPE_ED25519, missing.raw.hex().upper()], -5)
+            with pytest.raises(ValueError) as e:
+                p.execution.update_validators(vs, [diff])
+            # an unknown key with power adds; power 0 on a member removes it
+            key = [p.keys.TYPE_ED25519, missing.raw.hex().upper()]
+            p.execution.update_validators(vs, [p.ABCIValidator(key, 3)])
+            added = (vs.size(), vs.hash())
+            p.execution.update_validators(vs, [p.ABCIValidator(key, 0)])
+            return str(e.value), added, vs.size(), vs.hash()
+
+        err, added, size, _ = both(body)
+        assert err == "negative power -5" and added[0] == 5 and size == 4
+
+
+# -- the execution path as a whole, small --------------------------------------
+
+SLICE_VALIDATORS = 4
+SLICE_HEIGHTS = 3
+SLICE_TXS = 64
+SLICE_FORGED = 3
+
+
+def _slice_txs(p, height: int) -> tuple[list[bytes], list[int]]:
+    """SLICE_TXS signed txs and SLICE_FORGED forged ones, shuffled: new keys
+    and updates of the earlier heights' keys."""
+    txs, forged = [], []
+    for i in range(SLICE_TXS + SLICE_FORGED):
+        seed = bytes([height, i % 5]) + b"\x33" * 30
+        if i % 3 == 0 and height > 1:
+            payload = b"k-%d-%d=h%d" % (height - 1, i, height)
+        else:
+            payload = b"k-%d-%d=v%d" % (height, i, i)
+        tx = p.make_sig_tx(seed, payload)
+        if i % 23 == 7:
+            tx = tx[:40] + bytes([tx[40] ^ 0x10]) + tx[41:]
+            forged.append(i)
+        txs.append(tx)
+    assert len(forged) == SLICE_FORGED
+    return txs, forged
+
+
+def _drain(mp, size: int, results: dict, n: int, timeout: float = 120.0) -> None:
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        mp.flush_app_conn()
+        if mp.size() == size and len(results) == n:
+            return
+        time.sleep(0.01)
+    raise AssertionError(f"mempool holds {mp.size()}, {len(results)} of {n} answered")
+
+
+def _run_slice_chain(p, d, verifier, hasher):
+    """The node's wiring by hand (node/node.py): sqlite state, block store
+    and tx index; a SignedKVStoreApp behind AppConns; a mempool with a WAL
+    whose SigBatcher gates on `verifier`. Three heights across the upgrade
+    height 3: check_tx, reap, the block built as consensus builds it,
+    apply_block, the precommits, save_block. Returns what each height
+    produced and what the stores hold."""
+    doc, _vs, privs = _make_genesis(p, SLICE_VALIDATORS, chain_id="exec-slice",
+                                    upgrade_height=3, upgrade_format="aggregate")
+    dbs = {name: p.db.db_provider(name, "sqlite", str(d)) for name in ("state", "blockstore", "tx_index")}
+    state = p.state.State.get_state(dbs["state"], doc)
+    state.tx_indexer = p.KVTxIndexer(dbs["tx_index"])
+    store = p.BlockStore(dbs["blockstore"])
+    app = p.SignedKVStoreApp(verify_in_app=False)
+    app.deliver_verifier = verifier
+    if hasher is not None:
+        app.tree.hasher = hasher
+    conns = p.AppConns(p.LocalClientCreator(app))
+    conns.start()
+    cfg = p.make_test_config().mempool
+    cfg.root_dir = str(d)
+    batcher = p.mempool.SigBatcher(verifier, p.parse_sig_tx, max_wait_s=0.05)
+    mp = p.mempool.Mempool(cfg, conns.mempool(), sig_batcher=batcher)
+    mp.init_wal()
+    evsw = p.levents.EventSwitch()
+    fired = []
+    out = {"heights": [], "refusals": []}
+    seen_commit = None
+    try:
+        for height in range(1, SLICE_HEIGHTS + 1):
+            txs, forged = _slice_txs(p, height)
+            results: dict = {}
+            for i, tx in enumerate(txs):
+                mp.check_tx(tx, cb=lambda res, i=i: results.__setitem__(i, res.code))
+            _drain(mp, SLICE_TXS, results, len(txs))
+            refused = sorted(i for i, c in results.items() if c)
+            reaped = mp.reap(10_000)
+            if height == 1:
+                last = p.block.empty_commit()
+            elif doc.aggregate_commits_at(height):
+                last = p.agg.AggregateCommit.from_commit(seen_commit, state.chain_id, state.last_validators)
+            else:
+                last = seen_commit
+            kwargs = {}
+            if hasher is not None:
+                p.tx.set_batch_tx_root(hasher.tx_merkle_root)
+                kwargs = dict(part_hasher=hasher.part_leaf_hashes, part_tree_hasher=hasher.part_set_tree,
+                              part_tree_submitter=hasher.submit_part_set_tree)
+            block, parts = p.types.Block.make_block(
+                height, state.chain_id, reaped, last, state.last_block_id, state.validators.hash(),
+                state.app_hash, doc.consensus_params.block_gossip.block_part_size_bytes,
+                time_ns=height * 10**9, **kwargs)
+            if height >= 2:
+                out["refusals"].append(_tampered_refusal(p, state, block))
+            evsw.add_listener_for_event("w", p.events.event_string_tx(p.tx.tx_hash(reaped[0])),
+                                        lambda data: fired.append(data.to_json()))
+            cache = p.levents.EventCache(evsw)
+            p.state.apply_block(state, cache, conns.consensus(), block, parts.header(), mp,
+                                batch_verifier=verifier.commit_batch_verifier())
+            cache.flush()
+            seen_commit = _commit_for(p, state.chain_id, state.last_validators, privs, height,
+                                      state.last_block_id)
+            store.save_block(block, parts, seen_commit)
+            out["heights"].append({
+                "refused": refused, "forged": forged, "reaped": reaped, "block": block.to_bytes(),
+                "parts": parts.header().to_json(), "state": state.bytes_(), "app_hash": state.app_hash,
+                "abci": state.load_abci_responses().bytes_(), "pool_after": mp.size(),
+                "format": block.commit_format(),
+            })
+        out["events"] = fired
+        out["store"] = [(store.load_block(h).to_bytes(), store.load_block_meta(h).to_json(),
+                         store.load_block_commit(h - 1).to_json(), store.load_seen_commit(h).to_json())
+                        for h in range(1, store.height() + 1)]
+        out["index"] = [state.tx_indexer.get(p.tx.tx_hash(tx)).to_json()
+                        for h in out["heights"] for tx in h["reaped"]]
+        out["raw"] = {name: list(db.iterate_prefix(b"")) for name, db in dbs.items()}
+        out["check_tx_calls"] = app.check_tx_calls
+    finally:
+        batcher.stop()
+        mp.close_wal()
+        conns.stop()
+        if hasher is not None:
+            p.tx.set_batch_tx_root(None)
+    with open(cfg.wal_dir(), "rb") as f:
+        out["wal"] = f.read()
+    reopened = p.state.State.load_state(dbs["state"], doc)
+    out["reloaded"] = reopened.bytes_() == state.bytes_()
+    for db in dbs.values():
+        db.close()
+    return out
+
+
+def _tampered_refusal(p, state, block) -> str:
+    """validate_block on a copy of `block` whose LastCommit is tampered: a
+    forged precommit in a full commit, a dropped signer in an aggregate."""
+    bad = p.types.Block.from_bytes(block.to_bytes())
+    lc = bad.last_commit
+    if isinstance(lc, p.agg.AggregateCommit):
+        signers = lc.signers.copy()
+        signers.set_index(signers.indices()[0], False)
+        bad.last_commit = p.agg.AggregateCommit(lc.block_id, lc.height(), lc.round_(), signers,
+                                                lc.rs[1:], lc.s_agg)
+    else:
+        pre = lc.precommits[1]
+        raw = bytearray(pre.signature.raw)
+        raw[5] ^= 0x20
+        lc.precommits[1] = pre.with_signature(type(pre.signature)(bytes(raw)))
+        lc._hash = None
+    bad.header.last_commit_hash = bad.last_commit.hash()
+    bad.fill_header()
+    with pytest.raises(p.execution.InvalidBlockError) as e:
+        p.state.validate_block(state, bad)
+    return str(e.value)
+
+
+def test_slice_chain_gated_built_applied_stored(tmp_path, monkeypatch):
+    """4 validators, upgrade height 3 (aggregate), three heights of 64
+    signed txs and 3 forged through Mempool(SigBatcher(...)), the block
+    build, apply_block and save_block, in both packages. The port gates,
+    delivers and checks each LastCommit on Verifier(min_tpu_batch=4,
+    device="cpu") (B1's plain version; the aggregate LastCommit on dsm's,
+    through the default verifier) and builds on Hasher(device="cpu") (K1's
+    and K3's plain versions); the JAX package on its CPU verifier with no
+    hasher. Block bytes, state bytes, app hashes, store records, tx-index
+    entries and the mempool WAL are equal (abs_tol 0: all are bytes or
+    integers)."""
+    from tendermint_tpu.ops.gateway import Verifier as JVerifier
+    from tendermint_tpu_torch.ops import gateway
+    from tendermint_tpu_torch.ops.gateway import Hasher, Verifier
+
+    port_v = Verifier(min_tpu_batch=4, device="cpu")
+    monkeypatch.setattr(gateway, "_default_verifier", port_v)
+    hasher = Hasher(device="cpu", min_tpu_batch=1)
+    (tmp_path / "port").mkdir()
+    (tmp_path / "jax").mkdir()
+    got = _run_slice_chain(PORT, tmp_path / "port", port_v, hasher)
+    want = _run_slice_chain(JAX, tmp_path / "jax", JVerifier(min_tpu_batch=4, use_tpu=False), None)
+    assert got == want
+    for h in got["heights"]:
+        assert h["refused"] == h["forged"] and len(h["reaped"]) == SLICE_TXS and h["pool_after"] == 0
+    assert [h["format"] for h in got["heights"]] == ["full", "full", "aggregate"]
+    assert "invalid signature" in got["refusals"][0] and got["refusals"][1]
+    assert got["check_tx_calls"] == SLICE_HEIGHTS * SLICE_TXS  # no forged tx reached the app
+    assert got["reloaded"] and len(got["index"]) == SLICE_HEIGHTS * SLICE_TXS
+    assert got["wal"].count(b"\n") == SLICE_HEIGHTS * (SLICE_TXS + SLICE_FORGED)
+    # every wide batch of the port's ran its kernels' plain versions
+    st = port_v.stats()
+    assert st["agg_batches"] >= 1 and st["agg_lanes_device"] >= SLICE_VALIDATORS + 1
+    assert st["tpu_sigs"] >= SLICE_HEIGHTS * SLICE_TXS * 2
+    assert hasher.stats()["tpu_tx_roots"] >= SLICE_HEIGHTS

@@ -1,10 +1,11 @@
 """Chaos on the port's device plane (ops/faults.py), the JAX test file's
-cases (tests/test_chaos_devd.py) that need no mempool or consensus:
-seeded fault schedules, the breaker's trial mode, faults in process and
+cases (tests/test_chaos_devd.py) that need no consensus: seeded fault
+schedules, the breaker's trial mode, faults in process and
 through a FaultProxy in front of a real sim daemon (verdicts and digests
 equal the CPU's throughout), a blackout that opens the breaker and
 re-closes it, and the multi-daemon plane's kill, all-open and flapping
-rows. Beside them: the same seeded FaultPlan picks the same schedule in
+rows, and the mempool's signature gate delivering every verdict exactly
+once across a daemon's death. Beside them: the same seeded FaultPlan picks the same schedule in
 both packages, and clients of either package through either package's
 proxy get the same answers from a port daemon.
 
@@ -598,3 +599,55 @@ def test_fault_proxy_as_its_own_process(chaos_env, sock_dir):
             proc.kill()
             proc.wait(timeout=10)
         sup.stop()
+
+
+# -- the mempool's sig gate: exactly once across a daemon's death --------------
+
+
+def test_sigbatcher_exactly_once_across_daemon_death(chaos_env):
+    """The daemon dying between the gate's two in-flight batches neither
+    drops nor doubles a tx verdict: every accepted submission is delivered
+    exactly once, and no valid signature is reported invalid (the
+    verifier's CPU floor re-verifies; the gate fails open only when the
+    verifier itself fails)."""
+    from tendermint_tpu_torch.mempool.mempool import SigBatcher
+
+    sup = DaemonSupervisor(chaos_env, SIM_ENV)
+    sup.start()
+    delivered: list = []
+    dmtx = threading.Lock()
+
+    def on_results(results):
+        with dmtx:
+            delivered.extend(results)
+
+    v = gateway.Verifier(min_tpu_batch=1)
+    assert v.kernel == "devd"
+    items = _items(512, tag=b"gate")
+    sb = SigBatcher(v, parse=lambda tx: tx, max_batch=64,
+                    max_wait_s=0.001, on_results=on_results, max_inflight=2)
+    try:
+        accepted = []
+        for i, it in enumerate(items):
+            if sb.submit(it, i):
+                accepted.append(i)
+            if i == 128:
+                sup.kill()  # mid-burst, batches in flight
+            elif i == 320:
+                sup.restart()
+            if i % 64 == 0:
+                time.sleep(0.01)  # let batches go in flight mid-churn
+    finally:
+        sb.stop()
+        sb._thread.join(timeout=30.0)
+        sup.stop()
+    assert not sb._thread.is_alive()
+    with dmtx:
+        got = sorted(ctx for ctx, _ok in delivered)
+        oks = {ctx: ok for ctx, ok in delivered}
+    assert got == accepted, "dropped or duplicated tx verdicts"
+    assert sb.delivered == len(accepted) == len(items)
+    # every submission was validly signed: none may be reported invalid
+    assert all(oks.values())
+    st = v.stats()
+    assert st["tpu_sigs"] + st["cpu_sigs"] >= len(items)

@@ -65,15 +65,28 @@ def test_grpc_only_inside_functions(path):
         assert mod.split(".")[0] != "grpc", f"{path}: imports {mod} at module level"
 
 
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_sqlite_and_toml_only_inside_functions(path):
+    """The stores and the config loader ask for sqlite3 and tomllib in the
+    function that opens a database or reads a config.toml, as the JAX
+    package's do: importing a port module never loads them."""
+    for mod in _module_level_imports(path):
+        top = mod.split(".")[0]
+        assert top not in ("sqlite3", "tomllib", "tomli"), f"{path}: imports {mod} at module level"
+
+
 def test_every_module_imports_with_jax_blocked():
-    """A fresh interpreter where `import jax` fails imports every port
-    module and chip_smoke."""
+    """A fresh interpreter where `import jax` fails (and grpc, sqlite3 and
+    tomllib, which port modules ask for only inside functions) imports
+    every port module and chip_smoke."""
     names = [_module_name(p) for p in PORT_FILES]
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['tendermint_tpu'] = None\n"
         "sys.modules['grpc'] = None\n"
+        "sys.modules['sqlite3'] = None\n"
+        "sys.modules['tomllib'] = None\n"
         f"import importlib\nfor n in {names!r}:\n    importlib.import_module(n)\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
         "print('ok', len(" + repr(names) + "))\n"
