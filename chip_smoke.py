@@ -111,8 +111,8 @@ Phases, in order; any failure raises and exits non-zero:
    (RIPEMD-160) and K2 (SHA-256), `csrc/hash_blocks.cu`, at 1, 7, 33, 100
    and 1,025 messages whose first lanes have the lengths 0, 55, 56, 63, 64,
    119, 120, 10,240 and 65,536, digest words equal to the plain version's
-   (run once over the widest batch) and to crypto.hashing.ripemd160 /
-   hashlib.sha256, lane for lane; K3 (the Merkle tree), `csrc/merkle_tree.cu`,
+   (run once over the widest batch's messages of at most 33 blocks) and,
+   every lane, to crypto.hashing.ripemd160 / hashlib.sha256; K3 (the Merkle tree), `csrc/merkle_tree.cu`,
    at 2 to 10,000 leaves, every node equal to `_run_tree` and to
    FlatTree.from_leaf_digests, slot for slot.
 19. The main path of the hash plane: `Block.make_block` wired as
@@ -131,9 +131,11 @@ Phases, in order; any failure raises and exits non-zero:
    refused. Then K2's path, `ops.hashing.sha256_batch`, once. Every
    kernel call of these paths is recorded (its inputs and output), and
    after the counts are read each is held against its plain version on
-   the card: K1 on both blocks' tx leaves and parts, K2 on the
-   transactions, K3 on the four real trees (16, 318, 4,000 and 10,000
-   leaves).
+   the card: K1's lanes of at most 33 blocks (both blocks' tx leaves, most
+   of them) and K2's in one plain walk each, every longer lane (the 64 KB
+   parts, the longer transactions) against the host's digest of the
+   message read back from the recorded words; K3 on the four real trees
+   (16, 318, 4,000 and 10,000 leaves).
 20. Times: the ALU yardsticks (`imad_rate.cu`'s LOP3/IADD3/SHF rate and
    one dependent instruction's latency), K1 on both blocks' part and
    tx-leaf batches, K2 on the tx leaves, K3 on phase 19's four trees
@@ -215,7 +217,7 @@ Phases, in order; any failure raises and exits non-zero:
    byte. Then a block of 1,000 through an `ABCIServer` and a
    `SocketClient` to each app (tx by tx: each verifies on the host, the
    commit's waves on K1): responses and app hashes equal.
-26. Times, the card against the host reference: the restore (best of 3;
+26. Times, the card against the host reference: the restore (best of 2;
    its tree build, its hashing and the Hasher's K1 calls within it), the
    three blocks replayed on freshly restored apps, each split into the
    verify (B1 with its marshal, or the native CPU floor), the priorities,
@@ -250,14 +252,48 @@ Phases, in order; any failure raises and exits non-zero:
    sqlite files reopen to the same state and blocks, and a fresh card
    app replays the stored blocks through `exec_commit_block` to the same
    app hashes.
-28. Times, warm best of 3, card and host in turns on fresh chains (a
+28. Times, warm best of 2, card and host in turns on fresh chains (a
    fresh `Hasher` each card run), each height after a full collection of
    the heap: the burst (first check_tx to drained, and the gate thread's
    seconds in the verifier), `make_block`, `validate_block`, `apply_block`
    split into the deliver, the app commit and the state save with
    indexing, and `save_block`.
 
-Each path's launch counts are set to 0 just before it and read just after
+29. The transport and fast sync, in process (no daemon socket): node A, an
+   exec_chain of benches/bench_fastsync.py's 1,000 validators (phase 3's
+   1,000-validator set) with `upgrade_height` 21, builds 24 heights of
+   1,000 signed txs (960-byte values: blocks over 1 MB, 17 or more 64 KB
+   parts) and serves its sqlite store through a BlockchainReactor on a
+   switch with a listener on 127.0.0.1. Node B, empty, wired as
+   node/node.py wires a node (sqlite stores, a SignedKVStoreApp on 4
+   shards behind AppConns, the reactor on `Verifier(device="cuda:0")`'s
+   commit_batch_verifier and verify_batch_async and a `Hasher` on the
+   card's part hashers, the tx-root hook on that Hasher), dials A over TCP
+   with secret connections (5,120,000 B/s each way, a 10 ms flush
+   throttle), syncs the 23 heights the pool can prove (the last waits for
+   its successor's LastCommit; `BlockPool.is_caught_up` confirms) and
+   switches to consensus once. Its blocks, store records, sampled tx-index
+   entries, state and app hash equal A's, and so do those of the host
+   reference B' (every lane on the native CPU floor, the aggregate
+   LastCommits on the host's reference check, host hashing), which
+   launches nothing. Launches, set to 0 before B's dial and read after: B1
+   once a verify group (each of whole commits, 4 or fewer), once a full
+   LastCommit at apply and once a deliver; dsm once an aggregate LastCommit
+   proving a height and once one checked at apply (1,001 lanes); K1 and K3
+   twice a block (its part set, its tx root), K1 once a commit wave; the
+   verifier's `tpu_sigs` and `agg_lanes_device` equal to those lanes, none
+   on the CPU. Then a tampered peer C (A's blocks, one signature of block
+   13's LastCommit flipped), dialed before A, is stopped for "sent invalid
+   block" exactly once, A stays, and the records are A's.
+30. Times, best of 2 (phase 29's B and B' and one more pair; the smoke's
+   clock allows no third), B and B' in turns on fresh stores after a full
+   collection: the sync's wall time (the dial to the last block applied)
+   and blocks/s (`fastsync_blocks_per_sec`), the reactor's `stage_s`
+   (dispatch, which holds part_hash, verify_wait, store_save, apply) and
+   the wall time they leave (the transport and the pool).
+
+Each phase's start is logged on a line of its own, in seconds since
+launch. Each path's launch counts are set to 0 just before it and read just after
 (the daemons', in phases 21 and 23, read from their logs before and after).
 The last lines are the kernels' JSON summary, the card line, and
 {"ok": true, "device": {...}}. Weights are keys made from a numpy seed;
@@ -276,6 +312,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -337,6 +374,11 @@ HASH_COUNTS = (1, 7, 33, 100, 1025)  # messages a K1 / K2 batch in phase 18
 # where the block count changes (55/56, 119/120), the empty message, the
 # tx cap and a 64 KB part: the first lanes of every phase-18 batch
 HASH_EDGE_LENGTHS = (0, 55, 56, 63, 64, 119, 120, 10_240, 65_536)
+# the longest message the plain K1 / K2 walks take (phases 18-19): the
+# walk's time grows with the longest message's blocks (a 65,536-byte
+# part's 1,025 took 35-40 s); a longer message is held against the host's
+# digest of it instead
+PLAIN_MAX_BLOCKS = 33
 # K3 against its plain version in phase 18; 336 is the part count of a
 # block at the byte cap (22,020,096 / 65,536); around K3's cut (a round
 # wider than one block's sweep of 512 nodes runs on a grid): 1,024 and
@@ -360,6 +402,9 @@ RMD_LINE_MARKS = {"left": r"0x(5a827999|6ed9eba1|8f1bbcdc|a953fd4e)\b",
                   "right": r"0x(50a28be6|5c4dd124|6d703ef3|7a6d76e9)\b"}
 SHARDS = 4  # B1' on one card: 4 shards over cuda:0
 PROFILE_TRIES = 3  # traces device_ms takes before it gives up on a kernel
+# a plain version's time: one run on the card (each was run on the card by an
+# earlier phase's check; a run of B1's or B2's takes 3-7 s)
+PLAIN_TIME_REPS = 1
 MIXED_SECP = 4  # secp256k1 validators of the 100-validator mixed commit
 DEVD_HELD_S = 180  # phase 21: the daemon's start, probe, build, warm-up and bake-off
 DEVD_STOP_S = 30  # the daemon's exit after the shutdown op, before it is killed
@@ -380,6 +425,7 @@ APP_SIGNERS = 64
 APP_PROOF_KEYS = 16  # sampled keys of each kind: untouched, updated, deleted, absent
 APP_REF_GATE = 10_001  # the reference Verifier's size gate: a block's lanes on the native CPU floor
 APP_MIN_GATEWAY = 0.96  # a card restore's K1 leaves, at least this share of the state's keys
+APP_RESTORE_RUNS = 2  # phase 26: the restore's best of 2, card and host in turns
 # phase 25's launches beside B1's and K1's entries in the kernels line
 APP_LAUNCH_KEYS = {"ed25519_verify": "b1", "ripemd160": "ripemd160"}
 # phases 27-28, the exec_chain cell: phase 3's 100-validator set (BASELINE.json's
@@ -393,18 +439,47 @@ EXEC_BLOCK = (("update", 7_000), ("new", 3_000), ("forged", 10))
 EXEC_VALUE_BYTES = 64
 EXEC_SIGNERS = 64
 EXEC_INDEX_SAMPLE = 64  # txs whose tx-index entries are compared each height
-EXEC_TIME_RUNS = 3  # phase 28: warm best of 3
+EXEC_TIME_RUNS = 2  # phase 28: warm best of 2
 EXEC_DRAIN_S = 300.0  # the bound on a burst's drain
 # phase 27's launches beside the kernels' entries in the kernels line
 EXEC_LAUNCH_KEYS = {"ed25519_verify": "b1", "ed25519_dsm": "dsm", "ripemd160": "ripemd160",
                     "merkle_tree": "merkle_tree"}
+# phases 29-30, the fast_sync cell: benches/bench_fastsync.py's 1,000 validators
+# (BASELINE.json config 4, fast-sync replay) at equal power, default
+# ConsensusParams, an upgrade to aggregate commits at height 21
+# (docs/upgrade.md); 24 heights of config 4's 10,000, each 1,000 signed kv
+# txs (the first all new keys, then 700 updates and 300 new), values of 960
+# bytes so a block, even block 1 with no LastCommit, is over 1 MB
+# (BASELINE.json's 1 MB block): 17 or more 64 KB parts, over the Hasher's
+# 16-leaf gate
+FASTSYNC_HEIGHTS = 24
+FASTSYNC_UPGRADE_HEIGHT = 21
+FASTSYNC_FIRST_BLOCK = (("new", 1_000),)
+FASTSYNC_BLOCK = (("update", 700), ("new", 300))
+FASTSYNC_VALUE_BYTES = 960
+FASTSYNC_SIGNERS = 64
+FASTSYNC_TAMPER_HEIGHT = 4  # phase 29's peer C flips a signature of block 5's LastCommit
+FASTSYNC_TIME_RUNS = 2  # phases 29-30: best of 2 (phase 29's pair and one more), card and host in turns
+FASTSYNC_SYNC_S = 600.0  # the bound on each wait of a sync
+# the nodes' p2p config: 5,120,000 B/s each way, and a 10 ms flush throttle
+# (the MConnection sends at most 64 packets a wake-up, so the default 100 ms
+# caps a connection near 0.64 MB/s)
+FASTSYNC_P2P = {"send_rate": 5_120_000, "recv_rate": 5_120_000, "flush_throttle_timeout": 0.01}
 # phase 21's daemon launches beside each kernel's entry in the kernels line
 DEVD_LAUNCH_KEYS = {"ed25519_verify": "b1", "ed25519_comb": "comb", "ed25519_comb_tables": "tables",
                     "ed25519_dsm": "dsm", "ripemd160": "ripemd160", "merkle_tree": "merkle_tree"}
 
 
+LAUNCHED = time.monotonic()
+
+
 def log(obj) -> None:
     print(obj if isinstance(obj, str) else json.dumps(obj), flush=True)
+
+
+def phase_start(n: int, what: str) -> None:
+    """A line of its own as each phase starts: seconds since launch."""
+    log({"phase_start": n, "what": what, "t_s": round(time.monotonic() - LAUNCHED, 3)})
 
 
 def card_line() -> str:
@@ -737,6 +812,7 @@ def main() -> int:
     from tendermint_tpu_torch.types.validator_set import ValidatorSet
 
     # -- phase 1: card and build ---------------------------------------------
+    phase_start(1, "card and build")
     card = card_line()
     name, power = [s.strip() for s in card.split(",", 1)]
     log(f"card: {card}")
@@ -757,6 +833,7 @@ def main() -> int:
     log({"phase": "build", "kernel": "native host library", "seconds": time.perf_counter() - t0})
 
     # -- set-up: keys, signatures and commits from one seed ---------------------
+    phase_start(0, "set-up: keys, signatures, commits, signed txs")
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED)
     n_small, n_mid, n_keys = SET_SIZES
@@ -784,13 +861,18 @@ def main() -> int:
         app_inputs_s = time.perf_counter() - t_app
         t_exec = time.perf_counter()
         exec_inputs = make_exec_inputs(pool, np.random.default_rng(SEED + 27))
+        exec_inputs_s = time.perf_counter() - t_exec
+        t_fs = time.perf_counter()
+        fastsync_inputs = make_fastsync_inputs(pool, np.random.default_rng(SEED + 29))
     log({"phase": "setup", "keys": n_keys,
          "signatures": MIXED_LANES + n_small + 4 * n_mid + n_keys + AGG_SIZES[1],
          "app_state_keys": APP_STATE_KEYS, "app_signed_txs": sum(len(b["txs"]) for b in app_inputs["blocks"]),
          "app_inputs_s": app_inputs_s, "exec_signed_txs": sum(len(b["txs"]) for b in exec_inputs),
-         "exec_inputs_s": time.perf_counter() - t_exec, "seconds": time.perf_counter() - t0})
+         "exec_inputs_s": exec_inputs_s, "fastsync_signed_txs": sum(len(b["txs"]) for b in fastsync_inputs),
+         "fastsync_inputs_s": time.perf_counter() - t_fs, "seconds": time.perf_counter() - t0})
 
     # -- phase 2: kernel vs plain version on the card ---------------------------
+    phase_start(2, "kernel vs plain version")
     group_items = [it for bid, c, h in group for it in recorded_items(vs1000, h, bid, c)]
     shapes = {
         "mixed": mixed,
@@ -825,11 +907,15 @@ def main() -> int:
             log({"phase": "reference_sample", "lanes": len(sample), "verdicts_seen": families})
         elif not verdicts.all():
             raise AssertionError(f"{label}: a valid commit signature was rejected")
+    # the plain version once over the widest ragged count: a lane's verdict
+    # depends on its own signature only
+    args, _, _ = f32p.marshal_device_args(mixed[:max(RAGGED_LANES)], DEVICE)
+    ragged_want = f32.verify_plain(args[0].float(), args[1].float(), args[2].float(), args[3],
+                                   args[4].int(), args[5].int()).to(torch.int32)
     for n in RAGGED_LANES:
         args, _, _ = f32p.marshal_device_args(mixed[:n], DEVICE)
         got = f32p.verify_lanes(*args)
-        want = f32.verify_plain(args[0].float(), args[1].float(), args[2].float(), args[3],
-                                args[4].int(), args[5].int()).to(torch.int32)
+        want = ragged_want[:got.shape[0]]
         err = int((got - want).abs().max().item())
         max_err = max(max_err, err)
         log({"phase": "kernel_vs_plain", "shape": "ragged", "lanes": n, "max_abs_err": err})
@@ -839,6 +925,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # -- phase 3: the main path through ValidatorSet and Verifier ---------------
+    phase_start(3, "main path")
     forged = Commit(bid100, list(c100.precommits))
     p7 = forged.precommits[7]
     raw = bytearray(p7.signature.raw)
@@ -880,6 +967,7 @@ def main() -> int:
         raise AssertionError(f"{stats['cpu_sigs']} main-path signatures fell to the CPU")
 
     # -- phase 4: times ---------------------------------------------------------
+    phase_start(4, "times")
     warm = {
         "commit_small": lambda: vs100.verify_commit(
             CHAIN_ID, bid100, 1, c100, batch_verifier=v.commit_batch_verifier()),
@@ -906,7 +994,7 @@ def main() -> int:
     args, _, _ = f32p.marshal_device_args(mixed, DEVICE)
     plain_args = (args[0].float(), args[1].float(), args[2].float(), args[3],
                   args[4].int(), args[5].int())
-    plain_ms = cuda_ms(lambda: f32.verify_plain(*plain_args), reps=3, warmup=1)
+    plain_ms = cuda_ms(lambda: f32.verify_plain(*plain_args), reps=PLAIN_TIME_REPS, warmup=0)
     log({"phase": "plain_time", "card": name, "power_limit": power, "lanes": MIXED_LANES,
          "ms": plain_ms})
 
@@ -932,56 +1020,91 @@ def main() -> int:
     commits = {"commit_small": (vs100, bid100, c100), "fast_sync_group": (vs1000, group),
                "commit_large": (vs10k, bid10k, c10k), "agg_100": (vs100, bid100, c100),
                "agg_400": (vs400, bid400, c400)}
+    phase_start(5, "B2 against its plain version")
     b2_err = check_b2(shapes, rng)
+    phase_start(6, "dsm against its plain version")
     dsm_terms, dsm_err = check_dsm(rng, pubs[:256], commits["agg_100"])
+    phase_start(7, "main path through B2")
     b2_launches, b2_runs, b2_wall = b2_main_path(commits, forged, sub_quorum)
+    phase_start(8, "aggregate path")
     dsm_launches = aggregate_path(commits, sub_quorum)
     dsm_err = max(dsm_err, check_dsm_path_shapes(commits))
+    phase_start(9, "B2 and dsm times")
     b2_ms, b2_plain_ms, dsm_ms, dsm_plain_ms = time_b2_and_dsm(
         name, power, mixed, dsm_terms, commits, b2_runs, b2_wall)
 
     # -- phases 10 to 12: B1' and the sharded main path ------------------------
+    phase_start(10, "B1' against B1 and the plain version")
     sharded_err = check_sharded(shapes, whole)
+    phase_start(11, "sharded main path")
     mixed_commit = make_mixed_commit(validators[: n_small - MIXED_SECP], seed_of, rng)
     sharded_launches = sharded_main_path(commits, forged, sub_quorum, mixed_commit)
+    phase_start(12, "sharded times")
     sharded_ms = time_sharded(name, power, mixed, commits)
 
     # -- phases 13 to 17: the comb path and the torch compositions --------------
+    phase_start(13, "comb kernels against their plain versions")
     comb_pool, comb_err = check_comb(shapes, whole, pubs, rng)
+    phase_start(14, "main path through comb")
     comb_launches = comb_main_path(name, power, commits, forged, sub_quorum)
+    phase_start(15, "a 64-slot comb pool")
     comb_small_pool(commits)
+    phase_start(16, "torch compositions")
     registry_compositions(name, power, commits, mixed)
+    phase_start(17, "comb times")
     comb_times = time_comb(name, power, comb_pool, shapes, group_items, pubs)
     del comb_pool
 
     # -- phases 18 to 20: the hash plane ----------------------------------------
+    phase_start(18, "hash kernels against their plain versions")
     hash_err, hash_plain_s = check_hash_kernels(rng)
+    phase_start(19, "main path of the hash plane")
     block_txs, params = make_block_txs(rng)
     hash_launches, built, hash_calls = hash_main_path(commits["commit_small"], block_txs, params)
     path_err = check_path_kernels(hash_calls, block_txs)
+    phase_start(20, "hash times")
     hash_entries = time_hashes(name, power, commits["commit_small"], block_txs, built, hash_calls,
                                params, hash_plain_s)
     del hash_calls
 
     # -- phases 21 and 22: the device daemon --------------------------------------
+    phase_start(21, "device daemon")
     one_daemon = devd_phase(name, power, commits, forged, sub_quorum, shapes, block_txs, params)
     devd_launches = one_daemon["launches"]
 
     # -- phases 23 and 24: the multi-daemon plane ----------------------------------
+    phase_start(23, "multi-daemon plane")
     fleet_launches = fleet_phase(name, power, commits, forged, sub_quorum, shapes, block_txs, params,
                                  one_daemon)
 
     # -- phases 25 and 26: the ABCI application plane --------------------------------
+    phase_start(25, "application plane")
     app_ctx = app_phase(name, power, app_inputs)
+    phase_start(26, "application plane times")
     app_time(name, power, app_ctx)
     app_launches = app_ctx["launches"]
     del app_ctx, app_inputs
 
     # -- phases 27 and 28: the execution path --------------------------------------
+    phase_start(27, "execution path")
     exec_ctx = exec_phase(name, power, vs100, seed_of, exec_inputs)
+    phase_start(28, "execution path times")
     exec_time(name, power, exec_ctx)
     exec_launches = exec_ctx["launches"]
     del exec_ctx, exec_inputs
+
+    # -- phases 29 and 30: the transport and fast sync -----------------------------
+    phase_start(29, "transport and fast sync")
+    fs_ctx = fastsync_phase(name, power, vs1000, seed_of, fastsync_inputs)
+    try:
+        phase_start(30, "fast-sync times")
+        fastsync_time(name, power, fs_ctx)
+    finally:
+        fs_ctx["server"].close()
+        shutil.rmtree(fs_ctx["root"], ignore_errors=True)
+    fastsync_launches = fs_ctx["launches"]
+    del fs_ctx, fastsync_inputs
+    phase_start(31, "kernels line")
 
     entries = []
     for kname, module, launches, err, ms, p_ms, lanes in (
@@ -1032,6 +1155,7 @@ def main() -> int:
             entry["app_launches"] = app_launches[APP_LAUNCH_KEYS[entry["name"]]]
         if entry["name"] in EXEC_LAUNCH_KEYS:
             entry["exec_launches"] = exec_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
+            entry["fastsync_launches"] = fastsync_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
     log({"kernels": entries})
     log(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1337,7 +1461,7 @@ def time_b2_and_dsm(name, power, mixed, dsm_terms, commits, b2_runs, b2_wall):
         log({"phase": "b2_time", **tag, "lanes": lanes, "ms": b2_ms[lanes],
              "sigs_per_s": lanes / b2_ms[lanes] * 1e3, "bound_ms": b_ms, "bound_by": b_by})
     args, _, _ = f32p.marshal_device_args(mixed, DEVICE)
-    b2_plain_ms = cuda_ms(lambda: b2.verify_plain(*args), reps=3, warmup=0)
+    b2_plain_ms = cuda_ms(lambda: b2.verify_plain(*args), reps=PLAIN_TIME_REPS, warmup=0)
     log({"phase": "b2_plain_time", **tag, "lanes": MIXED_LANES, "ms": b2_plain_ms})
 
     dsm_ms = {}
@@ -1349,7 +1473,7 @@ def time_b2_and_dsm(name, power, mixed, dsm_terms, commits, b2_runs, b2_wall):
              "bound_ms": b_ms, "bound_by": b_by})
     rows = ed32.marshal_dsm_args(dsm_terms[:DSM_LANES], DEVICE)
     limbs = [ed32.limbs_from_bytes(r) for r in rows]
-    dsm_plain_ms = cuda_ms(lambda: ed32.dsm_plain(*limbs), reps=3, warmup=0)
+    dsm_plain_ms = cuda_ms(lambda: ed32.dsm_plain(*limbs), reps=PLAIN_TIME_REPS, warmup=0)
     log({"phase": "dsm_plain_time", **tag, "lanes": DSM_LANES, "ms": dsm_plain_ms})
 
     dv = gateway.default_verifier()
@@ -1678,13 +1802,16 @@ def check_comb(shapes, whole, pubs, rng):
 
     err = {"ed25519_comb_tables": 0, "ed25519_comb": 0}
     # the tables of 1 to 1000 keys (two 32-position blocks a key), bytes
-    # exactly, slot 0 untouched
+    # exactly, slot 0 untouched; the plain version once over the most keys
+    # (a key's table depends on the key only)
+    qx, qy = comb_key_rows(pubs[:max(COMB_RAGGED_KEYS)])
+    plain_rows = comb.build_tables_plain(torch.from_numpy(qx).to(DEVICE).float(),
+                                         torch.from_numpy(qy).to(DEVICE).float()).to(torch.uint8)
     for k in COMB_RAGGED_KEYS:
-        qx, qy = comb_key_rows(pubs[:k])
         pool = torch.zeros(((k + 1) * comb.ROWS_PER_SLOT, comb.COORD_ROWS), dtype=torch.uint8, device=DEVICE)
-        kx, ky = torch.from_numpy(qx).to(DEVICE), torch.from_numpy(qy).to(DEVICE)
+        kx, ky = (torch.from_numpy(np.ascontiguousarray(a[:, :k])).to(DEVICE) for a in (qx, qy))
         comb.build_lanes(pool, kx, ky, torch.arange(1, k + 1, dtype=torch.int32, device=DEVICE))
-        want = comb.build_tables_plain(kx.float(), ky.float()).to(torch.uint8)
+        want = plain_rows[:k]
         got = pool.view(k + 1, comb.ROWS_PER_SLOT, comb.COORD_ROWS)
         torch.cuda.synchronize()
         e = int((got[1:].int() - want.int()).abs().max().item())
@@ -1695,6 +1822,7 @@ def check_comb(shapes, whole, pubs, rng):
             raise AssertionError(f"table kernel disagrees with build_tables_plain at {k} keys: keys {bad} "
                                  "(or slot 0 written)")
         del pool, want, got
+    del plain_rows
 
     # every validator's table in one launch, in the pool the verdicts use
     cpool = comb.CombPool(capacity=len(pubs) + 128, max_capacity=len(pubs) + 128, device=DEVICE)
@@ -1901,8 +2029,9 @@ def comb_small_pool(commits) -> None:
 def registry_compositions(name, power, commits, mixed) -> None:
     """Phase 16: the 100-validator commit under f32 and int32 and through
     a 4-shard f32 ShardedVerifier (torch compositions: no kernel
-    launches); f32's, int32's and decompress_batch's outputs on the card
-    against the reference and the CPU."""
+    launches), a first and a warm run each (2-4 s a run: per-op bound);
+    f32's, int32's and decompress_batch's outputs on the card against the
+    reference and the CPU."""
     from tendermint_tpu_torch.crypto import ed25519 as ed
     from tendermint_tpu_torch.ops import ed25519 as ed32
     from tendermint_tpu_torch.ops import ed25519_comb as comb
@@ -1941,7 +2070,7 @@ def registry_compositions(name, power, commits, mixed) -> None:
         stats = v.stats()
         log({"phase": "composition_path", **tag, "kernel": label, "validators": vs100.size(),
              "launches": launches, "stats": stats, "layout": getattr(v, "last_shard_layout", None),
-             "first_s": first, "warm_best_of_3_s": min(timed(run) for _ in range(3))})
+             "first_s": first, "warm_s": timed(run)})
         if any(launches.values()) or stats["tpu_batches"] != 1 or stats["cpu_sigs"]:
             raise AssertionError(f"{label}: expected one device batch and no kernel: {launches}, {stats}")
 
@@ -1994,7 +2123,7 @@ def time_comb(name, power, pool, shapes, group_items, pubs) -> dict[str, dict]:
             with pool.on_stream():
                 plain_ms = cuda_ms(lambda: comb.verify_comb_plain(
                     pool._pool, pool.table_b(), args[0], args[1].float(), args[2], args[3].int(),
-                    args[4].int()), reps=3, warmup=1)
+                    args[4].int()), reps=PLAIN_TIME_REPS, warmup=0)
             log({"phase": "comb_plain_time", **tag, "lanes": lanes, "ms": plain_ms})
             out["ed25519_comb"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                                    "lanes": lanes}
@@ -2015,7 +2144,7 @@ def time_comb(name, power, pool, shapes, group_items, pubs) -> dict[str, dict]:
              "bound_ms": b_ms, "bound_by": b_by, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
              "kernel_ops_ms": kernel_ops_ms})
         if keys == COMB_JSON_KEYS:
-            plain_ms = cuda_ms(lambda: comb.build_tables_plain(kx.float(), ky.float()), reps=3, warmup=1)
+            plain_ms = cuda_ms(lambda: comb.build_tables_plain(kx.float(), ky.float()), reps=PLAIN_TIME_REPS, warmup=0)
             log({"phase": "comb_tables_plain_time", **tag, "keys": keys, "ms": plain_ms})
             out["ed25519_comb_tables"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                                           "bound_by": b_by, "keys": keys}
@@ -2039,12 +2168,13 @@ def hash_messages(rng, n: int) -> list[bytes]:
 
 def check_hash_kernels(rng) -> tuple[dict[str, int], dict[str, float]]:
     """Phase 18: K1 and K2 at HASH_COUNTS messages against their plain
-    versions (run once, on the card, over the widest batch: a lane's digest
-    depends on its own message only) and against crypto.hashing.ripemd160
-    / hashlib.sha256, lane for lane; K3 at TREE_LEAVES leaves against
-    `_run_tree` on the card and FlatTree.from_leaf_digests, slot for slot.
-    Returns the largest difference a kernel and the plain versions'
-    seconds over the widest batch."""
+    versions (run once, on the card, over the widest batch's messages of at
+    most PLAIN_MAX_BLOCKS blocks: a lane's digest depends on its own
+    message only) and every lane, the 10,240- and 65,536-byte ones too,
+    against crypto.hashing.ripemd160 / hashlib.sha256; K3 at TREE_LEAVES
+    leaves against `_run_tree` on the card and FlatTree.from_leaf_digests,
+    slot for slot. Returns the largest difference a kernel and the plain
+    versions' seconds over their batch."""
     import torch
 
     from tendermint_tpu_torch.crypto.hashing import ripemd160
@@ -2053,28 +2183,32 @@ def check_hash_kernels(rng) -> tuple[dict[str, int], dict[str, float]]:
     from tendermint_tpu_torch.ops import merkle as tm
 
     msgs = hash_messages(rng, max(HASH_COUNTS))
+    short = [i for i, m in enumerate(msgs) if (len(m) + 72) // 64 <= PLAIN_MAX_BLOCKS]
+    row_of = {i: r for r, i in enumerate(short)}
     errs, plain_s = {}, {}
     for kname, le, lanes, plain, to_bytes, ref in (
             ("ripemd160", True, th.ripemd160_lanes, th.ripemd160_words, th.digests_to_bytes_le,
              ripemd160),
             ("sha256", False, th.sha256_lanes, th.sha256_words, th.digests_to_bytes_be,
              lambda m: hashlib.sha256(m).digest())):
-        args = th.to_device(*th.pack_ragged(msgs, le), DEVICE)
+        args = th.to_device(*th.pack_ragged([msgs[i] for i in short], le), DEVICE)
         t0 = time.perf_counter()
         want = plain(*args)
         torch.cuda.synchronize()
         plain_s[kname] = time.perf_counter() - t0
-        log({"phase": "hash_plain_run", "kernel": kname, "messages": len(msgs),
+        log({"phase": "hash_plain_run", "kernel": kname, "messages": len(short),
              "max_blocks": int(args[2].max().item()), "seconds": plain_s[kname]})
         refs = [ref(m) for m in msgs]
         errs[kname] = 0
         for c in HASH_COUNTS:
             got = lanes(*th.to_device(*th.pack_ragged(msgs[:c], le), DEVICE))
-            err = int(((got.long() & _M32) - want[:c]).abs().max().item())
+            idx = [i for i in short if i < c]
+            rows = torch.tensor([row_of[i] for i in idx], device=got.device)
+            err = int(((got[torch.tensor(idx, device=got.device)].long() & _M32) - want[rows]).abs().max().item())
             equal_ref = to_bytes(got) == refs[:c]
             log({"phase": "hash_vs_plain", "kernel": kname, "messages": c,
                  "lengths": sorted({len(m) for m in msgs[:c]} & set(HASH_EDGE_LENGTHS)),
-                 "max_abs_err": err, "equal_reference": equal_ref})
+                 "plain_lanes": len(idx), "max_abs_err": err, "equal_reference": equal_ref})
             if err or not equal_ref:
                 raise AssertionError(f"{kname} at {c} messages disagrees with its plain version "
                                      f"({err}) or the reference ({equal_ref})")
@@ -2213,16 +2347,30 @@ class capture_hash_calls:
         return False
 
 
+def unpack_lanes(words, first, nblocks, little_endian: bool) -> list[bytes]:
+    """The messages of a packed K1 / K2 batch, read back from their
+    MD padding: each lane's blocks end in its length in bits."""
+    raw = words.cpu().numpy().astype("<u4" if little_endian else ">u4").tobytes()
+    order = "little" if little_endian else "big"
+    out = []
+    for f, n in zip(first.tolist(), nblocks.tolist()):
+        lane = raw[64 * f:64 * (f + n)]
+        out.append(lane[:int.from_bytes(lane[-8:], order) // 8])
+    return out
+
+
 def check_path_kernels(calls, block_txs) -> dict[str, int]:
     """Phase 19's kernel calls against their plain versions on the card, on
-    the main path's own inputs as recorded: all K1 calls of both blocks
-    (tx leaves and parts) in one plain walk, whose cost the longest
-    message sets (a 1,025-block part, as phase 18's widest batch); K2's
-    call; each K3 tree. Labels each call's batch (tx_leaves, parts, txs,
-    tx_tree, part_tree) for phase 20 and returns the largest difference a
-    kernel."""
+    the main path's own inputs as recorded: the K1 lanes (tx leaves and
+    parts of both blocks) and K2's of at most PLAIN_MAX_BLOCKS blocks in
+    one plain walk a kernel, every longer lane (the 64 KB parts, the longer
+    transactions) against the host's digest of its message, read back from
+    the recorded words; each K3 tree against `_run_tree`. Labels each
+    call's batch (tx_leaves, parts, txs, tx_tree, part_tree) for phase 20
+    and returns the largest difference a kernel."""
     import torch
 
+    from tendermint_tpu_torch.crypto.hashing import ripemd160
     from tendermint_tpu_torch.ops import hashing as th
     from tendermint_tpu_torch.ops import merkle as tm
 
@@ -2231,28 +2379,41 @@ def check_path_kernels(calls, block_txs) -> dict[str, int]:
     if got_calls != want_calls:
         raise AssertionError(f"recorded kernel calls {got_calls}, expected {want_calls}")
     errs = {}
-    for kname, plain in (("ripemd160", th.ripemd160_words), ("sha256", th.sha256_words)):
+    for kname, plain, le, to_bytes, ref in (
+            ("ripemd160", th.ripemd160_words, True, th.digests_to_bytes_le, ripemd160),
+            ("sha256", th.sha256_words, False, th.digests_to_bytes_be, lambda m: hashlib.sha256(m).digest())):
         mine = [c for c in calls if c["kernel"] == kname]
-        firsts, base = [], 0
+        rows, nbs, gots, host_err = [], [], [], {}
         for c in mine:
-            firsts.append(c["args"][1] + base)
-            base += c["args"][0].shape[0]
-        nblocks = torch.cat([c["args"][2] for c in mine])
+            words, first, nblocks = c["args"]
+            keep = nblocks <= PLAIN_MAX_BLOCKS
+            for f, n in zip(first[keep].tolist(), nblocks[keep].tolist()):
+                rows.append(words[f:f + n])
+            nbs.append(nblocks[keep])
+            gots.append(c["got"][keep])
+            far = torch.nonzero(~keep).flatten()
+            msgs = unpack_lanes(words, first[far], nblocks[far], le)
+            host_err[id(c)] = (len(msgs), sum(a != ref(m) for a, m in zip(to_bytes(c["got"][far]), msgs)))
+        nblocks = torch.cat(nbs)
+        firsts = torch.zeros_like(nblocks)
+        firsts[1:] = torch.cumsum(nblocks, 0)[:-1]
         t0 = time.perf_counter()
-        want = plain(torch.cat([c["args"][0] for c in mine]), torch.cat(firsts), nblocks)
+        want = plain(torch.cat(rows), firsts, nblocks) if rows else None
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        got = torch.cat([c["got"] for c in mine]).long() & _M32
+        got = torch.cat(gots).long() & _M32
         errs[kname], lo = 0, 0
-        for c in mine:
-            n = c["args"][1].shape[0]
+        for c, g in zip(mine, gots):
+            n_all, n = c["args"][1].shape[0], g.shape[0]
             c["batch"] = ("txs" if kname == "sha256"
-                          else "tx_leaves" if n == len(block_txs[c["block"]]) else "parts")
-            err = int((got[lo:lo + n] - want[lo:lo + n]).abs().max().item())
+                          else "tx_leaves" if n_all == len(block_txs[c["block"]]) else "parts")
+            err = int((got[lo:lo + n] - want[lo:lo + n]).abs().max().item()) if n else 0
+            n_host, host_bad = host_err[id(c)]
             log({"phase": "path_vs_plain", "kernel": kname, "block": c["block"], "batch": c["batch"],
-                 "messages": n, "max_blocks": int(c["args"][2].max().item()), "max_abs_err": err,
+                 "messages": n_all, "max_blocks": int(c["args"][2].max().item()), "plain_lanes": n,
+                 "max_abs_err": err, "host_digest_lanes": n_host, "host_digest_mismatches": host_bad,
                  "plain_walk_s": seconds})
-            errs[kname] = max(errs[kname], err)
+            errs[kname] = max(errs[kname], err, host_bad)
             lo += n
     errs["merkle_tree"] = 0
     for c in calls:
@@ -2518,7 +2679,7 @@ def time_hashes(name, power, commit_args, block_txs, built, calls, params, plain
                "native_ms": best3(native_fn)}
         if plain:
             fn = th.ripemd160_words if le else th.sha256_words
-            row["plain_ms"] = cuda_ms(lambda: fn(*args), reps=3, warmup=1)
+            row["plain_ms"] = cuda_ms(lambda: fn(*args), reps=PLAIN_TIME_REPS, warmup=0)
             got = lanes(*args).long() & _M32
             row["max_abs_err"] = int((got - fn(*args)).abs().max().item())
             if row["max_abs_err"]:
@@ -2559,7 +2720,7 @@ def time_hashes(name, power, commit_args, block_txs, built, calls, params, plain
             raise AssertionError(f"merkle_tree on {c['block']}'s {c['batch']} disagrees with its plain version")
         row = {"phase": "merkle_time", **tag, "block": c["block"], "batch": c["batch"], "leaves": n,
                "rounds": rounds, "ms": ms, "device_ms": dev_ms, **b,
-               "plain_ms": cuda_ms(lambda: tm._run_tree(plain_nodes, *sched, rounds), reps=3, warmup=1),
+               "plain_ms": cuda_ms(lambda: tm._run_tree(plain_nodes, *sched, rounds), reps=PLAIN_TIME_REPS, warmup=0),
                "max_abs_err": err,
                "native_root_ms": best3(lambda: native.merkle_root_from_leaf_digests(digests)),
                "host_flat_tree_ms": best3(lambda: FlatTree.from_leaf_digests(digests))}
@@ -2610,7 +2771,7 @@ def time_hashes(name, power, commit_args, block_txs, built, calls, params, plain
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                         "bound_term": row["bound_term"], "library_ms": None,
                         "native_ms": row.get("native_ms", row.get("native_root_ms")), **shape,
-                        "plain_widest_batch_s": plain_18_s.get(kname)})
+                        "plain_phase18_s": plain_18_s.get(kname)})
     return entries
 
 
@@ -2973,6 +3134,7 @@ def _devd_paths(daemon, tag, claim, commits, forged, sub_quorum, shapes, block_t
         raise AssertionError(f"devd kernel launches {launches}: {idle} never launched")
 
     # -- phase 22: times -------------------------------------------------------
+    phase_start(22, "device daemon times")
     paths["hash_stream_parts"] = [lambda: jobs["parts"](client), lambda: ops_merkle.part_set_nodes(parts, DEVICE)]
     warm = {label: min(timed(through) for _ in range(3)) for label, (through, _) in paths.items()}
     warm_local = {label: min(timed(here) for _ in range(3)) for label, (_, here) in paths.items()}
@@ -3021,6 +3183,7 @@ def fleet_phase(name, power, commits, forged, sub_quorum, shapes, block_txs, par
         with routed_to(*[d.sock for d in fleet]):
             launches, ctx = _fleet_paths(fleet, tag, commits, forged, sub_quorum, shapes, block_txs, params)
         _fleet_chaos(fleet, tag, ctx)
+        phase_start(24, "multi-daemon times")
         _fleet_times(fleet, tag, ctx, one)
         return launches
     finally:
@@ -3730,8 +3893,8 @@ def app_phase(name, power, inputs) -> dict:
 
 
 def app_time(name, power, ctx) -> None:
-    """Phase 26: warm best of 3, the card against the host reference: the
-    restore (its hashing, and the Hasher's K1 calls within it), and the
+    """Phase 26: the card against the host reference: the restore, best of
+    APP_RESTORE_RUNS (its hashing, and the Hasher's K1 calls within it), and the
     three blocks of phase 25 replayed on freshly restored apps, each split
     into the verify (B1 and its marshal, or the native CPU floor), the
     priorities, the fold and the commit (its hashing, the K1 calls, the
@@ -3765,8 +3928,9 @@ def app_time(name, power, ctx) -> None:
     # cyclic collector's passes over a heap of millions of tree nodes
     # otherwise land on whichever call crosses its threshold
     restored, runs = {}, {"card": [], "host": []}
+    rec.widest = []  # the card restores' widest wave, timed alone below
     with routed_to():
-        for _ in range(3):
+        for _ in range(APP_RESTORE_RUNS):
             for label in ("card", "host"):
                 restored.pop(label, None)
                 app = fresh(label)
@@ -3783,6 +3947,7 @@ def app_time(name, power, ctx) -> None:
                                     "parse_s": wall - clk.seconds["build"] - clk.seconds["hash"],
                                     "k1_waves": len(widths)})
                 restored[label] = app
+        restore_widest = rec.widest
         restore = {label: min(rows, key=lambda r: r["restore_s"]) for label, rows in runs.items()}
         log({"phase": "app_plane_time", **tag, "what": "restore", "keys": APP_STATE_KEYS,
              "card_best": restore["card"], "host_best": restore["host"],
@@ -3832,10 +3997,7 @@ def app_time(name, power, ctx) -> None:
              "verify_speedup": best["host"]["verify_s"] / best["card"]["verify_s"]})
 
         # K1 alone on the widest wave of a commit and of a restore
-        rec.widest = []
-        app = fresh("card")
-        app.restore(snap)
-        for label, pre in (("restore", rec.widest), ("commit", commit_widest)):
+        for label, pre in (("restore", restore_widest), ("commit", commit_widest)):
             words, first, nblocks = th.pack_ragged(pre, True)
             args = th.to_device(words, first, nblocks, DEVICE)
             try:
@@ -3847,7 +4009,7 @@ def app_time(name, power, ctx) -> None:
                  "kernel_ms": cuda_ms(lambda: th.ripemd160_lanes(*args)),
                  "hasher_call_ms": 1e3 * best3(lambda: ops_merkle.part_leaf_hashes(pre, DEVICE)),
                  "hashlib_ms": 1e3 * best3(lambda: [ripemd160(p) for p in pre])})
-        del app, restored
+        del restored
 
 
 # -- phases 27-28: the execution path ------------------------------------------------
@@ -3856,44 +4018,50 @@ def app_time(name, power, ctx) -> None:
 def make_exec_inputs(pool, rng) -> list[dict]:
     """Phase 27's bursts, from their own generator so the earlier phases'
     draws stay as they were: EXEC_HEIGHTS of them, the first of
-    EXEC_FIRST_BLOCK and the rest of EXEC_BLOCK, each a shuffle of new keys
-    (`exec-%07d`), updates of the earlier heights' keys and txs whose
-    signature has a flipped bit, EXEC_VALUE_BYTES random bytes a value,
-    signed by EXEC_SIGNERS keys in the pool."""
+    EXEC_FIRST_BLOCK and the rest of EXEC_BLOCK (see make_bursts)."""
+    return make_bursts(pool, rng, EXEC_HEIGHTS, EXEC_FIRST_BLOCK, EXEC_BLOCK, EXEC_VALUE_BYTES,
+                       EXEC_SIGNERS, b"exec-%07d")
+
+
+def make_bursts(pool, rng, heights, first_shape, shape, value_bytes, signers, key_fmt) -> list[dict]:
+    """`heights` bursts of signed kv txs, the first of `first_shape` and the
+    rest of `shape`, each a shuffle of new keys (`key_fmt`), updates of the
+    earlier heights' keys and txs whose signature has a flipped bit,
+    `value_bytes` random bytes a value, signed by `signers` keys in the
+    pool."""
     from tendermint_tpu_torch.crypto import ed25519 as ed
 
-    seeds = [rng.bytes(32) for _ in range(EXEC_SIGNERS)]
+    seeds = [rng.bytes(32) for _ in range(signers)]
     pubs = pool.map(ed.public_key, seeds)
     live: list[bytes] = []
     next_key = 0
     plans = []
-    for height in range(1, EXEC_HEIGHTS + 1):
-        shape = EXEC_FIRST_BLOCK if height == 1 else EXEC_BLOCK
-        kinds = [k for k, c in shape for _ in range(c)]
+    for height in range(1, heights + 1):
+        kinds = [k for k, c in (first_shape if height == 1 else shape) for _ in range(c)]
         kinds = [kinds[i] for i in rng.permutation(len(kinds))]
         old = sum(k != "new" for k in kinds)
         picks = iter(rng.choice(len(live), size=old, replace=False).tolist()) if live else None
         payloads, forged, new = [], [], []
         for pos, kind in enumerate(kinds):
             if kind == "new" or picks is None:
-                key = b"exec-%07d" % next_key
+                key = key_fmt % next_key
                 next_key += 1
                 if kind == "new":
                     new.append(key)
             else:
                 key = live[next(picks)]
-            payloads.append(key + b"=" + rng.bytes(EXEC_VALUE_BYTES))
+            payloads.append(key + b"=" + rng.bytes(value_bytes))
             if kind == "forged":
                 forged.append(pos)
         live += new
-        plans.append((payloads, forged, rng.integers(0, EXEC_SIGNERS, size=len(kinds)).tolist()))
-    jobs = [(seeds[s], pl) for payloads, _, signers in plans for s, pl in zip(signers, payloads)]
+        plans.append((payloads, forged, rng.integers(0, signers, size=len(kinds)).tolist()))
+    jobs = [(seeds[s], pl) for payloads, _, signers_of in plans for s, pl in zip(signers_of, payloads)]
     sigs = iter(pool.starmap(ed.sign, jobs, chunksize=256))
     bursts = []
-    for payloads, forged, signers in plans:
+    for payloads, forged, signers_of in plans:
         bad = set(forged)
         txs = []
-        for pos, (s, payload) in enumerate(zip(signers, payloads)):
+        for pos, (s, payload) in enumerate(zip(signers_of, payloads)):
             sig = next(sigs)
             if pos in bad:
                 sig = sig[:5] + bytes([sig[5] ^ 0x20]) + sig[6:]
@@ -3902,23 +4070,23 @@ def make_exec_inputs(pool, rng) -> list[dict]:
     return bursts
 
 
-def exec_genesis(vs):
-    """The exec_chain genesis: the validator set at its power, CHAIN_ID, the
-    default ConsensusParams, and the upgrade to aggregate commits at
-    EXEC_UPGRADE_HEIGHT."""
+def exec_genesis(vs, upgrade_height: int = EXEC_UPGRADE_HEIGHT):
+    """The exec_chain (and fast_sync) genesis: the validator set at its
+    power, CHAIN_ID, the default ConsensusParams, and the upgrade to
+    aggregate commits at `upgrade_height`."""
     from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
 
     return GenesisDoc(
         genesis_time_ns=BLOCK_TIME_NS, chain_id=CHAIN_ID,
         validators=[GenesisValidator(v.pub_key, v.voting_power) for v in vs.validators],
-        upgrade_height=EXEC_UPGRADE_HEIGHT, upgrade_format="aggregate",
+        upgrade_height=upgrade_height, upgrade_format="aggregate",
     )
 
 
-def sign_commit(vs, seed_of, height: int, bid):
-    """The height's precommits for `bid`, every validator of `vs` signing:
-    the seen commit a node saves with its block, and the next block's
-    LastCommit."""
+def sign_commit(vs, seed_of, height: int, bid, pool=None):
+    """The height's precommits for `bid`, every validator of `vs` signing
+    (in `pool` when given): the seen commit a node saves with its block, and
+    the next block's LastCommit."""
     from tendermint_tpu_torch.crypto import ed25519 as ed
     from tendermint_tpu_torch.crypto.keys import SignatureEd25519
     from tendermint_tpu_torch.types.block import Commit
@@ -3926,8 +4094,9 @@ def sign_commit(vs, seed_of, height: int, bid):
 
     votes = [Vote(v.address, idx, height, 0, VOTE_TYPE_PRECOMMIT, bid) for idx, v in enumerate(vs.validators)]
     sb = votes[0].sign_bytes(CHAIN_ID)  # identical for every validator
-    return Commit(bid, [vote.with_signature(SignatureEd25519(ed.sign(seed_of[vote.validator_address], sb)))
-                        for vote in votes])
+    jobs = [(seed_of[vote.validator_address], sb) for vote in votes]
+    sigs = pool.starmap(ed.sign, jobs, chunksize=64) if pool is not None else [ed.sign(*j) for j in jobs]
+    return Commit(bid, [vote.with_signature(SignatureEd25519(sig)) for vote, sig in zip(votes, sigs)])
 
 
 def tampered_refusal(state, block) -> str:
@@ -4111,11 +4280,11 @@ class exec_chain:
                 "app_commit_s": sec["commit"],
                 "save_and_index_s": sec["index"] + sec["responses"] + sec["save"]}
 
-    def save(self, seed_of, block, parts) -> float:
-        """Sign the height's precommits, then save_block with them as the
-        seen commit."""
+    def save(self, seed_of, block, parts, pool=None) -> float:
+        """Sign the height's precommits (in `pool` when given), then
+        save_block with them as the seen commit."""
         st = self.state
-        self.seen = sign_commit(st.last_validators, seed_of, block.header.height, st.last_block_id)
+        self.seen = sign_commit(st.last_validators, seed_of, block.header.height, st.last_block_id, pool)
         t0 = time.perf_counter()
         self.store.save_block(block, parts, self.seen)
         return time.perf_counter() - t0
@@ -4404,6 +4573,545 @@ def exec_time(name, power, ctx) -> None:
                                if stage_best["card"][k] > 0},
              "card_runs": [r[height - 1] for r in runs["card"]],
              "host_runs": [r[height - 1] for r in runs["host"]]})
+
+
+# -- phases 29-30: the transport and fast sync ----------------------------------------
+
+
+def make_fastsync_inputs(pool, rng) -> list[dict]:
+    """The fast_sync chain's bursts, from their own generator: FASTSYNC_HEIGHTS
+    of them, the first all new keys, then FASTSYNC_BLOCK (see make_bursts)."""
+    return make_bursts(pool, rng, FASTSYNC_HEIGHTS, FASTSYNC_FIRST_BLOCK, FASTSYNC_BLOCK,
+                       FASTSYNC_VALUE_BYTES, FASTSYNC_SIGNERS, b"fsync-%07d")
+
+
+def consensus_stand_in():
+    """The CONSENSUS reactor's place on a switch: the fast-sync reactor hands
+    over to it (`switch_to_consensus`, reached duck-typed as on a node); it
+    records each state it is handed, as bytes."""
+    from tendermint_tpu_torch.p2p import Reactor
+
+    class ConsensusStandIn(Reactor):
+        def __init__(self):
+            self.switched: list[bytes] = []
+
+        def start(self):
+            pass
+
+        def stop(self):
+            pass
+
+        def get_channels(self):
+            return []
+
+        def switch_to_consensus(self, state):
+            self.switched.append(state.bytes_())
+
+    return ConsensusStandIn()
+
+
+class p2p_node:
+    """A switch wired as node/node.py wires one: the p2p config's rates and
+    flush throttle in the MConnConfig of every peer (secret connections on),
+    a listener on 127.0.0.1 port 0, NodeInfo with the genesis schedule, a
+    BlockchainReactor on `state.copy()` and `store` (`reactor_kw` as
+    node/node.py:332-341 passes them) and the consensus stand-in. Every
+    stop_peer_for_error is recorded. start() starts the switch."""
+
+    def __init__(self, doc, state, store, app_conn, fast_sync: bool, moniker: str, **reactor_kw):
+        from tendermint_tpu_torch.blockchain.reactor import BlockchainReactor
+        from tendermint_tpu_torch.config.config import P2PConfig
+        from tendermint_tpu_torch.p2p import MConnConfig, NodeInfo, PeerConfig, Switch
+        from tendermint_tpu_torch.p2p.listener import Listener
+        from tendermint_tpu_torch.p2p.node_info import default_version
+        from tendermint_tpu_torch.version import VERSION
+
+        cfg = P2PConfig(**FASTSYNC_P2P)
+        self.sw = Switch(cfg, PeerConfig(mconfig=MConnConfig(
+            send_rate=float(cfg.send_rate), recv_rate=float(cfg.recv_rate),
+            flush_throttle=cfg.flush_throttle_timeout)))
+        self.bc = BlockchainReactor(state.copy(), app_conn, store, fast_sync, **reactor_kw)
+        self.consensus = consensus_stand_in()
+        self.sw.add_reactor("BLOCKCHAIN", self.bc)
+        self.sw.add_reactor("CONSENSUS", self.consensus)
+        self.listener = Listener("127.0.0.1:0")
+        self.sw.add_listener(self.listener)
+        self.sw.set_node_info(NodeInfo(
+            pub_key=self.sw.node_priv_key.pub_key(), moniker=moniker, network=doc.chain_id,
+            version=default_version(VERSION), listen_addr=str(self.listener.internal_address()),
+            other=["consensus_version=v1", f"commit_schedule={doc.schedule_string()}"]))
+        self.stops: list[tuple[str, str]] = []
+        stop_peer = self.sw.stop_peer_for_error
+
+        def recording_stop(peer, reason):
+            self.stops.append((peer.id(), str(reason)))
+            stop_peer(peer, reason)
+
+        self.sw.stop_peer_for_error = recording_stop
+
+    def start(self) -> "p2p_node":
+        self.sw.start()
+        return self
+
+    def node_id(self) -> str:
+        return self.sw.node_priv_key.pub_key().address().hex()
+
+    def dial(self, port: int):
+        from tendermint_tpu_torch.p2p import NetAddress
+
+        return self.sw.dial_peer_with_address(NetAddress("127.0.0.1", port))
+
+    def close(self) -> None:
+        self.sw.stop()
+
+
+class tampered_store:
+    """A BlockStore whose block `height` comes back with one signature of
+    its LastCommit flipped (precommit 7, bit 5 of byte 5)."""
+
+    def __init__(self, store, height: int):
+        self.store, self.height_tampered = store, height
+
+    def __getattr__(self, attr):
+        return getattr(self.store, attr)
+
+    def load_block(self, height: int):
+        from tendermint_tpu_torch.crypto.keys import SignatureEd25519
+
+        block = self.store.load_block(height)
+        if height == self.height_tampered:
+            lc = block.last_commit
+            pre = lc.precommits[7]
+            raw = bytearray(pre.signature.raw)
+            raw[5] ^= 0x20
+            lc.precommits[7] = pre.with_signature(SignatureEd25519(bytes(raw)))
+            lc._hash = None
+        return block
+
+
+def serve_chain(root: str, doc_json, tamper_height: int, conn) -> None:
+    """A serving node in a process of its own: the sqlite `state` and
+    `blockstore` under `root` (a node's files), a p2p_node with a
+    BlockchainReactor(fast_sync=False), and with `tamper_height` the
+    tampered_store in front of the block store. Sends (port, node id), then
+    serves until told to stop."""
+    from tendermint_tpu_torch.blockchain import BlockStore
+    from tendermint_tpu_torch.libs.db import db_provider
+    from tendermint_tpu_torch.state import State
+    from tendermint_tpu_torch.types.genesis import GenesisDoc
+
+    doc = GenesisDoc.from_json(doc_json)
+    dbs = {n: db_provider(n, "sqlite", root) for n in ("state", "blockstore")}
+    store = BlockStore(dbs["blockstore"])
+    node = p2p_node(doc, State.load_state(dbs["state"], doc),
+                    tampered_store(store, tamper_height) if tamper_height else store, None, False,
+                    "C" if tamper_height else "A").start()
+    try:
+        conn.send((node.listener.internal_address().port, node.node_id()))
+        conn.recv()
+        conn.send(node.stops)
+    finally:
+        node.close()
+        for db in dbs.values():
+            db.close()
+
+
+class serving_process:
+    """serve_chain in a spawned process: its port, node id, and close()
+    (the stop message, then join; killed after DEVD_STOP_S)."""
+
+    def __init__(self, root: str, doc, tamper_height: int = 0):
+        ctx = multiprocessing.get_context("spawn")
+        self.conn, child = ctx.Pipe()
+        self.proc = ctx.Process(target=serve_chain, args=(root, doc.to_json(), tamper_height, child), daemon=True)
+        self.proc.start()
+        if not self.conn.poll(FASTSYNC_SYNC_S):
+            self.proc.kill()
+            raise AssertionError("the serving process did not start")
+        self.port, self.node_id = self.conn.recv()
+        self.stops = None
+
+    def close(self) -> None:
+        try:
+            self.conn.send("stop")
+            if self.conn.poll(DEVD_STOP_S):
+                self.stops = self.conn.recv()
+        except (OSError, EOFError):
+            pass
+        self.proc.join(DEVD_STOP_S)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join()
+
+
+class fastsync_node:
+    """Node B of the fast_sync cell, empty, wired by hand as node/node.py
+    wires a node, in a temp directory of its own: sqlite `state`,
+    `blockstore` and `tx_index`, State.get_state with a KVTxIndexer, a
+    SignedKVStoreApp (verify_in_app off, its block verify through
+    `verifier`, its tree hashing through `hasher`, APP_SHARDS shards) behind
+    AppConns, and a p2p_node whose BlockchainReactor takes the verifier's
+    commit_batch_verifier and verify_batch_async (through a batch_recorder)
+    and the hasher's part_leaf_hashes and part_set_tree. The post-apply hook
+    records when each block was applied; close() waits for the reactor's
+    sync loop to end before it closes the stores."""
+
+    def __init__(self, doc, verifier, hasher, label: str):
+        from tendermint_tpu_torch.abci.apps.signedkv import SignedKVStoreApp
+        from tendermint_tpu_torch.blockchain import BlockStore
+        from tendermint_tpu_torch.libs.db import db_provider
+        from tendermint_tpu_torch.proxy import AppConns, LocalClientCreator
+        from tendermint_tpu_torch.state import State
+        from tendermint_tpu_torch.state.txindex import KVTxIndexer
+
+        self.doc, self.verifier, self.hasher = doc, verifier, hasher
+        self.root = tempfile.mkdtemp(prefix="fastsync-")
+        self.dbs = {n: db_provider(n, "sqlite", self.root) for n in ("state", "blockstore", "tx_index")}
+        self.state = State.get_state(self.dbs["state"], doc)
+        self.state.tx_indexer = KVTxIndexer(self.dbs["tx_index"])
+        self.store = BlockStore(self.dbs["blockstore"])
+        self.app = SignedKVStoreApp(verify_in_app=False)
+        self.rec = wave_recorder(hasher)
+        self.app.tree.hasher = self.rec
+        self.app.deliver_verifier = verifier
+        self.app.shards = APP_SHARDS
+        self.conns = AppConns(LocalClientCreator(self.app))
+        self.conns.start()
+        self.gate = batch_recorder(verifier)
+        self.applied: list[float] = []
+        self.node = p2p_node(doc, self.state, self.store, self.conns.consensus(), True, label,
+                             batch_verifier=verifier.commit_batch_verifier(),
+                             async_batch_verifier=self.gate.verify_batch_async,
+                             part_hasher=hasher.part_leaf_hashes, part_tree_hasher=hasher.part_set_tree,
+                             post_apply_hook=lambda state, block: self.applied.append(time.perf_counter()))
+        self.loop_done = threading.Event()
+        loop = self.node.bc._pool_routine
+
+        def pool_routine():
+            try:
+                loop()
+            finally:
+                self.loop_done.set()
+
+        self.node.bc._pool_routine = pool_routine
+        self.node.start()
+
+    def sync(self, *serving: serving_process, until_height: int | None = None) -> dict:
+        """Dial the serving nodes in order (after the first, once it is the
+        pool's peer), then wait for the switch to consensus, or with
+        `until_height` for the store to reach it, or for the sync's error,
+        each wait within FASTSYNC_SYNC_S. The tx-root hook and the gateway's
+        default verifier (an aggregate LastCommit's) are this node's, as
+        node/node.py installs them, for the run; apply_block's stages are
+        clocked (validate_block, the deliver, the app commit, the state
+        save with indexing)."""
+        from tendermint_tpu_torch.ops import gateway
+        from tendermint_tpu_torch.state import State, execution
+        from tendermint_tpu_torch.types import tx as ptx
+
+        bc = self.node.bc
+        saved = gateway._default_verifier
+        gateway._default_verifier = self.verifier
+        ptx.set_batch_tx_root(self.hasher.tx_merkle_root)
+        done = (lambda: self.node.consensus.switched) if until_height is None else \
+            (lambda: self.store.height() >= until_height)
+        try:
+            with stage_clock(validate=(execution, "validate_block"),
+                             deliver=(execution, "exec_block_on_proxy_app"),
+                             commit=(execution, "commit_state_update_mempool"),
+                             index=(execution, "index_txs"),
+                             save=(State, "save"), responses=(State, "save_abci_responses")) as clk:
+                t0 = time.perf_counter()
+                for i, peer in enumerate(serving):
+                    if i:
+                        first = serving[0].node_id
+                        wait_for(lambda: first in bc.pool.peers, FASTSYNC_SYNC_S, "the first peer's status")
+                    self.node.dial(peer.port)
+                wait_for(lambda: done() or bc.sync_error is not None, FASTSYNC_SYNC_S,
+                         f"the sync (store at {self.store.height()})")
+                _sync()
+        finally:
+            gateway._default_verifier = saved
+            ptx.set_batch_tx_root(None)
+        if bc.sync_error is not None:
+            raise AssertionError(f"fast sync stopped: {bc.sync_error!r}")
+        blocks = len(self.applied)
+        wall = self.applied[-1] - t0
+        stages = dict(bc.stage_s)
+        # every part set is rebuilt inside the dispatch of the window that
+        # first holds its block: part_hash is a share of dispatch
+        sec = clk.seconds
+        return {"blocks": blocks, "wall_s": wall, "blocks_per_s": blocks / wall, "stage_s": stages,
+                "unaccounted_s": wall - sum(v for k, v in stages.items() if k != "part_hash"),
+                "apply_split_s": {"validate": sec["validate"], "deliver": sec["deliver"], "app_commit": sec["commit"],
+                                  "save_and_index": sec["index"] + sec["save"] + sec["responses"]}}
+
+    def close(self) -> None:
+        self.node.close()
+        if not self.loop_done.wait(FASTSYNC_SYNC_S):
+            raise AssertionError("the fast-sync loop did not end")
+        self.conns.stop()
+        for db in self.dbs.values():
+            db.close()
+        shutil.rmtree(self.root, ignore_errors=True)
+
+
+def wait_for(cond, seconds: float, what: str) -> None:
+    deadline = time.monotonic() + seconds
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: not within {seconds} s")
+        time.sleep(0.02)
+
+
+def fastsync_records(store, state, target: int, sample: list[bytes], seen=None) -> dict:
+    """What a node holds for heights 1..target: block bytes, metas, each
+    block's LastCommit as stored, the seen commits (`seen(h)`, or the
+    store's), and, with `state`, the state's bytes and app hash and the
+    tx-index entries of `sample`."""
+    from tendermint_tpu_torch.types.tx import tx_hash
+
+    seen = seen or (lambda h: store.load_seen_commit(h))
+    out = {
+        "blocks": [store.load_block(h).to_bytes() for h in range(1, target + 1)],
+        "metas": [store.load_block_meta(h).to_json() for h in range(1, target + 1)],
+        "commits": [store.load_block_commit(h).to_json() for h in range(1, target)],
+        "seen": [seen(h).to_json() for h in range(1, target + 1)],
+    }
+    if state is not None:
+        out.update(state=state.bytes_(), app_hash=state.app_hash,
+                   index=[state.tx_indexer.get(tx_hash(tx)).to_json() for tx in sample])
+    return out
+
+
+def fastsync_expected(doc, target: int, groups: list[int], waves: list[int], n_vals: int,
+                      delivered: int) -> dict:
+    """The launches and lanes a card sync of heights 1..target implies: B1
+    once a group of full commits (the reactor's dispatches), once a full
+    LastCommit checked at apply (blocks 2 up to the upgrade) and once a
+    deliver; dsm once an aggregate LastCommit proving a height and once an
+    aggregate LastCommit checked at apply; K1 and K3 once a part set
+    rebuilt and once a tx root (validate_block's data hash, through the
+    Hasher the tx-root hook names), K1 once a wave the app hands its
+    Hasher. `delivered` is the synced blocks' txs, each a deliver lane."""
+    full_apply = sum(not doc.aggregate_commits_at(h) for h in range(2, target + 1))
+    agg_apply = (target - 1) - full_apply
+    agg_proof = sum(doc.aggregate_commits_at(h + 1) for h in range(1, target + 1))
+    return {
+        "launches": {"b1": len(groups) + full_apply + target, "dsm": agg_proof + agg_apply,
+                     "ripemd160": 2 * target + len(waves), "merkle_tree": 2 * target},
+        "lanes": {"tpu_sigs": sum(groups) + n_vals * full_apply + delivered, "cpu_sigs": 0,
+                  "agg_lanes_device": (n_vals + 1) * (agg_proof + agg_apply), "agg_lanes_cpu": 0},
+    }
+
+
+def fastsync_phase(name, power, vs, seed_of, bursts) -> dict:
+    """Phase 29: the transport and fast sync on the card. Node A (an
+    exec_chain on the default Verifier and Hasher) builds FASTSYNC_HEIGHTS
+    heights of `bursts` into its sqlite files, which a serving_process
+    serves (a node of its own: BlockchainReactor(fast_sync=False)). In this
+    process (no daemon socket), node B (a fastsync_node on
+    Verifier(device=DEVICE) and a fresh Hasher(device=DEVICE)) dials A over
+    TCP, both on secret connections, and syncs every height the pool can
+    prove (A's less one: the last block waits for its successor's
+    LastCommit), then switches to consensus once; its launches are set to 0
+    just before the dial and read just after. The host reference B' (a
+    Verifier whose gate sends every lane to the native CPU floor, installed
+    as the default verifier for its aggregate LastCommits, and
+    host_hasher()) syncs the same way and launches nothing. Both equal A's
+    records, state and app hash. Then a tampered peer C (A's files,
+    block FASTSYNC_TAMPER_HEIGHT + 1's LastCommit with a flipped
+    signature) is dialed before A by a fresh card node, which syncs past
+    the tampered height: C is stopped for "sent invalid block" exactly
+    once, A stays, and the blocks stored are A's. Returns what phase 30
+    needs (A's server is left running for it) and the launches."""
+    import torch
+
+    from tendermint_tpu_torch.crypto.x25519 import resolve_backend
+    from tendermint_tpu_torch.ops import gateway
+    from tendermint_tpu_torch.ops.gateway import Hasher, Verifier
+    from tendermint_tpu_torch.types import tx as ptx
+
+    tag = {"card": name, "power_limit": power}
+    dev_type = torch.device(DEVICE).type
+    doc = exec_genesis(vs, FASTSYNC_UPGRADE_HEIGHT)
+    n_vals = vs.size()
+    part_size = doc.consensus_params.block_gossip.block_part_size_bytes
+    with routed_to():
+        gateway._default_verifier = gateway._default_hasher = None
+        a = exec_chain(doc, gateway.default_verifier(), gateway.default_hasher())
+        t0 = time.perf_counter()
+        try:
+            ctx = multiprocessing.get_context("spawn")
+            with ctx.Pool(processes=min(8, os.cpu_count() or 1)) as pool:
+                for height, burst in enumerate(bursts, 1):
+                    gate = a.burst(burst["txs"], burst["forged"])
+                    if gate["refused"] != burst["forged"]:
+                        raise AssertionError(f"A height {height}: refused {gate['refused']}")
+                    block, parts, _ = a.build(height)
+                    if parts.total < a.hasher.min_tpu_batch:
+                        raise AssertionError(f"A height {height}: {parts.total} parts, under the Hasher's gate")
+                    a.apply(block, parts)
+                    a.save(seed_of, block, parts, pool)
+                    if height == len(bursts) - 1:
+                        target_state = a.state.bytes_(), a.state.app_hash
+            ptx.set_batch_tx_root(None)
+            height_a = a.store.height()
+            target = height_a - 1
+            blocks = [a.store.load_block(h) for h in range(1, height_a + 1)]
+            sample_rng = np.random.default_rng(SEED + 29)
+            synced_txs = [tx for b in blocks[:target] for tx in b.data.txs]
+            sample = [synced_txs[i] for i in sorted(sample_rng.choice(len(synced_txs), EXEC_INDEX_SAMPLE,
+                                                                      replace=False))]
+            want = fastsync_records(a.store, a.state, target, sample,
+                                    seen=lambda h: a.store.load_block(h + 1).last_commit)
+            want["state"], want["app_hash"] = target_state
+        finally:
+            a.close()
+        log({"phase": "fastsync_chain", **tag, "validators": n_vals, "heights": height_a,
+             "upgrade_height": FASTSYNC_UPGRADE_HEIGHT, "txs": [len(b.data.txs) for b in blocks],
+             "block_bytes": [len(b.to_bytes()) for b in blocks],
+             "block_message_bytes": [len(json.dumps({"type": "block_response", "block": b.to_json()},
+                                                    sort_keys=True)) for b in blocks],
+             "parts": [b.make_part_set(part_size).total for b in blocks],
+             "formats": [b.commit_format() for b in blocks[1:]], "build_s": time.perf_counter() - t0})
+        del blocks
+        server = serving_process(a.root, doc)
+        nodes = []
+        try:
+            # B on the card: the main path, its launches and lanes counted
+            verifier = Verifier(device=DEVICE)
+            if verifier.kernel != "f32p" or verifier.device is None or verifier.device.type != dev_type:
+                raise AssertionError(f"B's Verifier: kernel {verifier.kernel}, device {verifier.device}")
+            hasher = Hasher(device=DEVICE)
+            if hasher._route != "local":
+                raise AssertionError(f"B's Hasher: route {hasher._route}")
+            b = fastsync_node(doc, verifier, hasher, "B")
+            nodes.append(b)
+            v0, h0 = verifier.stats(), hasher.stats()
+            gc.collect()
+            reset_launches()
+            run = b.sync(server)
+            launches = read_launches()
+            v1, h1 = verifier.stats(), hasher.stats()
+            groups = [n for n in b.gate.sizes if n]
+            widths, _ = b.rec.take()
+            exp = fastsync_expected(doc, target, groups, widths, n_vals, len(synced_txs))
+            lanes = {k: v1[k] - v0[k] for k in exp["lanes"]}
+            bc = b.node.bc
+            caught_up = {"is_caught_up": bc.pool.is_caught_up(), "pool_height": bc.pool.height,
+                         "max_peer_height": bc.pool.max_peer_height, "store_height": b.store.height()}
+            if b.store.height() != target or bc.blocks_synced != target or not caught_up["is_caught_up"] \
+                    or bc.pool.height != height_a or bc.pool.max_peer_height != height_a:
+                raise AssertionError(f"B synced {bc.blocks_synced} of A's {height_a} heights: {caught_up}")
+            if b.node.consensus.switched != [want["state"]]:
+                raise AssertionError(f"B switched to consensus {len(b.node.consensus.switched)} times, "
+                                     "or with another state")
+            if b.node.stops:
+                raise AssertionError(f"B stopped peers: {b.node.stops}")
+            proofs = n_vals * sum(not doc.aggregate_commits_at(h + 1) for h in range(1, target + 1))
+            if any(n % n_vals or n > 4 * n_vals for n in groups) or sum(groups) != proofs:
+                raise AssertionError(f"B's verify groups {groups}")
+            _launch_delta(launches, exp["launches"], "B's sync")
+            if lanes != exp["lanes"] or h1["cpu_leaves"] != h0["cpu_leaves"]:
+                raise AssertionError(f"B's lanes {lanes}, expected {exp['lanes']}; "
+                                     f"{h1['cpu_leaves'] - h0['cpu_leaves']} leaves on the host")
+            got = fastsync_records(b.store, bc.state, target, sample)
+            if got != want:
+                raise AssertionError(f"B differs from A in {[k for k in got if got[k] != want[k]]}")
+            (peer,) = b.node.sw.peers.list()
+            log({"phase": "fastsync_path", **tag, "node": "B", "route": {"verify": verifier.kernel,
+                 "hash": hasher._route}, "secretconn_backend": resolve_backend(),
+                 "secret_connection": type(peer.stream).__name__, **caught_up,
+                 "groups": groups, "commit_waves_k1": len(widths), "launches": launches,
+                 "lanes": lanes, **run})
+            b.close()
+            nodes.remove(b)
+
+            # B': the host reference
+            ref_v = Verifier(min_tpu_batch=APP_REF_GATE, device="cpu")
+            ref = fastsync_node(doc, ref_v, host_hasher(), "B-host")
+            nodes.append(ref)
+            gc.collect()
+            reset_launches()
+            ref_run = ref.sync(server)
+            _launch_delta(read_launches(), {}, "B' (host reference)")
+            got_ref = fastsync_records(ref.store, ref.node.bc.state, target, sample)
+            if got_ref != want or ref.node.stops:
+                raise AssertionError(f"B' differs from A in {[k for k in got_ref if got_ref[k] != want[k]]}, "
+                                     f"stops {ref.node.stops}")
+            log({"phase": "fastsync_path", **tag, "node": "B-host", "lanes": {
+                k: ref_v.stats()[k] for k in exp["lanes"]}, **ref_run})
+            ref.close()
+            nodes.remove(ref)
+
+            # C: a tampered peer dialed before A, on the card path
+            tampered = FASTSYNC_TAMPER_HEIGHT + 1
+            serve_c = serving_process(a.root, doc, tamper_height=tampered)
+            nodes.append(serve_c)
+            b2 = fastsync_node(doc, verifier, Hasher(device=DEVICE), "B2")
+            nodes.append(b2)
+            upto = tampered + 1
+            tamper_run = b2.sync(serve_c, server, until_height=upto)
+            if b2.node.stops != [(serve_c.node_id, "sent invalid block")]:
+                raise AssertionError(f"the tampered peer: stops {b2.node.stops}")
+            if [p.id() for p in b2.node.sw.peers.list()] != [server.node_id]:
+                raise AssertionError("the tampered peer: A dropped")
+            if fastsync_records(b2.store, None, upto, sample) != {
+                    k: (v[:upto] if k != "commits" else v[:upto - 1]) for k, v in want.items()
+                    if k in ("blocks", "metas", "commits", "seen")}:
+                raise AssertionError("the tampered peer: the stored blocks differ from A's")
+            log({"phase": "fastsync_tampered_peer", **tag, "tampered_height": tampered,
+                 "stops": [(pid[:12], why) for pid, why in b2.node.stops], "synced_to": b2.store.height(),
+                 "records": "equal to A's", "wall_s": tamper_run["wall_s"]})
+        except BaseException:
+            server.close()
+            raise
+        finally:
+            for n in nodes:
+                n.close()
+    log({"phase": "fastsync_plane", **tag, "validators": n_vals, "heights": height_a, "synced": target,
+         "launches": launches, "verifier": verifier.stats()})
+    return {"doc": doc, "root": a.root, "server": server, "want": want, "sample": sample, "target": target,
+            "runs": {"card": [run], "host": [ref_run]},
+            "launches": {k: launches[k] for k in ("b1", "dsm", "ripemd160", "merkle_tree")}}
+
+
+def fastsync_time(name, power, ctx) -> None:
+    """Phase 30: B on the card and B' on the host reference in turns, each
+    on fresh stores after a full collection (a fresh Hasher on the card
+    each run, one Verifier), FASTSYNC_TIME_RUNS in all with phase 29's
+    pair: the sync's wall time (the dial to the last block applied) and
+    blocks/s, the reactor's stage_s split, and the wall time the stages do
+    not account for (the transport and the pool). Every run ends at A's
+    height less one with A's state there (phase 29 held every record)."""
+    from tendermint_tpu_torch.ops.gateway import Hasher, Verifier
+
+    tag = {"card": name, "power_limit": power}
+    doc, server, want, sample, target = ctx["doc"], ctx["server"], ctx["want"], ctx["sample"], ctx["target"]
+    runs = ctx["runs"]
+    verifier = Verifier(device=DEVICE)
+    ref_v = Verifier(min_tpu_batch=APP_REF_GATE, device="cpu")
+    with routed_to():
+        for _ in range(FASTSYNC_TIME_RUNS - 1):
+            for label in ("card", "host"):
+                v, h = (verifier, Hasher(device=DEVICE)) if label == "card" else (ref_v, host_hasher())
+                node = fastsync_node(doc, v, h, f"B-{label}")
+                try:
+                    gc.collect()
+                    run = node.sync(server)
+                    if node.store.height() != target or node.node.bc.state.bytes_() != want["state"]:
+                        raise AssertionError(f"{label} run: the store height or the state differs from A's")
+                finally:
+                    node.close()
+                runs[label].append(run)
+    best = {label: min(rows, key=lambda r: r["wall_s"]) for label, rows in runs.items()}
+    log({"phase": "fastsync_time", **tag, "runs": FASTSYNC_TIME_RUNS, "blocks": target,
+         "fastsync_blocks_per_sec": best["card"]["blocks_per_s"],
+         "host_blocks_per_sec": best["host"]["blocks_per_s"],
+         "speedup": best["host"]["wall_s"] / best["card"]["wall_s"],
+         "card_best": best["card"], "host_best": best["host"],
+         "card_runs": runs["card"], "host_runs": runs["host"]})
 
 
 if __name__ == "__main__":

@@ -442,6 +442,13 @@ def test_shard_kill_one_of_n_mid_burst(chaos_env, sock_dir, monkeypatch):
         dead = fleet.sock_paths[0]
         for _ in range(6):
             assert devd_shard.verify_batch(items) == want
+        # a batch can leave a live endpoint idle (its worker may start after
+        # the other has taken every slice, home and stolen): bounded more
+        for _ in range(10):
+            st = devd_shard.endpoint_stats()
+            if all(st[path]["dispatched_slices"] >= 1 for path in fleet.sock_paths[1:]):
+                break
+            assert devd_shard.verify_batch(items) == want
         st = devd_shard.endpoint_stats()
         assert st[dead]["redispatches"] >= 1, st
         assert gateway.devd_plane_allow()
