@@ -217,7 +217,7 @@ Phases, in order; any failure raises and exits non-zero:
    byte. Then a block of 1,000 through an `ABCIServer` and a
    `SocketClient` to each app (tx by tx: each verifies on the host, the
    commit's waves on K1): responses and app hashes equal.
-26. Times, the card against the host reference: the restore (best of 2;
+26. Times, the card against the host reference: the restore (one run;
    its tree build, its hashing and the Hasher's K1 calls within it), the
    three blocks replayed on freshly restored apps, each split into the
    verify (B1 with its marshal, or the native CPU floor), the priorities,
@@ -252,7 +252,7 @@ Phases, in order; any failure raises and exits non-zero:
    sqlite files reopen to the same state and blocks, and a fresh card
    app replays the stored blocks through `exec_commit_block` to the same
    app hashes.
-28. Times, warm best of 2, card and host in turns on fresh chains (a
+28. Times, one warm run each, card and host in turns on fresh chains (a
    fresh `Hasher` each card run), each height after a full collection of
    the heap: the burst (first check_tx to drained, and the gate thread's
    seconds in the verifier), `make_block`, `validate_block`, `apply_block`
@@ -285,12 +285,44 @@ Phases, in order; any failure raises and exits non-zero:
    on the CPU. Then a tampered peer C (A's blocks, one signature of block
    13's LastCommit flipped), dialed before A, is stopped for "sent invalid
    block" exactly once, A stays, and the records are A's.
-30. Times, best of 2 (phase 29's B and B' and one more pair; the smoke's
-   clock allows no third), B and B' in turns on fresh stores after a full
-   collection: the sync's wall time (the dial to the last block applied)
-   and blocks/s (`fastsync_blocks_per_sec`), the reactor's `stage_s`
+30. Times of phase 29's B and B' (the smoke's clock allows no second
+   pair), each on fresh stores after a full collection: the sync's wall
+   time (the dial to the last block applied) and blocks/s (`fastsync_blocks_per_sec`), the reactor's `stage_s`
    (dispatch, which holds part_hash, verify_wait, store_save, apply) and
    the wall time they leave (the transport and the pool).
+31. The consensus state machine, in process (no daemon socket): a
+   400-validator committee (phase 3's first 400 keys, the node's key at
+   the largest power of at most a fifth of the total that the rotation
+   elects at height 1 and once from the upgrade height 7 on, the rest at
+   power 1) drives a `ConsensusState` wired as node/node.py wires one
+   (`committee_node`: sqlite stores, the signed kvstore on 4 shards behind
+   AppConns with the Handshaker, a gated Mempool with its WAL, the
+   consensus WAL, `pipeline_apply`, `Verifier(device="cuda:0")` and the
+   card's `Hasher` as the defaults, the tx-root hook on it). The pump
+   (`committee_pump`, as benches/bench_committee.py drives its node) feeds
+   a height's 1,000 signed txs and 10 forged through check_tx, builds a
+   stub proposer's block as the node would, and injects the 399 stubs'
+   prevotes and precommits; at height 3 one precommit carries a flipped
+   signature. 12 heights, a stop, a new node over the same files
+   (Handshaker replay, WAL catchup, the seen commit primed) and 2 more.
+   Every height commits at round 0; records and states equal the host
+   reference's (the native CPU floor, the host's aggregate check, host
+   hashing; in a process of its own beside the card node), which
+   launches nothing; only the forged precommit is
+   refused. Launches, set to 0 before each session's node is built and
+   read after its pump, equal what the chain implies
+   (`committee_expected`): B1 once a vote micro-batch, a gate batch, a
+   deliver and a full-LastCommit check (four a height: prevote, lock,
+   finalize, apply) at or above the size gate, and once for the restart's
+   seen commit; dsm four times an aggregate LastCommit; K1 and K3 once a
+   tx root and a part set of the node's own proposals, K1 once a wide
+   state-tree wave; `tpu_sigs` and `agg_lanes_device` equal the lanes.
+32. Times of phase 31's first sessions (the smoke's clock allows no
+   second pair), the card node's and the host reference's, each on a
+   fresh home: blocks_per_sec, the consensus trace's segments a height, the vote
+   plane's batches, signatures, singletons and
+   consensus_vote_verify_batch_seconds, the pipeline's join wait and
+   overlap, and the pump's signing seconds.
 
 Each phase's start is logged on a line of its own, in seconds since
 launch. Each path's launch counts are set to 0 just before it and read just after
@@ -302,6 +334,7 @@ no network, one card.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import hashlib
 import json
@@ -425,7 +458,7 @@ APP_SIGNERS = 64
 APP_PROOF_KEYS = 16  # sampled keys of each kind: untouched, updated, deleted, absent
 APP_REF_GATE = 10_001  # the reference Verifier's size gate: a block's lanes on the native CPU floor
 APP_MIN_GATEWAY = 0.96  # a card restore's K1 leaves, at least this share of the state's keys
-APP_RESTORE_RUNS = 2  # phase 26: the restore's best of 2, card and host in turns
+APP_RESTORE_RUNS = 1  # phase 26: the restore once each, card and host in turns (the clock)
 # phase 25's launches beside B1's and K1's entries in the kernels line
 APP_LAUNCH_KEYS = {"ed25519_verify": "b1", "ripemd160": "ripemd160"}
 # phases 27-28, the exec_chain cell: phase 3's 100-validator set (BASELINE.json's
@@ -439,7 +472,7 @@ EXEC_BLOCK = (("update", 7_000), ("new", 3_000), ("forged", 10))
 EXEC_VALUE_BYTES = 64
 EXEC_SIGNERS = 64
 EXEC_INDEX_SAMPLE = 64  # txs whose tx-index entries are compared each height
-EXEC_TIME_RUNS = 2  # phase 28: warm best of 2
+EXEC_TIME_RUNS = 1  # phase 28: one warm run each (the clock)
 EXEC_DRAIN_S = 300.0  # the bound on a burst's drain
 # phase 27's launches beside the kernels' entries in the kernels line
 EXEC_LAUNCH_KEYS = {"ed25519_verify": "b1", "ed25519_dsm": "dsm", "ripemd160": "ripemd160",
@@ -459,12 +492,31 @@ FASTSYNC_BLOCK = (("update", 700), ("new", 300))
 FASTSYNC_VALUE_BYTES = 960
 FASTSYNC_SIGNERS = 64
 FASTSYNC_TAMPER_HEIGHT = 4  # phase 29's peer C flips a signature of block 5's LastCommit
-FASTSYNC_TIME_RUNS = 2  # phases 29-30: best of 2 (phase 29's pair and one more), card and host in turns
+# phase 30: phase 29's pair alone (a second pair took 96 s of the smoke's
+# clock, which phases 31-32 need)
+FASTSYNC_TIME_RUNS = 1
 FASTSYNC_SYNC_S = 600.0  # the bound on each wait of a sync
 # the nodes' p2p config: 5,120,000 B/s each way, and a 10 ms flush throttle
 # (the MConnection sends at most 64 packets a wake-up, so the default 100 ms
 # caps a connection near 0.64 MB/s)
 FASTSYNC_P2P = {"send_rate": 5_120_000, "recv_rate": 5_120_000, "flush_throttle_timeout": 0.01}
+# phases 31-32, the consensus_committee cell: benches/bench_committee.py's
+# largest committee (BENCH_r22.json's wire:n=400), phase 3's first 400 keys,
+# default ConsensusParams, an upgrade to aggregate commits at height 7
+# (docs/upgrade.md); 12 heights (the bench runs 3) of 1,000 signed kv txs and
+# 10 forged ones (phase 27's families; fast sync's 960-byte values, so a
+# block of over 1 MB has 17 or more 64 KB parts, over the Hasher's gate),
+# then a restart and 2 more heights
+COMMITTEE_VALIDATORS = 400
+COMMITTEE_HEIGHTS = 12
+COMMITTEE_RESTART_HEIGHTS = 2
+COMMITTEE_UPGRADE_HEIGHT = 7
+COMMITTEE_FIRST_BLOCK = (("new", 1_000), ("forged", 10))
+COMMITTEE_BLOCK = (("update", 700), ("new", 300), ("forged", 10))
+COMMITTEE_VALUE_BYTES = 960
+COMMITTEE_FORGED_HEIGHT = 3  # one stub's precommit carries a flipped signature
+COMMITTEE_WAIT_S = 120.0  # the bound on each wait of the pump
+COMMITTEE_REFERENCE_S = 600.0  # the bound on the host reference's two sessions
 # phase 21's daemon launches beside each kernel's entry in the kernels line
 DEVD_LAUNCH_KEYS = {"ed25519_verify": "b1", "ed25519_comb": "comb", "ed25519_comb_tables": "tables",
                     "ed25519_dsm": "dsm", "ripemd160": "ripemd160", "merkle_tree": "merkle_tree"}
@@ -864,12 +916,17 @@ def main() -> int:
         exec_inputs_s = time.perf_counter() - t_exec
         t_fs = time.perf_counter()
         fastsync_inputs = make_fastsync_inputs(pool, np.random.default_rng(SEED + 29))
+        fastsync_inputs_s = time.perf_counter() - t_fs
+        t_cmt = time.perf_counter()
+        committee_inputs = make_committee_inputs(pool, np.random.default_rng(SEED + 31))
     log({"phase": "setup", "keys": n_keys,
          "signatures": MIXED_LANES + n_small + 4 * n_mid + n_keys + AGG_SIZES[1],
          "app_state_keys": APP_STATE_KEYS, "app_signed_txs": sum(len(b["txs"]) for b in app_inputs["blocks"]),
          "app_inputs_s": app_inputs_s, "exec_signed_txs": sum(len(b["txs"]) for b in exec_inputs),
          "exec_inputs_s": exec_inputs_s, "fastsync_signed_txs": sum(len(b["txs"]) for b in fastsync_inputs),
-         "fastsync_inputs_s": time.perf_counter() - t_fs, "seconds": time.perf_counter() - t0})
+         "fastsync_inputs_s": fastsync_inputs_s,
+         "committee_signed_txs": sum(len(b["txs"]) for b in committee_inputs),
+         "committee_inputs_s": time.perf_counter() - t_cmt, "seconds": time.perf_counter() - t0})
 
     # -- phase 2: kernel vs plain version on the card ---------------------------
     phase_start(2, "kernel vs plain version")
@@ -1104,7 +1161,15 @@ def main() -> int:
         shutil.rmtree(fs_ctx["root"], ignore_errors=True)
     fastsync_launches = fs_ctx["launches"]
     del fs_ctx, fastsync_inputs
-    phase_start(31, "kernels line")
+
+    # -- phases 31 and 32: the consensus state machine ------------------------------
+    phase_start(31, "consensus state machine")
+    cmt_ctx = committee_phase(name, power, seeds, committee_inputs)
+    phase_start(32, "consensus times")
+    committee_time(name, power, cmt_ctx)
+    committee_launches = cmt_ctx["launches"]
+    del cmt_ctx, committee_inputs
+    phase_start(33, "kernels line")
 
     entries = []
     for kname, module, launches, err, ms, p_ms, lanes in (
@@ -1156,6 +1221,7 @@ def main() -> int:
         if entry["name"] in EXEC_LAUNCH_KEYS:
             entry["exec_launches"] = exec_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
             entry["fastsync_launches"] = fastsync_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
+            entry["consensus_launches"] = committee_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
     log({"kernels": entries})
     log(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5112,6 +5178,736 @@ def fastsync_time(name, power, ctx) -> None:
          "speedup": best["host"]["wall_s"] / best["card"]["wall_s"],
          "card_best": best["card"], "host_best": best["host"],
          "card_runs": runs["card"], "host_runs": runs["host"]})
+
+
+
+# -- phases 31 and 32: the consensus state machine -----------------------------
+
+
+def committee_pkg(root: str = "tendermint_tpu_torch"):
+    """The classes a committee node is wired from, taken from the package
+    `root` by name (the port's; its tests wire the JAX package's the same
+    way to hold the two against each other)."""
+    import importlib
+    import types
+
+    def mod(name):
+        return importlib.import_module(f"{root}.{name}")
+
+    signedkv = mod("abci.apps.signedkv")
+    mempool = mod("mempool.mempool")
+    vote = mod("types.vote")
+    return types.SimpleNamespace(
+        root=root,
+        ConsensusState=mod("consensus.state").ConsensusState,
+        msgs=mod("consensus.messages"),
+        RoundStep=mod("consensus.round_state").RoundStep,
+        Handshaker=mod("consensus.replay").Handshaker,
+        SignedKVStoreApp=signedkv.SignedKVStoreApp,
+        parse_sig_tx=signedkv.parse_sig_tx,
+        make_sig_tx=signedkv.make_sig_tx,
+        gen_priv_key_ed25519=mod("crypto.keys").gen_priv_key_ed25519,
+        BlockStore=mod("blockchain.store").BlockStore,
+        test_config=mod("config").test_config,
+        db_provider=mod("libs.db").db_provider,
+        MemDB=mod("libs.db").MemDB,
+        EventSwitch=mod("libs.events").EventSwitch,
+        Mempool=mempool.Mempool,
+        SigBatcher=mempool.SigBatcher,
+        AppConns=mod("proxy").AppConns,
+        LocalClientCreator=mod("proxy").LocalClientCreator,
+        State=mod("state.state").State,
+        Block=mod("types.block").Block,
+        empty_commit=mod("types.block").empty_commit,
+        BlockID=mod("types.block_id").BlockID,
+        Proposal=mod("types.proposal").Proposal,
+        Vote=vote.Vote,
+        VOTE_TYPE_PREVOTE=vote.VOTE_TYPE_PREVOTE,
+        VOTE_TYPE_PRECOMMIT=vote.VOTE_TYPE_PRECOMMIT,
+        PrivValidatorFS=mod("types.priv_validator").PrivValidatorFS,
+        SignatureEd25519=mod("crypto.keys").SignatureEd25519,
+        GenesisDoc=mod("types.genesis").GenesisDoc,
+        GenesisValidator=mod("types.genesis").GenesisValidator,
+    )
+
+
+def committee_genesis(p, keys, own_addr: bytes, own_power: int, upgrade_height: int,
+                      chain_id: str = CHAIN_ID):
+    """The committee's genesis: `keys` (PrivKeyEd25519) at power 1, but the
+    node's key (`own_addr`) at `own_power`, default ConsensusParams, and the
+    upgrade to aggregate commits at `upgrade_height` (docs/upgrade.md)."""
+    return p.GenesisDoc(
+        genesis_time_ns=BLOCK_TIME_NS, chain_id=chain_id,
+        validators=[p.GenesisValidator(k.pub_key(), own_power if k.pub_key().address() == own_addr else 1)
+                    for k in keys],
+        upgrade_height=upgrade_height, upgrade_format="aggregate",
+    )
+
+
+def committee_schedule(p, doc, heights: int) -> dict[int, bytes]:
+    """The proposer's address at heights 1..`heights` of round 0: the
+    genesis set's rotation, advanced once a height as State advances it."""
+    vals = p.State.get_state(p.MemDB(), doc).validators
+    out = {}
+    for h in range(1, heights + 1):
+        out[h] = vals.get_proposer().address
+        vals = vals.copy()
+        vals.increment_accum(1)
+    return out
+
+
+def committee_power(p, keys, heights: int, upgrade_height: int, idle: tuple[int, ...]) -> tuple[bytes, int, list]:
+    """(the node's address, its power, the heights it proposes). The node
+    runs the height-1 proposer's key of the equal-power set (as
+    benches/bench_committee.py picks it); its power is the largest of at
+    most a fifth of the total (so a quorum needs the stubs) with which the
+    rotation elects it at height 1, at one height in [upgrade_height,
+    heights] and at none of `idle` (the heights after a restart, so the
+    restart finds no proposal of its own in flight)."""
+    flat = committee_genesis(p, keys, b"", 1, upgrade_height)
+    own = committee_schedule(p, flat, 1)[1]
+    last = max((heights,) + idle)
+    for power in range((len(keys) - 1) // 4, 0, -1):
+        sched = committee_schedule(p, committee_genesis(p, keys, own, power, upgrade_height), last)
+        mine = [h for h, addr in sched.items() if addr == own]
+        if mine[0] == 1 and any(upgrade_height <= h <= heights for h in mine) and not set(mine) & set(idle):
+            return own, power, mine
+    raise AssertionError("no power of at most a fifth of the total gives the committee's schedule")
+
+
+class vote_rejects:
+    """The consensus state's flight-recorder seam (duck-typed, as
+    node/flightrec.py is): keeps every refused vote's record and every
+    exception the receive routine noted."""
+
+    def __init__(self):
+        self.rejects: list[dict] = []
+        self.exceptions: list[str] = []
+
+    def record(self, kind: str, **fields) -> None:
+        if kind == "vote_reject":
+            self.rejects.append(fields)
+
+    def note_exception(self, source: str, exc: BaseException) -> None:
+        self.exceptions.append(f"{source}: {type(exc).__name__}: {exc}")
+
+    def note_vote_dup(self, peer_id: str) -> None:
+        pass
+
+
+class verify_log:
+    """The node's Verifier with every dispatch recorded as (source, lanes):
+    "vote" for a VoteBatcher micro-batch (prime_cache_async), "aggregate"
+    for an aggregate LastCommit's n + 1 lanes, the tag of `source(...)`
+    around a call, else "commit" (validate_block's LastCommit verify). The
+    Verifier is wrapped in place: the consensus state, the gate and the app
+    keep calling it as they would."""
+
+    def __init__(self, verifier):
+        self.verifier = verifier
+        self.calls: list[tuple[str, int]] = []
+        self._local = threading.local()
+        self._mtx = threading.Lock()
+        batch_async, prime_async, aggregate = (verifier.verify_batch_async, verifier.prime_cache_async,
+                                               verifier.verify_aggregate)
+
+        def logged_batch_async(items):
+            self._note(getattr(self._local, "source", None) or "commit", len(items))
+            return batch_async(items)
+
+        def logged_prime_async(items, on_done=None):
+            with self.tagged("vote"):
+                return prime_async(items, on_done)
+
+        def logged_aggregate(pubs, msgs, rs, s_agg):
+            self._note("aggregate", len(pubs) + 1)
+            return aggregate(pubs, msgs, rs, s_agg)
+
+        verifier.verify_batch_async = logged_batch_async
+        verifier.prime_cache_async = logged_prime_async
+        verifier.verify_aggregate = logged_aggregate
+
+    def _note(self, source: str, lanes: int) -> None:
+        with self._mtx:
+            self.calls.append((source, lanes))
+
+    @contextlib.contextmanager
+    def tagged(self, tag: str):
+        """Tag this thread's dispatches inside the block."""
+        saved = getattr(self._local, "source", None)
+        self._local.source = tag
+        try:
+            yield
+        finally:
+            self._local.source = saved
+
+    def view(self, tag: str):
+        """The verifier as a caller tagged `tag` sees it (the gate's
+        verify_batch_async, the app's verify_batch)."""
+        log = self
+
+        class view:
+            def verify_batch_async(self, items):
+                with log.tagged(tag):
+                    return log.verifier.verify_batch_async(items)
+
+            def verify_batch(self, items):
+                with log.tagged(tag):
+                    return log.verifier.verify_batch(items)
+
+        return view()
+
+    def take(self) -> list[tuple[str, int]]:
+        with self._mtx:
+            out, self.calls = self.calls, []
+        return out
+
+
+class committee_node:
+    """The node of the consensus_committee cell, wired as node/node.py wires
+    one, in `root` (made at genesis by committee_home): sqlite `state` and
+    `blockstore` DBs; a SignedKVStoreApp (its CheckTx left to the gate,
+    its block verify through `verifier`, its tree hashing through `hasher`,
+    APP_SHARDS shards) behind AppConns(LocalClientCreator) with the
+    Handshaker, which replays the stored blocks into the fresh app; a
+    Mempool with its WAL, gated by SigBatcher(verifier, parse_sig_tx); and a
+    ConsensusState over them with its WAL on disk, `pipeline_apply` on, the
+    file privval, `verifier=verifier` and `hasher` as its part hasher. The
+    liveness timeouts are generous (the pump is prompt, and a stray round
+    would fork the comparison) and block times pinned, as
+    benches/bench_committee.py builds its node. `log` (a verify_log around
+    `verifier`) tags the gate's and the app's dispatches."""
+
+    def __init__(self, p, root: str, doc, verifier, hasher=None, log=None):
+        self.p, self.root, self.doc = p, root, doc
+        self.dbs = {n: p.db_provider(n, "sqlite", root) for n in ("state", "blockstore")}
+        self.store = p.BlockStore(self.dbs["blockstore"])
+        state = p.State.get_state(self.dbs["state"], doc)
+        self.app = p.SignedKVStoreApp(verify_in_app=False)
+        self.app.deliver_verifier = log.view("deliver") if log is not None else verifier
+        self.rec = None
+        if hasher is not None:
+            self.rec = wave_recorder(hasher)
+            self.app.tree.hasher = self.rec
+        self.app.shards = APP_SHARDS
+        self.handshaker = p.Handshaker(state, self.store)
+        self.conns = p.AppConns(p.LocalClientCreator(self.app), self.handshaker)
+        self.conns.start()
+        cfg = p.test_config()
+        cfg.set_root(root)
+        cc = cfg.consensus
+        cc.timeout_commit = 0.05
+        cc.skip_timeout_commit = True
+        cc.timeout_propose = cc.timeout_prevote = cc.timeout_precommit = 60.0
+        self.gate = batch_recorder(log.view("gate") if log is not None else verifier)
+        self.batcher = p.SigBatcher(self.gate, p.parse_sig_tx)
+        self.mempool = p.Mempool(cfg.mempool, self.conns.mempool(), sig_batcher=self.batcher)
+        self.mempool.init_wal()
+        self.pv = p.PrivValidatorFS.load(os.path.join(root, "priv_validator.json"))
+        # a restart's reconstruct_last_commit primes the seen commit here
+        with log.tagged("seen_commit") if log is not None else contextlib.nullcontext():
+            self.cs = p.ConsensusState(cc, state.copy(), self.conns.consensus(), self.store, self.mempool,
+                                       verifier=verifier)
+        if hasher is not None:
+            self.cs.part_hasher = hasher
+        self.cs.set_priv_validator(self.pv)
+        self.evsw = p.EventSwitch()
+        self.evsw.start()
+        self.cs.set_event_switch(self.evsw)
+        self.cs.propose_time_source = lambda h: BLOCK_TIME_NS + h * 10**9
+        self.flight = vote_rejects()
+        self.cs.flightrec = self.flight
+        self.started = False
+
+    def feed(self, txs: list[bytes], timeout: float = EXEC_DRAIN_S) -> list[int]:
+        """check_tx every tx and wait for every answer, then until the pool
+        holds the accepted ones beside those it held; returns the refused
+        positions."""
+        codes: dict[int, int] = {}
+        before = self.mempool.size()
+        for i, tx in enumerate(txs):
+            self.mempool.check_tx(tx, cb=lambda res, i=i: codes.__setitem__(i, res.code))
+        deadline = time.monotonic() + timeout
+        refused: list[int] = []
+        while True:
+            if len(codes) == len(txs):
+                refused = sorted(i for i, c in codes.items() if c)
+                if self.mempool.size() >= before + len(txs) - len(refused):
+                    return refused
+            if time.monotonic() > deadline:
+                raise AssertionError(f"feed: {len(codes)} of {len(txs)} answered, {self.mempool.size()} pooled")
+            time.sleep(0.0005)
+
+    def state_bytes(self) -> bytes:
+        return self.p.State.load_state(self.dbs["state"], self.doc).bytes_()
+
+    def records(self, first: int, last: int) -> list[dict]:
+        """What the node stored for heights first..last: the block's bytes,
+        hash, part-set root, header app hash and seen commit."""
+        out = []
+        for h in range(first, last + 1):
+            meta, block = self.store.load_block_meta(h), self.store.load_block(h)
+            out.append({"height": h, "hash": meta.block_id.hash.hex(),
+                        "parts": meta.block_id.parts_header.hash.hex(),
+                        "parts_total": meta.block_id.parts_header.total,
+                        "app_hash": block.header.app_hash.hex(), "block": block.to_bytes(),
+                        "seen": self.store.load_seen_commit(h).to_json(),
+                        "format": block.commit_format()})
+        return out
+
+    def stop(self) -> bytes:
+        """Stop consensus (the deferred apply drained), the gate, the WALs
+        and the app; returns the saved state's bytes, then closes the DBs."""
+        if self.started:
+            self.cs.stop()
+        self.batcher.stop()
+        self.mempool.close_wal()
+        self.conns.stop()
+        self.evsw.stop()
+        try:
+            return self.state_bytes()
+        finally:
+            for db in self.dbs.values():
+                db.close()
+
+
+def committee_home(p, root: str, own_key) -> None:
+    """A node home: the directory and the node's file privval."""
+    os.makedirs(root, exist_ok=True)
+    p.PrivValidatorFS(own_key, os.path.join(root, "priv_validator.json")).save()
+
+
+def _committee_wait(cond, seconds: float, what: str, node) -> None:
+    deadline = time.monotonic() + seconds
+    while not cond():
+        err = getattr(node.cs, "device_error", None)
+        if err is not None:
+            raise AssertionError(f"consensus stopped on a device error: {err}")
+        if time.monotonic() > deadline:
+            rs = node.cs.rs
+            raise AssertionError(f"committee pump: waited {seconds} s for {what} "
+                                 f"(at {rs.height}/{rs.round_}/{int(rs.step)})")
+        time.sleep(0.0005)
+
+
+def committee_pump(node, keys, bursts, first: int, last: int, forged_height: int | None = None,
+                   restarted: bool = False, wait_s: float = 120.0, on_height=None) -> dict:
+    """Start `node` and drive heights first..last as benches/bench_committee.py
+    drives its node, with txs: bursts[h - 1] (a dict of "txs") is fed
+    through check_tx before height h's proposal (before start for `first`,
+    else between height h-1's prevotes and precommits), and every other
+    key of `keys` is a stub. When the rotation elects a stub, the pump
+    builds the block the node would build (the reaped txs, the pinned time,
+    the LastCommit through the node's own `_commit_for_proposal`), signs
+    the proposal and sends it with its parts; then it injects every stub's
+    prevote and, once the node precommits, every stub's precommit. At
+    `forged_height` the first stub's precommit carries a flipped signature.
+    Each height starts once the node holds the applied state of the one
+    before and its LastCommit holds every precommit sent (on a `restarted`
+    node the first height's LastCommit is the stored seen commit). Returns
+    the refusals of each burst, the proposers, the applied state's bytes
+    at the start of each height and after the last, the pump's signing
+    seconds and the wall time."""
+    p, cs = node.p, node.cs
+    chain_id = node.doc.chain_id
+    own = node.pv.get_address()
+    stubs = [(i, p.PrivValidatorFS(k, None)) for i, k in enumerate(keys) if k.pub_key().address() != own]
+    part_size = node.doc.consensus_params.block_gossip.block_part_size_bytes
+    out = {"refused": {}, "proposers": {}, "states": {}, "sign_s": 0.0, "forged": None}
+    out["refused"][first] = node.feed(bursts[first - 1]["txs"])
+
+    def applied(h: int) -> bool:
+        # at height h over the applied state of h - 1: finalize sets the
+        # deferred apply before it moves to h, and the join clears it, then
+        # swaps the state in and clears the provisional flag, so these
+        # reads in this order never pass in between
+        return (cs.rs.height == h and cs._pending_apply is None and not cs._state_provisional
+                and cs.state.last_block_height == h - 1)
+
+    t0 = time.perf_counter()
+    cs.start()
+    node.started = True
+    for h in range(first, last + 1):
+        want = len(keys) - (h - 1 == forged_height)
+
+        def ready():
+            if not applied(h):
+                return False
+            if h == 1 or (restarted and h == first):
+                return True
+            lc = cs.rs.last_commit
+            return lc is not None and lc.bit_array().num_true_bits() == want
+
+        _committee_wait(ready, wait_s, f"height {h}", node)
+        if on_height is not None:
+            on_height(h)
+        out["states"][h - 1] = cs.state.bytes_()  # the applied state of h - 1
+        proposer = cs.rs.validators.get_proposer().address
+        out["proposers"][h] = proposer
+        if proposer != own:
+            commit = p.empty_commit() if h == 1 else cs._commit_for_proposal(cs.rs.last_commit.make_commit())
+            txs = cs.mempool.reap(cs.config.max_block_size_txs)
+            block, parts = p.Block.make_block(
+                height=h, chain_id=chain_id, txs=txs, commit=commit, prev_block_id=cs.state.last_block_id,
+                val_hash=cs.state.validators.hash(), app_hash=cs.state.app_hash, part_size=part_size,
+                time_ns=BLOCK_TIME_NS + h * 10**9)
+            pv = next(pv for _, pv in stubs if pv.get_address() == proposer)
+            cs.set_proposal_msg(pv.sign_proposal(chain_id, p.Proposal(h, 0, parts.header())), peer_id="pump")
+            for i in range(parts.total):
+                cs.add_peer_message(p.msgs.BlockPartMessage(h, 0, parts.get_part(i)), "pump")
+        _committee_wait(lambda: cs.rs.height > h or (cs.rs.height == h and cs.rs.proposal_block is not None
+                                                     and cs.rs.proposal_block_parts.is_complete()),
+                        wait_s, f"the proposal at {h}", node)
+        bid = p.BlockID(cs.rs.proposal_block.hash(), cs.rs.proposal_block_parts.header())
+        for type_ in (p.VOTE_TYPE_PREVOTE, p.VOTE_TYPE_PRECOMMIT):
+            t1 = time.perf_counter()
+            votes = [pv.sign_vote(chain_id, p.Vote(pv.get_address(), i, h, 0, type_, bid)) for i, pv in stubs]
+            if type_ == p.VOTE_TYPE_PRECOMMIT and h == forged_height:
+                raw = bytearray(votes[0].signature.raw)
+                raw[5] ^= 0x20
+                votes[0] = votes[0].with_signature(p.SignatureEd25519(bytes(raw)))
+                out["forged"] = (h, votes[0].validator_index)
+            out["sign_s"] += time.perf_counter() - t1
+            for v in votes:
+                cs.add_vote_msg(v, peer_id="pump")
+            if type_ == p.VOTE_TYPE_PREVOTE:
+                # the node locks and its precommit is in before the precommit
+                # wave: every height commits at round 0, and the seen commit
+                # holds the same precommits in every run
+                own_idx, _ = cs.rs.validators.get_by_address(own)
+                _committee_wait(lambda: cs.rs.height > h or (
+                    cs.rs.step >= p.RoundStep.PRECOMMIT
+                    and cs.rs.votes.precommits(0).get_by_index(own_idx) is not None),
+                    wait_s, f"the node's precommit at {h}", node)
+                if h < last:
+                    out["refused"][h + 1] = node.feed(bursts[h]["txs"])
+    _committee_wait(lambda: applied(last + 1) and node.store.height() == last, wait_s, "the last commit", node)
+    out["wall_s"] = time.perf_counter() - t0
+    out["states"][last] = cs.state.bytes_()
+    return out
+
+
+
+def make_committee_inputs(pool, rng) -> list[dict]:
+    """Phase 31's bursts, from their own generator so the earlier phases'
+    draws stay as they were: one a height (the restart's two included),
+    the first of COMMITTEE_FIRST_BLOCK and the rest of COMMITTEE_BLOCK."""
+    return make_bursts(pool, rng, COMMITTEE_HEIGHTS + COMMITTEE_RESTART_HEIGHTS, COMMITTEE_FIRST_BLOCK,
+                       COMMITTEE_BLOCK, COMMITTEE_VALUE_BYTES, EXEC_SIGNERS, b"cmt-%07d")
+
+
+def _hist_reading() -> dict[str, tuple[int, float]]:
+    """(count, sum) of the vote plane's and the pipeline's histograms."""
+    from tendermint_tpu_torch.consensus import pipeline as cpipeline
+    from tendermint_tpu_torch.consensus import vote_batcher as cvb
+
+    hists = {"vote_batch": cvb.vote_batch_hists()["batch"], **cpipeline.pipeline_hists()}
+    return {k: (h.count, h.sum) for k, h in hists.items() if k in ("vote_batch", "join_wait", "overlap")}
+
+
+class committee_setup:
+    """The consensus_committee cell's chain: phase 3's first
+    COMMITTEE_VALIDATORS keys, the node's power (committee_power), the
+    genesis and the bursts."""
+
+    def __init__(self, seeds, bursts):
+        self.p = committee_pkg()
+        keys = [self.p.gen_priv_key_ed25519(s) for s in seeds[:COMMITTEE_VALIDATORS]]
+        keys.sort(key=lambda k: k.pub_key().address())
+        self.keys = keys
+        last = COMMITTEE_HEIGHTS + COMMITTEE_RESTART_HEIGHTS
+        self.own, self.own_power, self.own_heights = committee_power(
+            self.p, keys, COMMITTEE_HEIGHTS, COMMITTEE_UPGRADE_HEIGHT,
+            idle=tuple(range(COMMITTEE_HEIGHTS + 1, last + 1)))
+        self.own_key = next(k for k in keys if k.pub_key().address() == self.own)
+        self.doc = committee_genesis(self.p, keys, self.own, self.own_power, COMMITTEE_UPGRADE_HEIGHT)
+        self.bursts = bursts
+        self.last = last
+
+    def run(self, verifier, hasher, root: str, first: int, last: int, log=None, restarted: bool = False) -> dict:
+        """One session of the node in `root`: built (a restart when the
+        home holds a chain), pumped through heights first..last, stopped.
+        Returns the pump's result, the launches, the node's records, the
+        saved state, the Verifier's and Hasher's stat deltas, the vote
+        plane's and the pipeline's readings and the traces."""
+        from tendermint_tpu_torch.ops import gateway
+        from tendermint_tpu_torch.types import tx as ptx
+
+        gateway._default_verifier, gateway._default_hasher = verifier, hasher
+        ptx.set_batch_tx_root(hasher.tx_merkle_root)
+        v0, h0, hist0 = verifier.stats(), hasher.stats(), _hist_reading()
+        gc.collect()
+        reset_launches()
+        t0 = time.perf_counter()
+        node = committee_node(self.p, root, self.doc, verifier, hasher, log)
+        build_s = time.perf_counter() - t0
+        try:
+            out = committee_pump(node, self.keys, self.bursts, first, last,
+                                 forged_height=COMMITTEE_FORGED_HEIGHT, restarted=restarted,
+                                 wait_s=COMMITTEE_WAIT_S)
+            if verifier.device is not None and verifier.device.type == "cuda":
+                _sync()
+            launches = read_launches()
+            records = node.records(1, last)
+            round_zero = all(all(v is None or v.round_ == 0 for v in node.store.load_seen_commit(h).precommits)
+                             for h in range(first, last + 1))
+        finally:
+            ptx.set_batch_tx_root(None)
+            state = node.stop()
+        cs = node.cs
+        v1, h1, hist1 = verifier.stats(), hasher.stats(), _hist_reading()
+        if cs.device_error is not None or node.flight.exceptions:
+            raise AssertionError(f"consensus stopped: {cs.device_error} {node.flight.exceptions}")
+        widths, _ = node.rec.take()
+        return {
+            "out": out, "launches": launches, "records": records, "state": state, "build_s": build_s,
+            "verifier": {k: v1[k] - v0[k] for k in ("tpu_batches", "tpu_sigs", "cpu_sigs", "agg_batches",
+                                                   "agg_lanes_device", "agg_lanes_cpu")},
+            "hasher": {k: h1[k] - h0[k] for k in ("tpu_part_batches", "tpu_tx_roots", "tpu_leaves", "cpu_leaves")},
+            "waves": widths, "gate_sizes": node.gate.take()[0],
+            "rejects": [(r["height"], r["type"], r["err"].split(":")[0]) for r in node.flight.rejects],
+            "vote_plane": {"batches": cs.vote_batcher.batches, "batched_sigs": cs.vote_batcher.batched_sigs,
+                           "singletons": cs.vote_batcher.singletons,
+                           "vote_verify_batch_count": hist1["vote_batch"][0] - hist0["vote_batch"][0],
+                           "consensus_vote_verify_batch_seconds": hist1["vote_batch"][1] - hist0["vote_batch"][1]},
+            "pipeline": {"join_wait_s": hist1["join_wait"][1] - hist0["join_wait"][1],
+                         "joins": hist1["join_wait"][0] - hist0["join_wait"][0],
+                         "overlap_s": hist1["overlap"][1] - hist0["overlap"][1]},
+            "traces": [t.to_json() for t in cs.trace.last(last - first + 1)],
+            "round_zero": round_zero,
+        }
+
+
+def committee_expected(run: dict, setup, first: int, last: int, gate: int, hash_gate: int,
+                       restarted: bool) -> dict:
+    """The launches the chain implies for one session, from the code's
+    call sites (consensus/state.py, state/execution.py, types/tx.py):
+
+    - B1: one launch a dispatch of `gate` lanes or more, and the session
+      has one a vote micro-batch that wide (VoteBatcher.prepare), four a
+      height with a full LastCommit (validate_block's verify_commit at the
+      prevote, at the lock, at finalize and in apply_block), one a deliver
+      (the signed kvstore's block verify: each height applied, and on a
+      restart each block the Handshaker replays), one a gate batch that
+      wide, and on a restart one for the seen commit
+      (reconstruct_last_commit's prime);
+    - dsm: four a height with an aggregate LastCommit, n + 1 lanes each;
+    - K1 and K3: one each a tx root (a height's tx set: the node's own
+      proposal submits it, a stub's block is built through the same hook,
+      and every later check joins the Hasher's cache) and a part set of
+      the node's own proposals at or above `hash_gate` parts; K1 once more
+      a state-tree wave at or above `hash_gate` leaves."""
+    doc = setup.doc
+    calls = run["calls"]
+    device = [(src, n) for src, n in calls if n >= gate]
+    by_source: dict[str, int] = {}
+    for src, _ in device:
+        by_source[src] = by_source.get(src, 0) + 1
+    heights = range(first, last + 1)
+    full = sum(h >= 2 and not doc.aggregate_commits_at(h) for h in heights)
+    agg = sum(doc.aggregate_commits_at(h) for h in heights)
+    replayed = first - 1 if restarted else 0
+    want_sources = {"commit": 4 * full, "deliver": len(heights) + replayed, "aggregate": 4 * agg,
+                    "seen_commit": 1 if restarted else 0,
+                    "vote": sum(1 for src, n in calls if src == "vote" and n >= gate),
+                    "gate": sum(1 for n in run["gate_sizes"] if n >= gate)}
+    got_sources = {k: by_source.get(k, 0) for k in want_sources}
+    if got_sources != want_sources or set(by_source) - set(want_sources):
+        raise AssertionError(f"dispatches by source {by_source}, expected {want_sources}")
+    parts = {r["height"]: r["parts_total"] for r in run["records"]}
+    own = sum(h in setup.own_heights and parts[h] >= hash_gate for h in heights)
+    own_host_parts = sum(parts[h] for h in heights if h in setup.own_heights and parts[h] < hash_gate)
+    waves = sum(w >= hash_gate for w in run["waves"])
+    b1 = sum(v for k, v in want_sources.items() if k != "aggregate")
+    return {"b1": b1, "dsm": want_sources["aggregate"], "ripemd160": len(heights) + own + waves,
+            "merkle_tree": len(heights) + own, "sources": want_sources, "own_proposals": own,
+            "own_host_parts": own_host_parts,
+            "waves_device": waves}
+
+
+def committee_check(label: str, run: dict, want_records, want_state, setup, first: int, last: int,
+                    verifier, hasher, restarted: bool) -> dict:
+    """Phase 31's checks of one card session against the host reference's
+    records and state, and its launches against committee_expected."""
+    from tendermint_tpu_torch.types import block as pblock
+
+    gate, hash_gate = verifier.min_tpu_batch, hasher.min_tpu_batch
+    exp = committee_expected(run, setup, first, last, gate, hash_gate, restarted)
+    if run["records"] != want_records:
+        diff = [r["height"] for r, w in zip(run["records"], want_records) if r != w]
+        raise AssertionError(f"{label}: heights {diff} differ from the host reference")
+    if run["state"] != want_state:
+        raise AssertionError(f"{label}: the final state differs from the host reference")
+    if not run["round_zero"]:
+        raise AssertionError(f"{label}: a height committed after round 0")
+    _launch_delta(run["launches"], {k: exp[k] for k in ("b1", "dsm", "ripemd160", "merkle_tree")}, label)
+    device = [(src, n) for src, n in run["calls"] if n >= gate]
+    lanes = {"tpu_sigs": sum(n for src, n in device if src != "aggregate"),
+             "agg_lanes_device": sum(n for src, n in device if src == "aggregate")}
+    if any(run["verifier"][k] != v for k, v in lanes.items()) or run["verifier"]["agg_lanes_cpu"]:
+        raise AssertionError(f"{label}: verifier lanes {run['verifier']}, expected {lanes}")
+    h = run["hasher"]
+    # part batches: the node's own part sets and the state tree's waves
+    parts = exp["own_proposals"] + exp["waves_device"]
+    if h["tpu_tx_roots"] != last - first + 1 or h["tpu_part_batches"] != parts \
+            or h["cpu_leaves"] != exp["own_host_parts"]:
+        raise AssertionError(f"{label}: hasher {h}, expected {last - first + 1} tx roots, {parts} part "
+                             f"batches and {exp['own_host_parts']} leaves on the host")
+    for r in run["records"][first - 1:]:
+        if len(pblock.Block.from_bytes(r["block"]).data.txs) != len(setup.bursts[r["height"] - 1]["txs"]) - len(
+                setup.bursts[r["height"] - 1]["forged"]):
+            raise AssertionError(f"{label}: height {r['height']} did not commit its burst")
+    return exp
+
+
+def committee_reference(seeds, bursts, knobs: dict) -> list[dict]:
+    """Phase 31's host reference, in a process of its own: the node on a
+    Verifier whose gate sends every lane to the native CPU floor (the
+    aggregate LastCommits on the host's reference check) and
+    host_hasher(), its two sessions (heights 1..COMMITTEE_HEIGHTS, then a
+    restart from its files and the rest), neither launching a kernel.
+    `knobs` are the parent's COMMITTEE_* values (a spawned process
+    imports this module afresh)."""
+    from tendermint_tpu_torch.ops.gateway import Verifier
+
+    globals().update(knobs)
+    setup = committee_setup(seeds, bursts)
+    root = tempfile.mkdtemp(prefix="committee-host-")
+    try:
+        with routed_to():
+            ref_v = Verifier(min_tpu_batch=APP_REF_GATE, device="cpu")
+            ref_h = host_hasher()
+            committee_home(setup.p, root, setup.own_key)
+            ref = [setup.run(ref_v, ref_h, root, 1, COMMITTEE_HEIGHTS),
+                   setup.run(ref_v, ref_h, root, COMMITTEE_HEIGHTS + 1, setup.last, restarted=True)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for i, r in enumerate(ref):
+        _launch_delta(r["launches"], {}, f"host reference session {i + 1}")
+    return ref
+
+
+def committee_phase(name, power, seeds, bursts) -> dict:
+    """Phase 31: the consensus state machine on the card, in process (no
+    daemon socket). The consensus_committee cell's node (committee_node on
+    Verifier(device=DEVICE) and Hasher(device=DEVICE), installed as the
+    gateway's defaults, the tx-root hook on the Hasher) commits heights
+    1..COMMITTEE_HEIGHTS under committee_pump, one stub's precommit at
+    COMMITTEE_FORGED_HEIGHT forged; then a new node over the same files
+    (the Handshaker replaying the stored blocks into a fresh app, the WAL
+    catchup, the seen commit primed) commits COMMITTEE_RESTART_HEIGHTS
+    more. The host reference (committee_reference) runs the same two
+    sessions in a process of its own, beside the card node's (its
+    pure-Python aggregate checks take most of the phase), and launches
+    nothing. Every height commits at round 0; records, state,
+    the gate's refusals (the forged txs alone), the proposers and the
+    refused votes (the forged precommit alone) are equal; each session's
+    launches are reset just before the node is built and read just after
+    the pump, and must be committee_expected's; tpu_sigs and
+    agg_lanes_device equal the device lanes dispatched. Returns what phase
+    32 needs and the launches."""
+    from tendermint_tpu_torch.ops import gateway
+    from tendermint_tpu_torch.ops.gateway import Hasher, Verifier
+
+    tag = {"card": name, "power_limit": power}
+    setup = committee_setup(seeds, bursts)
+    p, n = setup.p, len(setup.keys)
+    total = setup.own_power + n - 1
+    log({"phase": "committee_setup", **tag, "validators": n, "node_power": setup.own_power,
+         "total_power": total, "node_share": setup.own_power / total,
+         "node_proposes_at": setup.own_heights, "upgrade_height": COMMITTEE_UPGRADE_HEIGHT,
+         "heights": COMMITTEE_HEIGHTS, "restart_heights": COMMITTEE_RESTART_HEIGHTS,
+         "txs_per_height": [len(b["txs"]) for b in bursts], "forged_precommit_height": COMMITTEE_FORGED_HEIGHT})
+    if setup.own_power * 5 > total:
+        raise AssertionError("the node's power is over a fifth of the total")
+    first_end, last = COMMITTEE_HEIGHTS, setup.last
+    sessions = ((1, first_end, False), (first_end + 1, last, True))  # (first, last, restarted)
+    saved = gateway._default_verifier, gateway._default_hasher
+    roots = []
+    reference = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        knobs = {k: v for k, v in globals().items() if k.startswith("COMMITTEE_")}
+        pending = reference.apply_async(committee_reference, (seeds[:COMMITTEE_VALIDATORS], bursts, knobs))
+        with routed_to():
+            verifier = Verifier(device=DEVICE)
+            hasher = Hasher(device=DEVICE)
+            if verifier.kernel != "f32p" or hasher._route != "local":
+                raise AssertionError(f"the card node's routes: {verifier.kernel}, {hasher._route}")
+            vlog = verify_log(verifier)
+            root = tempfile.mkdtemp(prefix="committee-card-")
+            roots.append(root)
+            committee_home(p, root, setup.own_key)
+            card = []
+            for a, b, restarted in sessions:
+                run = setup.run(verifier, hasher, root, a, b, log=vlog, restarted=restarted)
+                run["calls"] = vlog.take()
+                card.append(run)
+            ref = pending.get(timeout=COMMITTEE_REFERENCE_S)
+            for i, r in enumerate(ref):
+                log({"phase": "committee_path", **tag, "node": "host", "session": i + 1,
+                     "wall_s": r["out"]["wall_s"], "build_s": r["build_s"], "verifier": r["verifier"]})
+            for i, ((a, b, restarted), run) in enumerate(zip(sessions, card)):
+                want = ref[i]
+                for key in ("refused", "proposers", "states", "forged"):
+                    if run["out"][key] != want["out"][key]:
+                        raise AssertionError(f"card session {i + 1}: {key} {run['out'][key]} != {want['out'][key]}")
+                if run["rejects"] != want["rejects"]:
+                    raise AssertionError(f"card session {i + 1}: refused votes {run['rejects']}")
+                exp = committee_check(f"card session {i + 1}", run, want["records"], want["state"], setup,
+                                      a, b, verifier, hasher, restarted)
+                log({"phase": "committee_path", **tag, "node": "card", "session": i + 1, "heights": [a, b],
+                     "restarted": restarted, "launches": run["launches"], "sources": exp["sources"],
+                     "verifier": run["verifier"], "hasher": run["hasher"], "vote_plane": run["vote_plane"],
+                     "gate_batches": len(run["gate_sizes"]), "waves_device": exp["waves_device"],
+                     "wall_s": run["out"]["wall_s"], "build_s": run["build_s"], "records": "equal to the host's"})
+            refused = card[0]["rejects"] + card[1]["rejects"]
+            if refused != [(COMMITTEE_FORGED_HEIGHT, 2, "InvalidSignatureError")]:
+                raise AssertionError(f"refused votes {refused}: expected the forged precommit alone")
+            if any(r["out"]["refused"][h] != bursts[h - 1]["forged"] for r in card for h in r["out"]["refused"]):
+                raise AssertionError("the gate refused other txs than the forged ones")
+    finally:
+        reference.terminate()
+        reference.join()
+        gateway._default_verifier, gateway._default_hasher = saved
+        for r in roots:
+            shutil.rmtree(r, ignore_errors=True)
+    launches = {k: card[0]["launches"][k] + card[1]["launches"][k] for k in ("b1", "dsm", "ripemd160", "merkle_tree")}
+    log({"phase": "committee_plane", **tag, "validators": n, "heights": last, "launches": launches,
+         "forged_precommit": card[0]["out"]["forged"], "formats": [r["format"] for r in card[1]["records"]]})
+    return {"setup": setup, "runs": {"card": card[0], "host": ref[0]}, "launches": launches}
+
+
+def _committee_time_row(run: dict, heights: int) -> dict:
+    """Phase 32's numbers of one session."""
+    segs: dict[str, float] = {}
+    for t in run["traces"]:
+        for k, v in t["segments"].items():
+            segs[k] = segs.get(k, 0.0) + v
+    return {"wall_s": run["out"]["wall_s"], "blocks_per_sec": heights / run["out"]["wall_s"],
+            "pump_sign_s": run["out"]["sign_s"], "segments_s": segs,
+            "per_height": [{"height": t["height"], "wall_s": t["wall_s"], "segments": t["segments"]}
+                           for t in run["traces"]],
+            "vote_plane": run["vote_plane"], "pipeline": run["pipeline"]}
+
+
+def committee_time(name, power, ctx) -> None:
+    """Phase 32: the times of phase 31's first sessions, the card node's and
+    the host reference's, each on a fresh home committing heights
+    1..COMMITTEE_HEIGHTS: blocks_per_sec (benches/bench_committee.py's
+    name), the consensus trace's segments a height and summed, the vote
+    plane's batches, batched signatures, singletons and
+    consensus_vote_verify_batch_seconds, the pipeline's join wait and
+    overlap, and the pump's own signing seconds (the node's share is the
+    rest). One run each: a second pair took 21 s on the card and 60-77 s
+    on the host (its four pure-Python checks of a 401-lane aggregate a
+    height), more than phases 31-32's clock allows."""
+    tag = {"card": name, "power_limit": power}
+    setup, runs = ctx["setup"], ctx["runs"]
+    rows = {label: _committee_time_row(run, COMMITTEE_HEIGHTS) for label, run in runs.items()}
+    for label, row in rows.items():
+        log({"phase": "committee_time", **tag, "node": label, "heights": COMMITTEE_HEIGHTS,
+             "validators": len(setup.keys), **row})
+    log({"phase": "committee_time", **tag, "speedup": rows["host"]["wall_s"] / rows["card"]["wall_s"]})
 
 
 if __name__ == "__main__":

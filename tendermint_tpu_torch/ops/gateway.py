@@ -45,9 +45,13 @@ breaker a daemon, and the floor engages only when every breaker is open.
 
 Everywhere else a kernel failure is never caught: there is no latch to
 the CPU and no retry, and a verify-ahead batch or a submitted hash job
-that fails re-raises where its result is read. The stats keep the JAX key
-names (`tpu_batches`, `tpu_sigs`, `cpu_sigs`, `tpu_leaves`, ...), where
-"tpu" now means the device route, so callers read them unchanged.
+that fails re-raises where its result is read. On the in-process route
+any failure to build, launch or read back a kernel raises `DeviceError`
+(a RuntimeError), so a caller such as consensus can tell a broken device
+from a bad input and stop instead of treating it as a bad vote or block.
+The stats keep the JAX key names (`tpu_batches`, `tpu_sigs`, `cpu_sigs`,
+`tpu_leaves`, ...), where "tpu" now means the device route, so callers
+read them unchanged.
 """
 
 from __future__ import annotations
@@ -74,6 +78,21 @@ from tendermint_tpu_torch.ops import merkle as ops_merkle
 logger = logging.getLogger("tendermint_tpu_torch.ops.gateway")
 
 Item = tuple[bytes, bytes, bytes]  # (pubkey, message, signature)
+
+
+class DeviceError(RuntimeError):
+    """A kernel or its device failed on the in-process route: the build,
+    the launch or the read-back. The message keeps the cause's."""
+
+
+def _on_device(what: str, fn, *args):
+    """fn(*args), with any failure raised as DeviceError."""
+    try:
+        return fn(*args)
+    except DeviceError:
+        raise
+    except Exception as exc:
+        raise DeviceError(f"{what} failed: {type(exc).__name__}: {exc}") from exc
 
 
 def _ed25519_lane(it: Item) -> bool:
@@ -596,12 +615,14 @@ class Verifier:
         if not hasattr(self._module, "verify_batch_async"):
             # B2 and int32, like their JAX modules, verify synchronously
             # under the same contract
-            res_now = [bool(b) for b in self._module.verify_batch(items, self.device)]
+            res_now = [bool(b) for b in _on_device(
+                f"{self._kernel} verify", self._module.verify_batch, items, self.device)]
             self._device_batch(n)
             return lambda: res_now
-        kernel_resolve = self._module.verify_batch_async(items, self.device)
+        kernel_resolve = _on_device(
+            f"{self._kernel} verify launch", self._module.verify_batch_async, items, self.device)
         self._device_batch(n)
-        return lambda: [bool(b) for b in kernel_resolve()]
+        return lambda: [bool(b) for b in _on_device(f"{self._kernel} verify read-back", kernel_resolve)]
 
     def verify_aggregate(self, pubs: list[bytes], msgs: list[bytes],
                          rs: list[bytes], s_agg: bytes) -> bool:
@@ -619,7 +640,10 @@ class Verifier:
         if n < self.min_tpu_batch:
             self._count("agg_lanes_cpu", n)
             return ed25519_agg.verify_aggregate(pubs, msgs, rs, s_agg)
-        points = self._devd_agg(terms) if self._kernel == "devd" else ed25519.dsm_batch(terms, self.device)
+        if self._kernel == "devd":
+            points = self._devd_agg(terms)
+        else:
+            points = _on_device("dsm aggregate verify", ed25519.dsm_batch, terms, self.device)
         if points is None:
             self._count("agg_lanes_cpu", n)
             return ed25519_agg.verify_aggregate(pubs, msgs, rs, s_agg)
@@ -769,13 +793,15 @@ class ShardedVerifier(Verifier):
             # the CPU floor, or the key-type split, which re-enters here
             # with the ed25519 lanes; never the base's unsharded kernel
             return super().verify_batch_async(items)
-        res, valid, _ = ed25519_f32p.sharded_verify_arrays(items, self._sharded)
+        res, valid, _ = _on_device("sharded verify launch", ed25519_f32p.sharded_verify_arrays,
+                                   items, self._sharded)
         self.last_shard_layout = list(res.shards)
         memo: list = []
 
         def resolve() -> list[bool]:
             if not memo:
-                oks = ed25519_f32p.materialize_verdicts(res.wait(), valid, n)
+                oks = ed25519_f32p.materialize_verdicts(
+                    _on_device("sharded verify read-back", res.wait), valid, n)
                 self._device_batch(n)
                 memo.append([bool(b) for b in oks])
             return memo[0]
@@ -1018,7 +1044,7 @@ class Hasher:
 
                 out = self._devd_call(lambda: devd_backend.hash_batch(chunks, "part"))
             else:
-                out = ops_merkle.part_leaf_hashes(chunks, self.device)
+                out = _on_device("part leaf hashes", ops_merkle.part_leaf_hashes, chunks, self.device)
             if out is not None:
                 self._note_offload("tpu_part_batches", len(chunks), sum(map(len, chunks)), t0)
                 return out
@@ -1049,7 +1075,7 @@ class Hasher:
             digests = [bytes(d) for d in got[0]]
             nodes = digests + [bytes(x) for x in got[1]]
         else:
-            digests, nodes = ops_merkle.part_set_nodes(chunks, self.device)
+            digests, nodes = _on_device("part set tree", ops_merkle.part_set_nodes, chunks, self.device)
         tree = FlatTree.from_nodes(len(chunks), nodes)
         self._note_offload("tpu_part_batches", len(chunks), sum(map(len, chunks)), t0)
         return digests, tree
@@ -1160,7 +1186,7 @@ class Hasher:
                 got = self._devd_call(lambda: devd_backend.hash_tree(txs, "leaf"))
                 out = None if got is None else bytes(got[1][-1] if got[1] else got[0][0])
             else:
-                out = ops_merkle.tx_root(txs, self.device)
+                out = _on_device("tx root", ops_merkle.tx_root, txs, self.device)
             if out is not None:
                 self._note_offload("tpu_tx_roots", len(txs), sum(map(len, txs)), t0)
                 return out

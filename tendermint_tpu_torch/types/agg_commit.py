@@ -16,8 +16,8 @@ aggregate commits: a full-format node refuses an aggregate loudly.
 `verify` checks the signer set and the quorum on the host, then hands the
 one multi-term equation to the gateway (ops/gateway.Verifier
 .verify_aggregate), whose n + 1 dual scalar multiplications run in the
-CUDA dsm kernel. `AggregateLastCommit`, the consensus stand-in, comes with
-the consensus slice of the port.
+CUDA dsm kernel. `AggregateLastCommit` is consensus's stand-in for a
+LastCommit known only as a verified aggregate.
 """
 
 from __future__ import annotations
@@ -286,6 +286,60 @@ class AggregateCommit:
             f"AggregateCommit{{{len(self.rs)}/{self.signers.size} "
             f"for {self.block_id!r}}}"
         )
+
+
+class AggregateLastCommit:
+    """rs.last_commit stand-in when only a VERIFIED AggregateCommit is
+    available for the previous height — commit-proof catchup and restart
+    from an aggregate seen-commit (consensus/state.py). It carries no
+    individual votes: vote-gossip picks nothing from it (bit_array() is
+    empty; the reactor's aggregate catchup branch ships the whole commit
+    instead), late precommits cannot be absorbed (begin_add refuses as a
+    duplicate), but proposing at the next height works — make_commit()
+    IS the aggregate, exactly what the schedule requires the next
+    block's last_commit section to be."""
+
+    def __init__(self, agg: "AggregateCommit", val_set: ValidatorSet):
+        self.agg = agg
+        self.val_set = val_set  # the set that signed (VoteSet parity)
+        self.height = agg.height()
+        self.round_ = agg.round_()
+        self.type_ = VOTE_TYPE_PRECOMMIT
+
+    def size(self) -> int:
+        return self.agg.size()
+
+    def has_two_thirds_majority(self) -> bool:
+        return True  # verified against val_set before construction
+
+    def two_thirds_majority(self):
+        return self.agg.block_id
+
+    def has_all(self) -> bool:
+        return self.agg.num_signers() == self.agg.size()
+
+    def make_commit(self):
+        return self.agg
+
+    def bit_array(self) -> BitArray:
+        # EMPTY by design: pick_vote_to_send must never find a per-vote
+        # lane here (there are none to send)
+        return BitArray(self.agg.size())
+
+    def get_by_index(self, index: int):
+        # truthy for "this lane is covered" screens (vote_batcher), but
+        # unreachable from vote gossip (bit_array above is empty)
+        return self.agg if self.agg.signers.get_index(index) else None
+
+    def begin_add(self, vote):
+        return None  # cannot absorb votes; reads as an exact duplicate
+
+    def add_vote(self, vote, verifier=None) -> bool:
+        return False
+
+    def __repr__(self):
+        return f"AggregateLastCommit{{{self.agg!r}}}"
+
 
 def _default_agg_verifier():
     """The gateway-batched aggregate verifier on the card, resolved lazily

@@ -1,13 +1,15 @@
-"""Chaos on the port's device plane (ops/faults.py), the JAX test file's
-cases (tests/test_chaos_devd.py) that need no consensus: seeded fault
-schedules, the breaker's trial mode, faults in process and
-through a FaultProxy in front of a real sim daemon (verdicts and digests
-equal the CPU's throughout), a blackout that opens the breaker and
-re-closes it, and the multi-daemon plane's kill, all-open and flapping
-rows, and the mempool's signature gate delivering every verdict exactly
-once across a daemon's death. Beside them: the same seeded FaultPlan picks the same schedule in
-both packages, and clients of either package through either package's
-proxy get the same answers from a port daemon.
+"""Chaos on the port's device plane (ops/faults.py): the JAX test file's
+cases (tests/test_chaos_devd.py). Seeded fault schedules, the breaker's
+trial mode, faults in process and through a FaultProxy in front of a real
+sim daemon (verdicts and digests equal the CPU's throughout), a blackout
+that opens the breaker and re-closes it, the multi-daemon plane's kill,
+all-open and flapping rows, the mempool's signature gate delivering every
+verdict exactly once across a daemon's death, and a port ConsensusState
+committing through the daemon's churn (and, in the slow tier, a 20-block
+soak under churn and corrupted frames). Beside them: the same seeded
+FaultPlan picks the same schedule in both packages, and clients of either
+package through either package's proxy get the same answers from a port
+daemon.
 
 Sim daemons hash for real and verify structurally, so the signatures here
 are real (every verdict True on the device route and on the CPU floor
@@ -658,3 +660,286 @@ def test_sigbatcher_exactly_once_across_daemon_death(chaos_env):
     assert all(oks.values())
     st = v.stats()
     assert st["tpu_sigs"] + st["cpu_sigs"] >= len(items)
+
+
+# -- consensus liveness under churn -------------------------------------------
+
+
+def _run_consensus_run(n_blocks: int, txs: list[bytes], hasher=None,
+                       budget_s: float = 20.0, during=None, until=None):
+    """Commit `n_blocks` on a single-validator KVStore chain, feeding
+    txs strictly sequentially (tx k+1 enters the pool only after tx k
+    committed, so the committed ORDER is deterministic across runs).
+    Returns (new-block event list, consensus state). `during(height_events)`
+    runs once after start (chaos hookup)."""
+    import tendermint_tpu_torch.types.events as tev
+    from test_torch_consensus import EventCollector, make_cs_and_stubs
+    from tendermint_tpu_torch.abci.apps.kvstore import KVStoreApp
+
+    cs, _stubs, _ = make_cs_and_stubs(1, app=KVStoreApp())
+    if hasher is not None:
+        cs.part_hasher = hasher
+    blocks = EventCollector(cs.evsw, tev.EVENT_NEW_BLOCK)
+    cs.start()
+    try:
+        if during is not None:
+            during(blocks)
+        next_tx = 0
+        if txs:
+            cs.mempool.check_tx(txs[0])
+            next_tx = 1
+        deadline = time.monotonic() + budget_s + 1.5 * n_blocks
+        while True:
+            events = list(blocks.items)
+            # done: enough blocks AND every tx landed AND one block
+            # after the last tx's block (so its app-hash effect is
+            # bound into a committed header — app_hash lags one height)
+            if len(events) >= n_blocks and next_tx == len(txs) and (
+                not txs or _fingerprint_ready(events, txs)
+            ) and (until is None or until()):
+                return events, cs
+            assert time.monotonic() < deadline, (
+                f"liveness lost: {len(events)} blocks, tx {next_tx}/"
+                f"{len(txs)} (height_seconds_max="
+                f"{cs.height_seconds_max:.2f})"
+            )
+            if next_tx < len(txs):
+                landed = {t for d in events for t in d.block.data.txs}
+                if txs[next_tx - 1] in landed:
+                    cs.mempool.check_tx(txs[next_tx])
+                    next_tx += 1
+            time.sleep(0.02)
+    finally:
+        cs.stop()
+
+
+def _last_tx_height(block_events, txs) -> int | None:
+    for d in block_events:
+        if txs[-1] in d.block.data.txs:
+            return d.block.header.height
+    return None
+
+
+def _fingerprint_ready(block_events, txs) -> bool:
+    h = _last_tx_height(block_events, txs)
+    return h is not None and any(
+        d.block.header.height == h + 1 for d in block_events
+    )
+
+
+def _committed_fingerprint(block_events, txs):
+    """(ordered committed txs, app hash with every tx applied) — the
+    deterministic commit fingerprint two runs of the same sequential tx
+    schedule must share. header.app_hash lags one height, so the
+    post-all-txs hash is read from the block AFTER the one carrying the
+    last tx (heights may differ across runs; the hash may not)."""
+    committed = [t for d in block_events for t in d.block.data.txs]
+    if not txs:
+        return committed, b""
+    h = _last_tx_height(block_events, txs)
+    post = next(
+        d.block.header.app_hash for d in block_events
+        if d.block.header.height == h + 1
+    )
+    return committed, post
+
+
+def _assert_partset_parity(cs, block_events) -> int:
+    """Every committed block's part-set root (produced by the devd-routed
+    hasher, possibly under faults) must equal a pure-CPU recompute —
+    the 'zero digests wrong' assertion. Returns blocks checked."""
+    checked = 0
+    for d in block_events:
+        blk = d.block
+        meta = cs.block_store.load_block_meta(blk.header.height)
+        if meta is None:
+            continue
+        cpu = blk.make_part_set(65536).header()
+        assert meta.block_id.parts_header == cpu, (
+            f"height {blk.header.height}: part-set root diverged"
+        )
+        checked += 1
+    return checked
+
+
+def _chaos_hasher(sock: str):
+    from tendermint_tpu_torch.ops import gateway
+
+    devd.bust_avail_cache()
+    h = gateway.Hasher(min_tpu_batch=1)
+    assert h._route == "devd", "hasher must ride the daemon for the soak"
+    return h
+
+
+def test_consensus_commits_through_daemon_churn(chaos_env):
+    """Fast tier-1 chaos subset: a single-validator chain keeps
+    committing while the daemon serving its part-set hash plane is
+    SIGKILLed and restarted; the commit fingerprint matches a fault-free
+    run, part-set roots recompute byte-identically on CPU, and the
+    breaker re-closes with devd routing restored."""
+    from tendermint_tpu_torch.ops import gateway
+
+    n_blocks, txs = 6, [b"k%d=v%d" % (i, i) for i in range(4)]
+    sup = DaemonSupervisor(chaos_env, SIM_ENV, plan=FaultPlan(seed=3))
+    sup.start()
+    try:
+        # fault-free reference run first (daemon healthy throughout)
+        ref_blocks, ref_cs = _run_consensus_run(
+            n_blocks, txs, hasher=_chaos_hasher(chaos_env)
+        )
+        ref_print = _committed_fingerprint(ref_blocks, txs)
+        assert ref_print[0] == txs, "reference run must commit every tx"
+
+        # chaos run: kill/restart churn while committing
+        hasher = _chaos_hasher(chaos_env)
+
+        def start_churn(_blocks):
+            sup.churn(down_s=0.5, up_s=1.0, cycles=2)
+
+        # keep committing until the churn has restarted the daemon once (a
+        # chain faster than the churn's down time otherwise ends before
+        # any restart, and the restart counter below goes timing-dependent)
+        chaos_blocks, chaos_cs = _run_consensus_run(
+            n_blocks, txs, hasher=hasher, during=start_churn,
+            until=lambda: sup.restarts >= 1,
+        )
+        sup.stop_churn(ensure_up=True)
+        assert sup.kills >= 1 and sup.plan.stats()["faults_kill"] >= 1
+        assert _committed_fingerprint(chaos_blocks, txs) == ref_print
+        assert _assert_partset_parity(chaos_cs, chaos_blocks) >= n_blocks - 1
+        # liveness: no height stalled past its budget
+        assert chaos_cs.height_seconds_max < 10.0, chaos_cs.height_seconds_max
+        # recovery: breaker closed against the healthy daemon, and the
+        # hash plane demonstrably routes devd again
+        br = gateway.devd_breaker()
+        parts = [bytes([i]) * 512 for i in range(16)]
+        _wait_breaker_closed(lambda: hasher.part_leaf_hashes(parts), br)
+        before = hasher.stats()["tpu_part_batches"]
+        hasher.part_leaf_hashes(parts)
+        assert hasher.stats()["tpu_part_batches"] == before + 1
+
+        # breaker-open heights visibly attribute their hash
+        # work to the CPU fallback in the per-height traces
+        # (consensus/trace.py) — kill the daemon FOR GOOD and commit a
+        # few more heights on the open breaker
+        dead_hasher = _chaos_hasher(chaos_env)  # resolved while serving
+        dead_blocks, dead_cs = _run_consensus_run(
+            3, [], hasher=dead_hasher, during=lambda _blocks: sup.kill(),
+        )
+        assert len(dead_blocks) >= 3
+        newest = dead_cs.trace.last(1)[0].to_json()
+        dev = newest["device"]
+        assert dev["hash_cpu_leaves"] > 0, dev
+        assert dev["hash_tpu_leaves"] == 0, dev
+        assert dev["breaker_state_end"] != gateway.CircuitBreaker.CLOSED, dev
+        # the segment partition holds under chaos too
+        tol = max(0.05 * newest["wall_s"], 0.005)
+        total = sum(newest["segments"].values())
+        assert abs(total - newest["wall_s"]) <= tol, (total, newest["wall_s"])
+        # the same attribution is scrape-visible: the supervisor's churn
+        # registered into the telemetry plane (ops/faults satellite),
+        # asserting on metrics instead of reaching into the harness
+        from tendermint_tpu_torch.libs import telemetry
+
+        fams = {
+            f.name: f for f in telemetry.default_registry().collect()
+        }
+        assert fams["faults_supervisor_kills"].samples[0][2] >= 1
+        assert fams["faults_supervisor_restarts"].samples[0][2] >= 1
+    finally:
+        sup.stop()
+
+
+@pytest.mark.slow
+def test_chaos_soak_20_blocks_with_corruption(chaos_env, sock_dir):
+    """The acceptance soak: >= 20 blocks commit while a seeded schedule
+    SIGKILLs/restarts the daemon AND corrupts wire frames through the
+    FaultProxy, with a concurrent streamed verify load sharing the same
+    breaker. Asserts: commit fingerprint byte-identical to a fault-free
+    run, per-block part-set roots CPU-identical, zero wrong verify
+    verdicts, no height past its timeout budget, breaker re-closed with
+    devd routing restored, and the fault counters prove the schedule
+    actually fired."""
+    from tendermint_tpu_torch.ops import gateway
+
+    n_blocks, txs = 22, [b"s%d=w%d" % (i, i) for i in range(12)]
+    # sockets under sock_dir: a pytest tmp_path can pass the 108-byte
+    # AF_UNIX limit
+    upstream = os.path.join(sock_dir, "real.sock")
+    plan = FaultPlan(seed=17)
+    plan.add("corrupt", "s2c", first=6, every=9, limit=1 << 30)
+    plan.add("corrupt", "c2s", first=11, every=13, limit=1 << 30)
+    sup = DaemonSupervisor(upstream, SIM_ENV, plan=plan)
+    sup.start()
+    proxy = FaultProxy(chaos_env, upstream, plan).start()
+    try:
+        ref_blocks, _ref_cs = _run_consensus_run(
+            n_blocks, txs, hasher=_chaos_hasher(chaos_env), budget_s=40.0
+        )
+        ref_print = _committed_fingerprint(ref_blocks, txs)
+        assert ref_print[0] == txs
+
+        hasher = _chaos_hasher(chaos_env)
+        v = gateway.Verifier(min_tpu_batch=1)
+        load_stop = threading.Event()
+        wrong = []
+
+        def verify_load():
+            items = _items(96, tag=b"soak")
+            while not load_stop.is_set():
+                try:
+                    if v.verify_batch(items) != [True] * 96:
+                        wrong.append("wrong verdicts")
+                        return
+                except Exception as exc:  # noqa: BLE001 — must not happen:
+                    # the gateway's contract is fallback, never raise
+                    wrong.append(f"verify raised: {exc}")
+                    return
+                time.sleep(0.05)
+
+        load = threading.Thread(target=verify_load, daemon=True)
+        load.start()
+
+        def start_churn(_blocks):
+            sup.churn(down_s=0.6, up_s=1.6, cycles=4)
+
+        # keep committing past n_blocks until the kill schedule really
+        # ran (a fast chain otherwise outruns the churn and the
+        # faults_kill assertion goes timing-dependent)
+        chaos_blocks, chaos_cs = _run_consensus_run(
+            n_blocks, txs, hasher=hasher, during=start_churn, budget_s=60.0,
+            until=lambda: sup.kills >= 3,
+        )
+        sup.stop_churn(ensure_up=True)
+        load_stop.set()
+        load.join(timeout=30.0)
+
+        assert not wrong, wrong
+        assert _committed_fingerprint(chaos_blocks, txs) == ref_print
+        assert _assert_partset_parity(chaos_cs, chaos_blocks) >= n_blocks - 1
+        assert chaos_cs.height_seconds_max < 15.0, chaos_cs.height_seconds_max
+        st = plan.stats()
+        assert st["faults_kill"] >= 3, st      # churn really killed it
+        assert st["faults_corrupt"] >= 2, st   # frames really corrupted
+        br = gateway.devd_breaker()
+        assert br.stats()["breaker_opens"] >= 1  # degradation was real
+        parts = [bytes([i % 251]) * 600 for i in range(20)]
+        _wait_breaker_closed(lambda: hasher.part_leaf_hashes(parts), br,
+                             deadline_s=20.0)
+        # routing restored: devd-routed batches flow again on BOTH
+        # planes within a bounded window. Retry-loop, not next-batch:
+        # the proxy's corruption schedule never stops, so any single
+        # batch may legitimately eat a fault and take the CPU fallback
+        # for that batch — recovery means the plane keeps coming back
+        deadline = time.monotonic() + 20.0
+        before = hasher.stats()["tpu_part_batches"]
+        while hasher.stats()["tpu_part_batches"] == before:
+            assert time.monotonic() < deadline, "hash plane never re-routed"
+            hasher.part_leaf_hashes(parts)
+        vbefore = v.stats()["tpu_sigs"]
+        while v.stats()["tpu_sigs"] == vbefore:
+            assert time.monotonic() < deadline, "verify plane never re-routed"
+            assert v.verify_batch(_items(16)) == [True] * 16
+    finally:
+        proxy.stop()
+        sup.stop()

@@ -204,6 +204,36 @@ def test_failed_prime_batch_reraises_instead_of_unpriming(monkeypatch):
     assert v.stats()["cpu_sigs"] == 0
 
 
+@pytest.mark.parametrize("where", ["launch", "read-back", "dsm"])
+def test_kernel_failure_raises_device_error(where, monkeypatch):
+    """A kernel failure on the in-process route raises DeviceError, a
+    RuntimeError that keeps the cause's message, at the launch, at the
+    read-back, and in the aggregate verify's dsm launch: what consensus
+    stops on instead of reading it as a bad vote or block."""
+    from tendermint_tpu_torch.crypto import ed25519_agg
+    from tendermint_tpu_torch.ops import ed25519 as ted32
+
+    def boom(*args, **kwargs):
+        raise RuntimeError("kernel launch failed: cudaError 700")
+
+    v = Verifier(min_tpu_batch=1, device="cpu")
+    items = _signed(3, 70)
+    if where == "launch":
+        monkeypatch.setattr(tf32p, "verify_batch_async", boom)
+        call = lambda: v.verify_batch(items)  # noqa: E731
+    elif where == "read-back":
+        monkeypatch.setattr(tf32p, "verify_batch_async", lambda items, device: boom)
+        call = lambda: v.verify_batch(items)  # noqa: E731
+    else:
+        monkeypatch.setattr(ted32, "dsm_batch", boom)
+        rs, s_agg = ed25519_agg.aggregate(items)
+        call = lambda: v.verify_aggregate([i[0] for i in items], [i[1] for i in items], rs, s_agg)  # noqa: E731
+    with pytest.raises(gateway.DeviceError, match="cudaError 700") as exc:
+        call()
+    assert isinstance(exc.value, RuntimeError)
+    assert v.stats()["cpu_sigs"] == 0 and v.stats()["agg_lanes_cpu"] == 0
+
+
 @pytest.fixture
 def stub_build(tmp_path, monkeypatch):
     """kernels.build against a temporary csrc/ and a stub compiler that
