@@ -261,7 +261,7 @@ Phases, in order; any failure raises and exits non-zero:
 
 29. The transport and fast sync, in process (no daemon socket): node A, an
    exec_chain of benches/bench_fastsync.py's 1,000 validators (phase 3's
-   1,000-validator set) with `upgrade_height` 21, builds 24 heights of
+   1,000-validator set) with `upgrade_height` 6, builds 8 heights of
    1,000 signed txs (960-byte values: blocks over 1 MB, 17 or more 64 KB
    parts) and serves its sqlite store through a BlockchainReactor on a
    switch with a listener on 127.0.0.1. Node B, empty, wired as
@@ -270,7 +270,7 @@ Phases, in order; any failure raises and exits non-zero:
    commit_batch_verifier and verify_batch_async and a `Hasher` on the
    card's part hashers, the tx-root hook on that Hasher), dials A over TCP
    with secret connections (5,120,000 B/s each way, a 10 ms flush
-   throttle), syncs the 23 heights the pool can prove (the last waits for
+   throttle), syncs the 7 heights the pool can prove (the last waits for
    its successor's LastCommit; `BlockPool.is_caught_up` confirms) and
    switches to consensus once. Its blocks, store records, sampled tx-index
    entries, state and app hash equal A's, and so do those of the host
@@ -303,7 +303,7 @@ Phases, in order; any failure raises and exits non-zero:
    a height's 1,000 signed txs and 10 forged through check_tx, builds a
    stub proposer's block as the node would, and injects the 399 stubs'
    prevotes and precommits; at height 3 one precommit carries a flipped
-   signature. 12 heights, a stop, a new node over the same files
+   signature. 9 heights, a stop, a new node over the same files
    (Handshaker replay, WAL catchup, the seen commit primed) and 2 more.
    Every height commits at round 0; records and states equal the host
    reference's (the native CPU floor, the host's aggregate check, host
@@ -323,6 +323,33 @@ Phases, in order; any failure raises and exits non-zero:
    plane's batches, signatures, singletons and
    consensus_vote_verify_batch_seconds, the pipeline's join wait and
    overlap, and the pump's signing seconds.
+33. The gossip, in process: four port validators V0-V3 of a 100-validator
+   chain (phase 3's first 100 keys; GOSSIP_NODE_KEYS at GOSSIP_NODE_POWER,
+   35% of the power, the other 96 at power 1; `upgrade_height` 5), each
+   wired as node/node.py wires one (`gossip_node`: committee_node with the
+   kv tx index, its own `Verifier(device="cuda:0")`, the shared card
+   `Hasher`, a MempoolReactor and a ConsensusReactor) on a full mesh of
+   switches over TCP with secret connections, and a fifth switch for the
+   stubs (`stub_relay`): their prevotes and precommits once every node has
+   voted (stubs 0-47 to V0, 48-95 to V1: V2 and V3 hear them by relay),
+   a stub proposer's block and parts, one forged precommit at height 3.
+   Each height's 1,000 signed txs and 10 forged go through one node's
+   check_tx and reach the rest through the mempool reactor. V3 starts
+   empty after height 6 and catches up through the consensus reactor
+   (precommits one at a time; one screened AggregateCommitMessage a height
+   whose stored commit is an aggregate), then votes in 7-8. Every node's
+   blocks, metas, saved states and tx-index records are equal, and equal
+   to a host replay of V0's chain (`gossip_reference`, a process of its
+   own); only the forged precommit and the forged txs are refused, at V0
+   and at the fed gate alone; no device error, no fail-open, no peer
+   stopped. Launches, set to 0 before the first node is built and read
+   after the last commit, equal what the chain implies
+   (`gossip_expected`), and the lanes the verifiers' stats.
+34. Times of phase 33's run: blocks/s over heights 2-8, the pump's steps a
+   height, each node's trace segments, vote batches (direct, relayed,
+   widths, on the card), duplicate ratio, has-votes and part announces,
+   bytes a height, V3's catch-up a height (parts, commit), the host
+   replay's seconds.
 
 Each phase's start is logged on a line of its own, in seconds since
 launch. Each path's launch counts are set to 0 just before it and read just after
@@ -340,6 +367,7 @@ import hashlib
 import json
 import multiprocessing
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -347,6 +375,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 
 import numpy as np
 
@@ -479,14 +508,16 @@ EXEC_LAUNCH_KEYS = {"ed25519_verify": "b1", "ed25519_dsm": "dsm", "ripemd160": "
                     "merkle_tree": "merkle_tree"}
 # phases 29-30, the fast_sync cell: benches/bench_fastsync.py's 1,000 validators
 # (BASELINE.json config 4, fast-sync replay) at equal power, default
-# ConsensusParams, an upgrade to aggregate commits at height 21
-# (docs/upgrade.md); 24 heights of config 4's 10,000, each 1,000 signed kv
+# ConsensusParams, an upgrade to aggregate commits at height 6
+# (docs/upgrade.md); 8 heights of config 4's 10,000, each 1,000 signed kv
 # txs (the first all new keys, then 700 updates and 300 new), values of 960
 # bytes so a block, even block 1 with no LastCommit, is over 1 MB
 # (BASELINE.json's 1 MB block): 17 or more 64 KB parts, over the Hasher's
-# 16-leaf gate
-FASTSYNC_HEIGHTS = 24
-FASTSYNC_UPGRADE_HEIGHT = 21
+# 16-leaf gate. 8 heights, not 24, for the smoke's clock since phases 33-34
+# (the upgrade moved with them: three aggregate heights; block 5, which
+# peer C tampers, keeps a full LastCommit)
+FASTSYNC_HEIGHTS = 8
+FASTSYNC_UPGRADE_HEIGHT = 6
 FASTSYNC_FIRST_BLOCK = (("new", 1_000),)
 FASTSYNC_BLOCK = (("update", 700), ("new", 300))
 FASTSYNC_VALUE_BYTES = 960
@@ -503,12 +534,13 @@ FASTSYNC_P2P = {"send_rate": 5_120_000, "recv_rate": 5_120_000, "flush_throttle_
 # phases 31-32, the consensus_committee cell: benches/bench_committee.py's
 # largest committee (BENCH_r22.json's wire:n=400), phase 3's first 400 keys,
 # default ConsensusParams, an upgrade to aggregate commits at height 7
-# (docs/upgrade.md); 12 heights (the bench runs 3) of 1,000 signed kv txs and
+# (docs/upgrade.md); 9 heights (the bench runs 3) of 1,000 signed kv txs and
 # 10 forged ones (phase 27's families; fast sync's 960-byte values, so a
 # block of over 1 MB has 17 or more 64 KB parts, over the Hasher's gate),
-# then a restart and 2 more heights
+# then a restart and 2 more heights. 9 heights, not 12, for the smoke's
+# clock since phases 33-34 (five aggregate heights, 7-11)
 COMMITTEE_VALIDATORS = 400
-COMMITTEE_HEIGHTS = 12
+COMMITTEE_HEIGHTS = 9
 COMMITTEE_RESTART_HEIGHTS = 2
 COMMITTEE_UPGRADE_HEIGHT = 7
 COMMITTEE_FIRST_BLOCK = (("new", 1_000), ("forged", 10))
@@ -517,6 +549,27 @@ COMMITTEE_VALUE_BYTES = 960
 COMMITTEE_FORGED_HEIGHT = 3  # one stub's precommit carries a flipped signature
 COMMITTEE_WAIT_S = 120.0  # the bound on each wait of the pump
 COMMITTEE_REFERENCE_S = 600.0  # the bound on the host reference's two sessions
+# phases 33-34, the gossip_net cell: benches/bench_committee.py's 100
+# committee (BENCH_r22.json's wire:n=100), phase 3's first 100 keys, default
+# ConsensusParams, an upgrade to aggregate commits at height 5
+# (docs/upgrade.md); four port validators V0-V3 (gossip_power) and 96 stubs
+# at power 1 behind one peer; 8 heights of phase 31's bursts, fed through one
+# node a height; V3 starts empty once V0-V2 have committed height 6. The cut:
+# 8 heights, not 10 (four nodes' tx gossip shares one interpreter: 10 heights
+# took 353 s on the card; PERF.md §4)
+GOSSIP_VALIDATORS = 100
+GOSSIP_HEIGHTS = 8
+GOSSIP_UPGRADE_HEIGHT = 5
+GOSSIP_LATE_AFTER = 6
+GOSSIP_FORGED_HEIGHT = 3  # stub 0's precommit to V0 carries a flipped signature
+# V0-V3: the keys at these places in address order, at these powers (3 x 17 + 1
+# of 148, 35%); the rotation then elects V1, V0, V2 at heights 1-3, stubs at
+# 4-7, V3 at 8 and a stub at 9 (gossip_power checks it)
+GOSSIP_NODE_KEYS = (33, 0, 66, 5)
+GOSSIP_NODE_POWER = (17, 17, 17, 1)
+GOSSIP_MIN_PARTS = 17  # every block is over 1 MB: 17 or more 64 KB parts
+GOSSIP_INDEX_SAMPLE = 8  # a block's txs whose tx-index records are compared
+GOSSIP_WAIT_S = 120.0  # the bound on each wait of the pump
 # phase 21's daemon launches beside each kernel's entry in the kernels line
 DEVD_LAUNCH_KEYS = {"ed25519_verify": "b1", "ed25519_comb": "comb", "ed25519_comb_tables": "tables",
                     "ed25519_dsm": "dsm", "ripemd160": "ripemd160", "merkle_tree": "merkle_tree"}
@@ -919,6 +972,9 @@ def main() -> int:
         fastsync_inputs_s = time.perf_counter() - t_fs
         t_cmt = time.perf_counter()
         committee_inputs = make_committee_inputs(pool, np.random.default_rng(SEED + 31))
+        committee_inputs_s = time.perf_counter() - t_cmt
+        t_gsp = time.perf_counter()
+        gossip_inputs = make_gossip_inputs(pool, np.random.default_rng(SEED + 33))
     log({"phase": "setup", "keys": n_keys,
          "signatures": MIXED_LANES + n_small + 4 * n_mid + n_keys + AGG_SIZES[1],
          "app_state_keys": APP_STATE_KEYS, "app_signed_txs": sum(len(b["txs"]) for b in app_inputs["blocks"]),
@@ -926,7 +982,9 @@ def main() -> int:
          "exec_inputs_s": exec_inputs_s, "fastsync_signed_txs": sum(len(b["txs"]) for b in fastsync_inputs),
          "fastsync_inputs_s": fastsync_inputs_s,
          "committee_signed_txs": sum(len(b["txs"]) for b in committee_inputs),
-         "committee_inputs_s": time.perf_counter() - t_cmt, "seconds": time.perf_counter() - t0})
+         "committee_inputs_s": committee_inputs_s,
+         "gossip_signed_txs": sum(len(b["txs"]) for b in gossip_inputs),
+         "gossip_inputs_s": time.perf_counter() - t_gsp, "seconds": time.perf_counter() - t0})
 
     # -- phase 2: kernel vs plain version on the card ---------------------------
     phase_start(2, "kernel vs plain version")
@@ -1169,7 +1227,15 @@ def main() -> int:
     committee_time(name, power, cmt_ctx)
     committee_launches = cmt_ctx["launches"]
     del cmt_ctx, committee_inputs
-    phase_start(33, "kernels line")
+
+    # -- phases 33 and 34: the gossip ------------------------------------------------
+    phase_start(33, "gossip")
+    gsp_ctx = gossip_phase(name, power, seeds, gossip_inputs)
+    phase_start(34, "gossip times")
+    gossip_time(name, power, gsp_ctx)
+    gossip_launches = gsp_ctx["launches"]
+    del gsp_ctx, gossip_inputs
+    phase_start(35, "kernels line")
 
     entries = []
     for kname, module, launches, err, ms, p_ms, lanes in (
@@ -1222,6 +1288,7 @@ def main() -> int:
             entry["exec_launches"] = exec_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
             entry["fastsync_launches"] = fastsync_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
             entry["consensus_launches"] = committee_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
+            entry["gossip_launches"] = gossip_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
     log({"kernels": entries})
     log(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5277,16 +5344,20 @@ def committee_power(p, keys, heights: int, upgrade_height: int, idle: tuple[int,
 
 class vote_rejects:
     """The consensus state's flight-recorder seam (duck-typed, as
-    node/flightrec.py is): keeps every refused vote's record and every
-    exception the receive routine noted."""
+    node/flightrec.py is): keeps every refused vote's record, every
+    exception the receive routine noted and every height adopted from an
+    aggregate commit proof."""
 
     def __init__(self):
         self.rejects: list[dict] = []
         self.exceptions: list[str] = []
+        self.proofs: list[int] = []  # heights finalized from an aggregate commit proof
 
     def record(self, kind: str, **fields) -> None:
         if kind == "vote_reject":
             self.rejects.append(fields)
+        elif kind == "agg_commit_proof":
+            self.proofs.append(fields["height"])
 
     def note_exception(self, source: str, exc: BaseException) -> None:
         self.exceptions.append(f"{source}: {type(exc).__name__}: {exc}")
@@ -5297,19 +5368,23 @@ class vote_rejects:
 
 class verify_log:
     """The node's Verifier with every dispatch recorded as (source, lanes):
-    "vote" for a VoteBatcher micro-batch (prime_cache_async), "aggregate"
-    for an aggregate LastCommit's n + 1 lanes, the tag of `source(...)`
-    around a call, else "commit" (validate_block's LastCommit verify). The
+    "one" for a lone signature on the host (verify_one: a vote the
+    VoteBatcher left single, a proposal's signature), "vote" for a
+    VoteBatcher micro-batch (prime_cache_async), "aggregate"
+    for an aggregate LastCommit's n + 1 lanes (or the tag of
+    `tagged_aggregate(...)` around it), the tag of `tagged(...)` around a
+    call, else "commit" (validate_block's LastCommit verify). The
     Verifier is wrapped in place: the consensus state, the gate and the app
     keep calling it as they would."""
 
     def __init__(self, verifier):
         self.verifier = verifier
         self.calls: list[tuple[str, int]] = []
+        self.agg_sites: dict[tuple, int] = {}
         self._local = threading.local()
         self._mtx = threading.Lock()
-        batch_async, prime_async, aggregate = (verifier.verify_batch_async, verifier.prime_cache_async,
-                                               verifier.verify_aggregate)
+        batch_async, prime_async, aggregate, one = (verifier.verify_batch_async, verifier.prime_cache_async,
+                                                    verifier.verify_aggregate, verifier.verify_one)
 
         def logged_batch_async(items):
             self._note(getattr(self._local, "source", None) or "commit", len(items))
@@ -5320,12 +5395,25 @@ class verify_log:
                 return prime_async(items, on_done)
 
         def logged_aggregate(pubs, msgs, rs, s_agg):
-            self._note("aggregate", len(pubs) + 1)
+            source = getattr(self._local, "agg_source", None) or "aggregate"
+            self._note(source, len(pubs) + 1)
+            # where each aggregate check comes from: its height (in the
+            # signed message), its thread and its callers
+            m = re.search(rb'"height":(\d+)', msgs[0]) if msgs else None
+            site = (source, int(m.group(1)) if m else None, threading.current_thread().name.split(":")[0],
+                    "<".join(f.name for f in traceback.extract_stack(limit=7)[-7:-1][::-1]))
+            with self._mtx:
+                self.agg_sites[site] = self.agg_sites.get(site, 0) + 1
             return aggregate(pubs, msgs, rs, s_agg)
+
+        def logged_one(pubkey, msg, sig):
+            self._note("one", 1)
+            return one(pubkey, msg, sig)
 
         verifier.verify_batch_async = logged_batch_async
         verifier.prime_cache_async = logged_prime_async
         verifier.verify_aggregate = logged_aggregate
+        verifier.verify_one = logged_one
 
     def _note(self, source: str, lanes: int) -> None:
         with self._mtx:
@@ -5340,6 +5428,17 @@ class verify_log:
             yield
         finally:
             self._local.source = saved
+
+    @contextlib.contextmanager
+    def tagged_aggregate(self, tag: str):
+        """Tag this thread's aggregate verifies inside the block (they are
+        "aggregate" otherwise)."""
+        saved = getattr(self._local, "agg_source", None)
+        self._local.agg_source = tag
+        try:
+            yield
+        finally:
+            self._local.agg_source = saved
 
     def view(self, tag: str):
         """The verifier as a caller tagged `tag` sees it (the gate's
@@ -5372,17 +5471,24 @@ class committee_node:
     Handshaker, which replays the stored blocks into the fresh app; a
     Mempool with its WAL, gated by SigBatcher(verifier, parse_sig_tx); and a
     ConsensusState over them with its WAL on disk, `pipeline_apply` on, the
-    file privval, `verifier=verifier` and `hasher` as its part hasher. The
+    file privval, `verifier=verifier` and `hasher` as its part hasher;
+    with `tx_index` a KVTxIndexer on a `tx_index` DB, as node/node.py
+    wires one. The
     liveness timeouts are generous (the pump is prompt, and a stray round
     would fork the comparison) and block times pinned, as
     benches/bench_committee.py builds its node. `log` (a verify_log around
     `verifier`) tags the gate's and the app's dispatches."""
 
-    def __init__(self, p, root: str, doc, verifier, hasher=None, log=None):
+    def __init__(self, p, root: str, doc, verifier, hasher=None, log=None, tx_index: bool = False):
         self.p, self.root, self.doc = p, root, doc
-        self.dbs = {n: p.db_provider(n, "sqlite", root) for n in ("state", "blockstore")}
+        names = ("state", "blockstore") + (("tx_index",) if tx_index else ())
+        self.dbs = {n: p.db_provider(n, "sqlite", root) for n in names}
         self.store = p.BlockStore(self.dbs["blockstore"])
         state = p.State.get_state(self.dbs["state"], doc)
+        if tx_index:
+            from tendermint_tpu_torch.state.txindex import KVTxIndexer
+
+            state.tx_indexer = KVTxIndexer(self.dbs["tx_index"])
         self.app = p.SignedKVStoreApp(verify_in_app=False)
         self.app.deliver_verifier = log.view("deliver") if log is not None else verifier
         self.rec = None
@@ -5908,6 +6014,869 @@ def committee_time(name, power, ctx) -> None:
         log({"phase": "committee_time", **tag, "node": label, "heights": COMMITTEE_HEIGHTS,
              "validators": len(setup.keys), **row})
     log({"phase": "committee_time", **tag, "speedup": rows["host"]["wall_s"] / rows["card"]["wall_s"]})
+
+
+# -- phases 33-34: the gossip (the gossip_net cell) ------------------------------
+
+
+def make_gossip_inputs(pool, rng) -> list[dict]:
+    """Phase 33's bursts, from their own generator so the earlier phases'
+    draws stay as they were: one a height, of phase 31's families."""
+    return make_bursts(pool, rng, GOSSIP_HEIGHTS, COMMITTEE_FIRST_BLOCK, COMMITTEE_BLOCK,
+                       COMMITTEE_VALUE_BYTES, EXEC_SIGNERS, b"gsp-%07d")
+
+
+def gossip_genesis(p, keys, powers: dict[bytes, int]):
+    """The gossip net's genesis: `keys` at power 1 but the four nodes'
+    addresses at `powers`, default ConsensusParams, the upgrade to aggregate
+    commits at GOSSIP_UPGRADE_HEIGHT."""
+    return p.GenesisDoc(
+        genesis_time_ns=BLOCK_TIME_NS, chain_id=CHAIN_ID,
+        validators=[p.GenesisValidator(k.pub_key(), powers.get(k.pub_key().address(), 1)) for k in keys],
+        upgrade_height=GOSSIP_UPGRADE_HEIGHT, upgrade_format="aggregate",
+    )
+
+
+def gossip_power(p, keys) -> tuple[list[bytes], dict[bytes, int], dict[int, bytes]]:
+    """(V0-V3's addresses, their powers, the proposer of each height). The
+    nodes are the keys at GOSSIP_NODE_KEYS (address order) at
+    GOSSIP_NODE_POWER, found by a search over three keys a third apart,
+    their roles and V0-V2's power, from the largest down, with V3 the
+    power-1 key the rotation then elects last, and checked here on the
+    ported ValidatorSet's rotation: the four hold
+    less than two thirds of the total (no height commits without the
+    stubs); height 1's proposer is V1 (burst 1 is fed to it before the net
+    starts) or a stub; each of V0-V2 proposes in 1..GOSSIP_HEIGHTS; and
+    V3 proposes, but only after it has caught up and its mempool holds
+    its burst (at GOSSIP_LATE_AFTER + 2 or later); and a stub is elected at
+    GOSSIP_HEIGHTS + 1, so no node's next proposal (and no check of it) is
+    in flight when the launches are read."""
+    addrs = [keys[i].pub_key().address() for i in GOSSIP_NODE_KEYS]
+    powers = dict(zip(addrs, GOSSIP_NODE_POWER))
+    total = sum(GOSSIP_NODE_POWER) + len(keys) - 4
+    sched = committee_schedule(p, gossip_genesis(p, keys, powers), GOSSIP_HEIGHTS)
+    nxt = committee_schedule(p, gossip_genesis(p, keys, powers), GOSSIP_HEIGHTS + 1)[GOSSIP_HEIGHTS + 1]
+    mine = [[h for h, a in sched.items() if a == addr] for addr in addrs]
+    ok = (3 * sum(GOSSIP_NODE_POWER) < 2 * total and (sched[1] == addrs[1] or sched[1] not in addrs)
+          and all(mine[:3]) and mine[3] and min(mine[3]) >= GOSSIP_LATE_AFTER + 2 and nxt not in addrs)
+    if not ok:
+        raise AssertionError(f"the gossip net's powers give the schedule {mine}")
+    return addrs, powers, sched
+
+
+def stub_relay():
+    """The stubs' peer's reactor: the consensus reactor's channels and the
+    mempool's, so every node can send it what it sends any peer; it drops
+    what it receives, sends what the pump hands it, and tells each node it
+    stands at height 1."""
+    from tendermint_tpu_torch.consensus.messages import NewRoundStepMessage
+    from tendermint_tpu_torch.consensus.reactor import STATE_CHANNEL, ConsensusReactor, _enc
+    from tendermint_tpu_torch.consensus.round_state import RoundStep
+    from tendermint_tpu_torch.mempool.reactor import MempoolReactor
+    from tendermint_tpu_torch.p2p import Reactor
+
+    class StubRelay(Reactor):
+        def __init__(self):
+            self.peers: dict[str, object] = {}
+            self.received = 0
+
+        def start(self):
+            pass
+
+        def stop(self):
+            pass
+
+        def get_channels(self):
+            return ConsensusReactor.get_channels(None) + MempoolReactor.get_channels(None)
+
+        def add_peer(self, peer):
+            self.peers[peer.node_info.moniker] = peer
+            # stand at height 1: a node's mempool reactor then holds the
+            # txs of height 3 on (mempool/reactor.py's peer-height rule),
+            # which the stubs would only drop
+            peer.send(STATE_CHANNEL, _enc(NewRoundStepMessage(1, 0, RoundStep.NEW_HEIGHT, 0, -1)))
+
+        def remove_peer(self, peer, reason):
+            self.peers.pop(peer.node_info.moniker, None)
+
+        def receive(self, ch_id, peer, msg):
+            self.received += len(msg)
+
+    return StubRelay()
+
+
+class gossip_switch:
+    """A port Switch wired as node/node.py wires one, on phase 29's p2p
+    config (the rates and the 10 ms flush throttle in every peer's
+    MConnConfig, secret connections on), a listener on 127.0.0.1 port 0 and
+    NodeInfo with the genesis schedule, carrying `reactors`. Every
+    stop_peer_for_error is recorded."""
+
+    def __init__(self, doc, moniker: str, reactors: dict):
+        from tendermint_tpu_torch.config.config import P2PConfig
+        from tendermint_tpu_torch.p2p import MConnConfig, NodeInfo, PeerConfig, Switch
+        from tendermint_tpu_torch.p2p.listener import Listener
+        from tendermint_tpu_torch.p2p.node_info import default_version
+        from tendermint_tpu_torch.version import VERSION
+
+        cfg = P2PConfig(**FASTSYNC_P2P)
+        self.sw = Switch(cfg, PeerConfig(mconfig=MConnConfig(
+            send_rate=float(cfg.send_rate), recv_rate=float(cfg.recv_rate),
+            flush_throttle=cfg.flush_throttle_timeout)))
+        for rname, reactor in reactors.items():
+            self.sw.add_reactor(rname, reactor)
+        self.listener = Listener("127.0.0.1:0")
+        self.sw.add_listener(self.listener)
+        self.sw.set_node_info(NodeInfo(
+            pub_key=self.sw.node_priv_key.pub_key(), moniker=moniker, network=doc.chain_id,
+            version=default_version(VERSION), listen_addr=str(self.listener.internal_address()),
+            other=["consensus_version=v1", f"commit_schedule={doc.schedule_string()}"]))
+        self.stops: list[tuple[str, str]] = []
+        stop_peer = self.sw.stop_peer_for_error
+
+        def recording_stop(peer, reason):
+            self.stops.append((peer.node_info.moniker, str(reason)))
+            stop_peer(peer, reason)
+
+        self.sw.stop_peer_for_error = recording_stop
+
+    def port(self) -> int:
+        return self.listener.internal_address().port
+
+    def dial(self, other: "gossip_switch"):
+        from tendermint_tpu_torch.p2p import NetAddress
+
+        return self.sw.dial_peer_with_address(NetAddress("127.0.0.1", other.port()))
+
+    def bytes_sent(self) -> int:
+        return sum(peer.mconn.send_monitor.status().bytes for peer in self.sw.peers.list())
+
+
+class gossip_node:
+    """One port validator of the gossip net: committee_node (sqlite stores
+    with the kv tx index, the signed kvstore on 4 shards behind AppConns
+    with the Handshaker, the gated Mempool with its WAL, the consensus WAL,
+    pipeline_apply, its own `Verifier` and the shared `Hasher`) with a
+    MempoolReactor and a ConsensusReactor(fast_sync=False) on a
+    gossip_switch. Every state the node saves is recorded (the state DB's
+    writes of the state key), and so are the votes its consensus reactor
+    receives, by sender, and the aggregate catch-up commits it screens."""
+
+    def __init__(self, p, name: str, root: str, doc, verifier, hasher, shared_log):
+        from tendermint_tpu_torch.consensus import messages as cmsgs
+        from tendermint_tpu_torch.consensus.reactor import ConsensusReactor
+        from tendermint_tpu_torch.mempool.reactor import MempoolReactor
+
+        self.name = name
+        self.log = verify_log(verifier)
+        self.node = committee_node(p, root, doc, verifier, hasher, self.log, tx_index=True)
+        self.states: list[bytes] = []
+        db = self.node.dbs["state"]
+        set_sync = db.set_sync
+
+        def recording_set_sync(key, value):
+            if key == b"stateKey" and (not self.states or self.states[-1] != value):
+                self.states.append(bytes(value))
+            return set_sync(key, value)
+
+        db.set_sync = recording_set_sync
+        self.con_r = ConsensusReactor(self.node.cs, fast_sync=False)
+        self.con_r.set_event_switch(self.node.evsw)
+        self.mem_r = MempoolReactor(p.test_config().mempool, self.node.mempool)
+        self.votes_in: dict[str, int] = {}
+        self.screens: list[tuple[int, str, bool]] = []
+        receive, screen = self.con_r.receive, self.con_r._screen_agg_commit
+
+        def counting_receive(ch_id, peer, msg_bytes):
+            if ch_id == 0x22:
+                who = peer.node_info.moniker
+                self.votes_in[who] = self.votes_in.get(who, 0) + 1
+            return receive(ch_id, peer, msg_bytes)
+
+        def tagged_screen(peer, msg: cmsgs.AggregateCommitMessage):
+            with shared_log.tagged_aggregate("screen"):
+                ok = screen(peer, msg)
+            self.screens.append((msg.height, peer.node_info.moniker, ok))
+            return ok
+
+        self.con_r.receive = counting_receive
+        self.con_r._screen_agg_commit = tagged_screen
+        self.switch = gossip_switch(doc, name, {"MEMPOOL": self.mem_r, "CONSENSUS": self.con_r})
+        self.node.started = False  # the consensus reactor starts and stops the state
+        self.started = False
+        # the pump is prompt, but the first three wait at height
+        # GOSSIP_LATE_AFTER + 1 while V3 catches up: no round may time out
+        cc = self.node.cs.config
+        cc.timeout_propose = cc.timeout_prevote = cc.timeout_precommit = 10 * GOSSIP_WAIT_S
+
+    def start(self) -> None:
+        """Start the switch: its consensus reactor starts the state."""
+        self.switch.sw.start()
+        self.started = True
+
+    def own_vote(self, h: int, type_: int) -> bool:
+        """Whether the node's own vote of `type_` at (h, round 0) is in."""
+        cs = self.node.cs
+        if cs.rs.height > h:
+            return True
+        if cs.rs.height < h or cs.rs.votes is None:
+            return False
+        idx, _ = cs.rs.validators.get_by_address(self.node.pv.get_address())
+        vs = cs.rs.votes.prevotes(0) if type_ == 1 else cs.rs.votes.precommits(0)
+        return vs is not None and vs.get_by_index(idx) is not None
+
+    def applied(self, h: int) -> bool:
+        """Height h - 1 is committed and applied, and the node is at h."""
+        cs = self.node.cs
+        return (cs.rs.height == h and cs._pending_apply is None and not cs._state_provisional
+                and cs.state.last_block_height == h - 1)
+
+
+def thread_cpu() -> dict[str, float]:
+    """CPU seconds of this process's threads so far (Linux
+    /proc/self/task), summed by thread name (the part before a ':' or a
+    number); threads that have ended are not counted."""
+    names = {t.native_id: t.name for t in threading.enumerate()}
+    tick = os.sysconf("SC_CLK_TCK")
+    out: dict[str, float] = {}
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        name = re.split(r"[:\-(]| \d", names.get(int(tid), "unnamed"))[0]
+        out[name] = out.get(name, 0.0) + (int(fields[11]) + int(fields[12])) / tick
+    return out
+
+
+class catchup_watch:
+    """Polls a catching-up node's consensus state every 5 ms and keeps,
+    for each height, when the node entered it, when its block's parts were
+    complete and when it was stored."""
+
+    def __init__(self, node):
+        self.node = node
+        self.entered: dict[int, float] = {}
+        self.parts: dict[int, float] = {}
+        self.stored: dict[int, float] = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True, name="catchup_watch")
+        self._thread.start()
+
+    def _run(self) -> None:
+        cs, store = self.node.cs, self.node.store
+        while not self._stop.is_set():
+            now = time.perf_counter()
+            rs = cs.rs
+            h = rs.height
+            self.entered.setdefault(h, now)
+            bp = rs.proposal_block_parts
+            if bp is not None and bp.is_complete():
+                self.parts.setdefault(h, now)
+            for sh in range(max(self.stored, default=0) + 1, store.height() + 1):
+                self.stored[sh] = now
+            time.sleep(0.005)
+
+    def stop(self) -> dict[int, dict]:
+        self._stop.set()
+        self._thread.join(5)
+        out = {}
+        for h, t in self.stored.items():
+            start = self.entered.get(h)
+            if start is None:
+                continue
+            parts = self.parts.get(h, t)
+            out[h] = {"parts_s": parts - start, "commit_s": t - parts, "total_s": t - start}
+        return out
+
+
+def gossip_reference(root: str, doc_json, last: int, sample: int, wait_s: float) -> dict:
+    """Phase 33's host reference, in a process of its own: V0's stored chain
+    replayed from genesis, height by height as V0 stores it (its sqlite
+    files, read beside the node), through the ported execution path on
+    Verifier(device="cpu") (its gate sends every lane to the native CPU
+    floor, the aggregate LastCommits to the host's reference check) and
+    host_hasher(): each block h is proved by the next block's LastCommit
+    (V0's seen commit for the last), then validate_block and apply_block
+    run it, into a fresh signed kvstore on 4 shards over MemDBs with the
+    kv tx index. Returns every state saved, the tx-index records of each
+    block's first `sample` txs, each block's part-set root and tx root
+    recomputed on the host against its block id and header, the seconds
+    the replay worked (its waits for V0 left out), and the launches
+    (none)."""
+    from tendermint_tpu_torch.abci.apps.signedkv import SignedKVStoreApp
+    from tendermint_tpu_torch.blockchain.store import BlockStore
+    from tendermint_tpu_torch.libs.db import MemDB, db_provider
+    from tendermint_tpu_torch.merkle.simple import simple_hash_from_byteslices
+    from tendermint_tpu_torch.ops.gateway import Verifier
+    from tendermint_tpu_torch.proxy import AppConns, LocalClientCreator
+    from tendermint_tpu_torch.state import apply_block
+    from tendermint_tpu_torch.state.execution import validate_block
+    from tendermint_tpu_torch.state.state import State
+    from tendermint_tpu_torch.state.txindex import KVTxIndexer
+    from tendermint_tpu_torch.types.genesis import GenesisDoc
+    from tendermint_tpu_torch.types.part_set import PartSet
+    from tendermint_tpu_torch.types.tx import tx_hash
+    from tendermint_tpu_torch.ops import gateway
+    from tendermint_tpu_torch.types.services import MockMempool
+    from tendermint_tpu_torch.types.tx import set_batch_tx_root
+    from tendermint_tpu_torch.types.agg_commit import commit_is_aggregate
+
+    reset_launches()
+    doc = GenesisDoc.from_json(doc_json)
+    db = db_provider("blockstore", "sqlite", root)
+    states: list[bytes] = []
+
+    def stored(height: int):
+        """V0's store once it holds `height` (a store object reads the
+        height when it is made)."""
+        deadline = time.monotonic() + wait_s
+        while True:
+            store = BlockStore(db)
+            if store.height() >= height:
+                return store
+            if time.monotonic() > deadline:
+                raise AssertionError(f"host replay: V0 stored no height {height} in {wait_s} s")
+            time.sleep(0.05)
+
+    class recording_db(MemDB):
+        def set_sync(self, key, value):
+            if key == b"stateKey" and (not states or states[-1] != value):
+                states.append(bytes(value))
+            return super().set_sync(key, value)
+
+    busy = 0.0
+    with routed_to():
+        verifier = Verifier(min_tpu_batch=APP_REF_GATE, device="cpu")
+        gateway._default_verifier, gateway._default_hasher = verifier, host_hasher()
+        set_batch_tx_root(None)
+        state = State.get_state(recording_db(), doc)
+        state.tx_indexer = KVTxIndexer(MemDB())
+        app = SignedKVStoreApp(verify_in_app=False)
+        app.deliver_verifier = verifier
+        app.shards = APP_SHARDS
+        conns = AppConns(LocalClientCreator(app))
+        conns.start()
+        part_size = doc.consensus_params.block_gossip.block_part_size_bytes
+        roots, index = [], []
+        try:
+            for h in range(1, last + 1):
+                store = stored(min(h + 1, last))
+                t0 = time.perf_counter()
+                block, meta = store.load_block(h), store.load_block_meta(h)
+                proof = store.load_block(h + 1).last_commit if h < last else store.load_seen_commit(h)
+                if commit_is_aggregate(proof):
+                    proof.verify(doc.chain_id, state.validators)
+                else:
+                    state.validators.verify_commit(doc.chain_id, meta.block_id, h, proof)
+                validate_block(state, block)
+                parts = PartSet.from_data(block.to_bytes(), part_size)
+                roots.append({"height": h, "parts": parts.header() == meta.block_id.parts_header,
+                              "data_hash": simple_hash_from_byteslices(list(block.data.txs))
+                              == block.header.data_hash})
+                apply_block(state, None, conns.consensus(), block, meta.block_id.parts_header, MockMempool())
+                index.append([state.tx_indexer.get(tx_hash(tx)).to_json() for tx in block.data.txs[:sample]])
+                busy += time.perf_counter() - t0
+        finally:
+            conns.stop()
+            db.close()
+    return {"states": states, "roots": roots, "index": index, "seconds": busy, "launches": read_launches()}
+
+
+def gossip_expected(doc, logs: dict, live: dict, caught: dict, proofs: dict, gate: int) -> dict:
+    """The dispatches by source, and the launches, the chain implies for the
+    net, from the code's call sites (consensus/state.py,
+    consensus/reactor.py, state/execution.py, the signed kvstore):
+
+    - a LastCommit check of block h (h >= 2) at each node: four at a
+      height the node voted in (validate_block at the prevote, the lock,
+      finalize and in apply_block), two at a height it caught up on
+      (finalize and apply_block); "aggregate" (dsm, n + 1 lanes) from the
+      upgrade height on, else "commit" (B1);
+    - one "aggregate" more a height a node finalized from an aggregate
+      commit proof (ConsensusState.apply_commit_proof), and one "screen"
+      (dsm) for each AggregateCommitMessage its reactor screened at its
+      own height (recorded: a second peer's copy can land before the node
+      moves on);
+    - one "deliver" (B1) a height each node applied;
+    - "vote", "gate" and "one" as recorded: the micro-batches of a node's
+      receive routine and the gate's batches (both batch by time), and the
+      lone signatures (a vote left single, a proposal).
+
+    Every dispatch is counted, whatever its width; of them, one of `gate`
+    lanes or more is one launch (B1, or dsm for "aggregate" and
+    "screen"), and a smaller one verifies on the native CPU floor."""
+    want = {"commit": 0, "aggregate": 0, "screen": 0, "deliver": 0, "vote": 0, "gate": 0, "one": 0}
+    for name in live:
+        for heights, checks in ((live[name], 4), (caught.get(name, ()), 2)):
+            for h in heights:
+                if h >= 2:
+                    want["aggregate" if doc.aggregate_commits_at(h) else "commit"] += checks
+        want["deliver"] += len(live[name]) + len(caught.get(name, ()))
+        want["aggregate"] += len(proofs.get(name, ()))
+    calls = [c for log in logs.values() for c in log]
+    for src in ("screen", "vote", "gate", "one"):
+        want[src] = sum(1 for s, _n in calls if s == src)
+    got = {}
+    for src, _n in calls:
+        got[src] = got.get(src, 0) + 1
+    agg = ("aggregate", "screen")
+    return {"want": want, "got": got,
+            "b1": sum(1 for src, n in calls if n >= gate and src not in agg),
+            "dsm": sum(1 for src, n in calls if n >= gate and src in agg),
+            "tpu_sigs": sum(n for src, n in calls if n >= gate and src not in ("aggregate", "screen")),
+            "agg_lanes_device": sum(n for src, n in calls if n >= gate and src in ("aggregate", "screen")),
+            "cpu_sigs": sum(n for src, n in calls if n < gate and src not in ("aggregate", "screen")),
+            "agg_lanes_cpu": sum(n for src, n in calls if n < gate and src in ("aggregate", "screen"))}
+
+
+def gossip_phase(name, power, seeds, bursts) -> dict:
+    """Phase 33: the gossip on the card, in process. Four port validators
+    V0-V3 of the gossip_net cell (gossip_node, each on its own
+    Verifier(device=DEVICE), the card's Hasher shared and installed as the
+    gateway's default beside a fifth Verifier for the aggregate checks and
+    screens, the tx-root hook on the Hasher) on a full mesh of switches
+    over TCP loopback with secret connections, and a fifth switch, the
+    stubs' peer (stub_relay), dialled into every node. The pump drives
+    heights 1..GOSSIP_HEIGHTS: a stub proposer's block is built from V0's
+    mempool and state (as committee_pump builds it) and sent with its parts
+    to every running node; once block h is out, burst h + 1 goes through
+    the check_tx of V((h + 1) mod 3) (the others get it through the
+    mempool reactor); once every running node has prevoted, the stubs'
+    prevotes go out (stubs 0-47 to V0, 48-95 to V1: V2 and V3 hear the
+    stubs by relay alone); once the mempool block h + 1 is built from holds
+    burst h + 1 and every running node has precommitted, the stubs'
+    precommits go out, stub 0's at GOSSIP_FORGED_HEIGHT with a flipped
+    signature. V3 starts empty once V0-V2 have committed GOSSIP_LATE_AFTER
+    and catches up through the consensus reactor's catch-up gossip before
+    the pump goes on. The host reference (gossip_reference) replays V0's
+    chain beside the net in a process of its own. Then the checks of
+    phase 33 (PERF.md §4, the gossip_net cell)."""
+    from tendermint_tpu_torch.consensus import messages as cmsgs
+    from tendermint_tpu_torch.consensus.reactor import DATA_CHANNEL, VOTE_CHANNEL, _enc
+    from tendermint_tpu_torch.ops import gateway
+    from tendermint_tpu_torch.ops.gateway import Hasher, Verifier
+    from tendermint_tpu_torch.types import tx as ptx
+    from tendermint_tpu_torch.types.tx import tx_hash
+
+    tag = {"card": name, "power_limit": power}
+    p = committee_pkg()
+    keys = sorted((p.gen_priv_key_ed25519(s) for s in seeds[:GOSSIP_VALIDATORS]),
+                  key=lambda k: k.pub_key().address())
+    addrs, node_powers, sched = gossip_power(p, keys)
+    doc = gossip_genesis(p, keys, node_powers)
+    total = sum(node_powers.values()) + len(keys) - 4
+    stubs = [(i, p.PrivValidatorFS(k, None)) for i, k in enumerate(keys) if k.pub_key().address() not in addrs]
+    names = ["V0", "V1", "V2", "V3"]
+    proposers = {h: names[addrs.index(a)] if a in addrs else "stub" for h, a in sched.items()}
+    log({"phase": "gossip_setup", **tag, "validators": len(keys), "node_power": list(GOSSIP_NODE_POWER),
+         "total_power": total, "nodes_share": sum(GOSSIP_NODE_POWER) / total, "proposers": proposers,
+         "upgrade_height": GOSSIP_UPGRADE_HEIGHT, "heights": GOSSIP_HEIGHTS,
+         "late_after": GOSSIP_LATE_AFTER, "txs_per_height": [len(b["txs"]) for b in bursts],
+         "forged_precommit_height": GOSSIP_FORGED_HEIGHT})
+    saved = gateway._default_verifier, gateway._default_hasher
+    roots, nodes, switches = [], {}, []
+    reference = multiprocessing.get_context("spawn").Pool(1)
+    stub_sw = None
+    try:
+        with routed_to():
+            hasher = Hasher(device=DEVICE)
+            default = Verifier(device=DEVICE)
+            if default.kernel != "f32p" or hasher._route != "local":
+                raise AssertionError(f"the card's routes: {default.kernel}, {hasher._route}")
+            shared_log = verify_log(default)
+            gateway._default_verifier, gateway._default_hasher = default, hasher
+            ptx.set_batch_tx_root(hasher.tx_merkle_root)
+            v0, h0 = default.stats(), hasher.stats()
+            gc.collect()
+            reset_launches()
+            cpu0 = thread_cpu()
+            t_start = time.perf_counter()
+
+            def start_node(i: int) -> gossip_node:
+                root = tempfile.mkdtemp(prefix=f"gossip-{names[i]}-")
+                roots.append(root)
+                key = next(k for k in keys if k.pub_key().address() == addrs[i])
+                committee_home(p, root, key)
+                g = gossip_node(p, names[i], root, doc, Verifier(device=DEVICE), hasher, shared_log)
+                nodes[names[i]] = g
+                switches.append(g.switch)
+                return g
+
+            for i in range(3):
+                start_node(i)
+            # the host replay follows V0's store from now on, in its own process
+            pending = reference.apply_async(gossip_reference, (roots[0], doc.to_json(), GOSSIP_HEIGHTS,
+                                                               GOSSIP_INDEX_SAMPLE, 10 * GOSSIP_WAIT_S))
+
+            def running():
+                return [g for g in nodes.values() if g.started]
+
+            def wait(cond, what):
+                deadline = time.monotonic() + GOSSIP_WAIT_S
+                while not cond():
+                    for g in running():
+                        err = g.node.cs.device_error
+                        if err is not None:
+                            raise AssertionError(f"{g.name} stopped on a device error: {err}")
+                    if time.monotonic() > deadline:
+                        state = {g.name: (g.node.cs.rs.height, g.node.cs.rs.round_, int(g.node.cs.rs.step),
+                                          g.node.mempool.size()) for g in running()}
+                        raise AssertionError(f"gossip pump: waited {GOSSIP_WAIT_S} s for {what}: {state}")
+                    time.sleep(0.002)  # the nodes share this interpreter: poll lightly
+
+            refused = {}
+
+            def pool_txs(mp) -> set[bytes]:
+                """The txs in a mempool, read off its list without its lock
+                (reap takes the lock and flushes the app connection)."""
+                out, el = set(), mp.txs.front()
+                while el is not None:
+                    out.add(el.value.tx)
+                    el = el.next()
+                return out
+
+            def feed(h: int) -> None:
+                """Burst h through V(h mod 3)'s check_tx (the others get it
+                through the mempool reactor)."""
+                refused[h] = nodes[names[h % 3]].node.feed(bursts[h - 1]["txs"])
+
+            def held(h: int) -> None:
+                """Until the mempool height h's block is built from (the
+                proposer's, or V0's for a stub's block) holds burst h's
+                valid txs."""
+                valid = {tx for i, tx in enumerate(bursts[h - 1]["txs"]) if i not in refused[h]}
+                maker = nodes["V0" if proposers[h] == "stub" else proposers[h]]
+
+                def holds():
+                    time.sleep(0.05)
+                    mp = maker.node.mempool
+                    return mp.size() >= len(valid) and valid <= pool_txs(mp)
+
+                wait(holds, f"burst {h} in {maker.name}'s mempool")
+
+            feed(1)  # into V1 before the switches, and consensus, start
+            held(1)
+            relay = stub_relay()
+            stub_sw = gossip_switch(doc, "stubs", {"STUBS": relay})
+            stub_sw.sw.start()
+            for i in range(3):
+                nodes[names[i]].start()
+            for i in range(3):
+                for j in range(i + 1, 3):
+                    nodes[names[i]].switch.dial(nodes[names[j]].switch)
+                stub_sw.dial(nodes[names[i]].switch)
+
+            wait(lambda: len(relay.peers) == 3 and all(g.switch.sw.peers.size() == 3 for g in running()),
+                 "the first three nodes' peers")
+            committed_at: dict[int, float] = {}
+            watch = None
+            catchup = {}
+            forged = None
+            steps: dict[int, dict[str, float]] = {}
+            for h in range(1, GOSSIP_HEIGHTS + 1):
+                wait(lambda: all(g.applied(h) for g in running()), f"height {h}")
+                committed_at[h - 1] = time.perf_counter()
+                if h > 1:
+                    # the pump's steps of the height before: where the wall goes
+                    steps[h - 1]["commit_s"] = committed_at[h - 1] - mark
+                log({"phase": "gossip_height", "height": h, "t_s": committed_at[h - 1] - t_start,
+                     "steps_before": steps.get(h - 1)})
+                mark, steps[h] = time.perf_counter(), {}
+
+                def step(name: str) -> None:
+                    nonlocal mark
+                    now = time.perf_counter()
+                    steps[h][name] = now - mark
+                    mark = now
+
+                if proposers[h] == "stub":
+                    cs = nodes["V0"].node.cs
+                    commit = p.empty_commit() if h == 1 else cs._commit_for_proposal(cs.rs.last_commit.make_commit())
+                    txs = cs.mempool.reap(cs.config.max_block_size_txs)
+                    block, parts = p.Block.make_block(
+                        height=h, chain_id=CHAIN_ID, txs=txs, commit=commit, prev_block_id=cs.state.last_block_id,
+                        val_hash=cs.state.validators.hash(), app_hash=cs.state.app_hash,
+                        part_size=doc.consensus_params.block_gossip.block_part_size_bytes,
+                        time_ns=BLOCK_TIME_NS + h * 10**9)
+                    pv = next(pv for _, pv in stubs if pv.get_address() == sched[h])
+                    proposal = pv.sign_proposal(CHAIN_ID, p.Proposal(h, 0, parts.header()))
+                    for g in running():
+                        peer = relay.peers[g.name]
+                        peer.send(DATA_CHANNEL, _enc(cmsgs.ProposalMessage(proposal)))
+                        for i in range(parts.total):
+                            peer.send(DATA_CHANNEL, _enc(cmsgs.BlockPartMessage(h, 0, parts.get_part(i))))
+                else:
+                    own = nodes[proposers[h]].node.cs
+                    wait(lambda: own.rs.height > h or own.rs.proposal is not None, f"{proposers[h]}'s proposal at {h}")
+                step("proposal_s")
+                if h < GOSSIP_HEIGHTS:
+                    # the next burst, once block h is out: its gossip runs
+                    # beside this height's votes
+                    feed(h + 1)
+                    step("next_burst_fed_s")
+                wait(lambda: all(g.own_vote(h, p.VOTE_TYPE_PREVOTE) for g in running()), f"the prevotes at {h}")
+                step("prevotes_s")
+                cs = nodes["V0"].node.cs
+                bid = p.BlockID(cs.rs.proposal_block.hash(), cs.rs.proposal_block_parts.header())
+                for type_ in (p.VOTE_TYPE_PREVOTE, p.VOTE_TYPE_PRECOMMIT):
+                    votes = [pv.sign_vote(CHAIN_ID, p.Vote(pv.get_address(), i, h, 0, type_, bid)) for i, pv in stubs]
+                    if type_ == p.VOTE_TYPE_PRECOMMIT and h == GOSSIP_FORGED_HEIGHT:
+                        raw = bytearray(votes[0].signature.raw)
+                        raw[5] ^= 0x20
+                        votes[0] = votes[0].with_signature(p.SignatureEd25519(bytes(raw)))
+                        forged = (h, votes[0].validator_index)
+                    half = len(votes) // 2
+                    for target, part in (("V0", votes[:half]), ("V1", votes[half:])):
+                        peer = relay.peers[target]
+                        for v in part:
+                            peer.send(VOTE_CHANNEL, _enc(cmsgs.VoteMessage(v)))
+                    if type_ == p.VOTE_TYPE_PREVOTE:
+                        step("stub_prevotes_s")
+                        if h < GOSSIP_HEIGHTS:
+                            held(h + 1)
+                            step("next_burst_held_s")
+                        wait(lambda: all(g.own_vote(h, p.VOTE_TYPE_PRECOMMIT) for g in running()),
+                             f"the precommits at {h}")
+                        step("precommits_s")
+                if h == GOSSIP_LATE_AFTER:
+                    wait(lambda: all(g.applied(h + 1) for g in running()), f"height {h + 1}")
+                    t_late = time.perf_counter()
+                    late = start_node(3)
+                    late.start()
+                    watch = catchup_watch(late.node)
+                    for i in range(3):
+                        nodes[names[i]].switch.dial(late.switch)
+                    stub_sw.dial(late.switch)
+                    wait(lambda: late.applied(h + 1) and "V3" in relay.peers, "V3's catch-up")
+                    catchup = watch.stop()
+                    catchup_s = time.perf_counter() - t_late
+                    log({"phase": "gossip_catchup", "seconds": catchup_s, "per_height": catchup})
+            last = GOSSIP_HEIGHTS
+            wait(lambda: all(g.applied(last + 1) and g.node.store.height() == last for g in running()),
+                 "the last commit")
+            committed_at[last] = time.perf_counter()
+            steps[last]["commit_s"] = committed_at[last] - mark
+            wall_s = time.perf_counter() - t_start
+            stops = {sw.sw.node_info.moniker: list(sw.stops) for sw in switches + [stub_sw] if sw.stops}
+            cpu = {k: v - cpu0.get(k, 0.0) for k, v in thread_cpu().items()}
+            if DEVICE != "cpu":
+                _sync()
+            launches = read_launches()
+            v1, h1 = default.stats(), hasher.stats()
+            bytes_sent = sum(sw.bytes_sent() for sw in switches) + stub_sw.bytes_sent()
+            node_stats = {}
+            for g in running():
+                cs = g.node.cs
+                node_stats[g.name] = {
+                    "verifier": g.node.cs.verifier.stats(),
+                    "vote_plane": {"batches": cs.vote_batcher.batches, "batched_sigs": cs.vote_batcher.batched_sigs,
+                                   "singletons": cs.vote_batcher.singletons},
+                    "vote_duplicates": cs.vote_duplicates, "vote_accepted": cs.vote_accepted,
+                    "has_votes_applied": g.con_r.has_votes_applied,
+                    "part_announces_sent": g.con_r.part_announces_sent,
+                    "part_announces_applied": g.con_r.part_announces_applied,
+                    "agg_commits_sent": g.con_r.agg_commits_sent,
+                    "agg_commits_rejected": g.con_r.agg_commits_rejected,
+                    "votes_in": dict(g.votes_in), "screens": list(g.screens),
+                    "proofs": list(g.node.flight.proofs),
+                    "gate": {"fail_open": g.node.batcher.fail_open, "bad_sigs": g.node.batcher.bad_sigs,
+                             "device_error": g.node.batcher.device_error},
+                    "device_error": cs.device_error, "exceptions": list(g.node.flight.exceptions),
+                    "rejects": [(r["height"], r["type"], r["err"].split(":")[0]) for r in g.node.flight.rejects],
+                    "calls": g.log.take(), "gate_sizes": g.node.gate.take()[0],
+                    "waves": g.node.rec.take()[0],
+                    "traces": [t.to_json() for t in cs.trace.last(last)],
+                }
+        # stop the net: the stubs' peer, then each node's switch (its
+        # consensus reactor stops the state, the deferred apply drained)
+        stub_sw.sw.stop()
+        for g in running():
+            g.switch.sw.stop()
+        records, index, finals = {}, {}, {}
+        for g in running():
+            node = g.node
+            records[g.name] = node.records(1, last)
+            st = node.cs.state
+            index[g.name] = [[st.tx_indexer.get(tx_hash(tx)).to_json()
+                              for tx in node.store.load_block(h).data.txs[:GOSSIP_INDEX_SAMPLE]]
+                             for h in range(1, last + 1)]
+            finals[g.name] = node.stop()
+        ptx.set_batch_tx_root(None)
+        t_ref = time.perf_counter()
+        ref = pending.get(timeout=10 * GOSSIP_WAIT_S)
+        ref_wall_s = time.perf_counter() - t_ref  # the replay's tail after the net stopped
+    finally:
+        reference.terminate()
+        reference.join()
+        ptx.set_batch_tx_root(None)
+        gateway._default_verifier, gateway._default_hasher = saved
+        if stub_sw is not None:
+            stub_sw.sw.stop()
+        for sw in switches:
+            sw.sw.stop()
+        for r in roots:
+            shutil.rmtree(r, ignore_errors=True)
+
+    # -- the checks ----------------------------------------------------------
+    gate = default.min_tpu_batch
+    want_records = records["V0"]
+    for nm in names:
+        # every stored record but the seen commit, which is each node's own
+        diff = [r["height"] for r, w in zip(records[nm], want_records)
+                if {k: v for k, v in r.items() if k != "seen"} != {k: v for k, v in w.items() if k != "seen"}]
+        if diff:
+            raise AssertionError(f"{nm}: heights {diff} differ from V0's")
+        if index[nm] != index["V0"]:
+            raise AssertionError(f"{nm}: tx-index records differ from V0's")
+        st = nodes[nm].states
+        if len(st) < last or st != ref["states"][-len(st):]:
+            raise AssertionError(f"{nm}: saved states differ from the host reference's "
+                                 f"({len(st)} against {len(ref['states'])})")
+        if finals[nm] != ref["states"][-1]:
+            raise AssertionError(f"{nm}: the final state differs from the host reference's")
+    if index["V0"] != ref["index"]:
+        raise AssertionError("the tx-index records differ from the host reference's")
+    if not all(r["parts"] and r["data_hash"] for r in ref["roots"]):
+        raise AssertionError(f"a block's part-set root or tx root differs on the host: {ref['roots']}")
+    if any(ref["launches"].values()):
+        raise AssertionError(f"the host reference launched kernels: {ref['launches']}")
+    for h in range(1, last + 1):
+        if len(p.Block.from_bytes(want_records[h - 1]["block"]).data.txs) != \
+                len(bursts[h - 1]["txs"]) - len(bursts[h - 1]["forged"]):
+            raise AssertionError(f"height {h} did not commit its burst")
+        if want_records[h - 1]["parts_total"] < GOSSIP_MIN_PARTS:
+            raise AssertionError(f"height {h}: {want_records[h - 1]['parts_total']} parts")
+    # refusals: the forged precommit at V0 alone, the forged txs at the fed gate alone
+    rejects = {nm: s["rejects"] for nm, s in node_stats.items()}
+    if rejects != {"V0": [(GOSSIP_FORGED_HEIGHT, 2, "InvalidSignatureError")], "V1": [], "V2": [], "V3": []}:
+        raise AssertionError(f"refused votes {rejects}: expected the forged precommit at V0 alone")
+    if any(refused[h] != bursts[h - 1]["forged"] for h in refused):
+        raise AssertionError("a gate refused other txs than the forged ones")
+    fed_bad = {nm: 0 for nm in names}
+    for h in refused:
+        fed_bad[names[h % 3]] += len(refused[h])
+    if {nm: s["gate"]["bad_sigs"] for nm, s in node_stats.items()} != fed_bad:
+        raise AssertionError(f"gates saw forged txs other than their own: "
+                             f"{ {nm: s['gate']['bad_sigs'] for nm, s in node_stats.items()} }")
+    # the gossip did its work: at each height V2 and V3 voted in, their
+    # seen commit holds stub precommits, which reach them by relay alone
+    stub_addrs = {pv.get_address() for _, pv in stubs}
+    for nm, heights in (("V2", range(1, last + 1)), ("V3", range(GOSSIP_LATE_AFTER + 1, last + 1))):
+        for h in heights:
+            seen = records[nm][h - 1]["seen"]
+            signers = _seen_signers(p, seen, keys)
+            if not signers & stub_addrs:
+                raise AssertionError(f"{nm}'s quorum at height {h} holds no relayed stub vote")
+        if node_stats[nm]["votes_in"].get("stubs"):
+            raise AssertionError(f"{nm} heard a stub directly")
+    agg_heights = [h for h in range(1, GOSSIP_LATE_AFTER + 1)
+                   if doc.aggregate_commits_at(h + 1) and h <= GOSSIP_LATE_AFTER - 1]
+    screened = sorted({h for h, _s, ok in node_stats["V3"]["screens"] if ok})
+    if screened != agg_heights or sorted(node_stats["V3"]["proofs"]) != agg_heights:
+        raise AssertionError(f"V3 screened {screened} and finalized from proofs at {node_stats['V3']['proofs']}, "
+                             f"expected the aggregate heights {agg_heights}")
+    if any(s["agg_commits_rejected"] for s in node_stats.values()) or \
+            not any(node_stats[nm]["agg_commits_sent"] for nm in ("V0", "V1", "V2")):
+        raise AssertionError(f"aggregate catch-up: {[(nm, s['agg_commits_sent'], s['agg_commits_rejected']) for nm, s in node_stats.items()]}")
+    # nothing fell back
+    for nm, s in node_stats.items():
+        if s["device_error"] is not None or s["gate"]["device_error"] is not None or s["exceptions"]:
+            raise AssertionError(f"{nm}: device error {s['device_error']} {s['gate']['device_error']} {s['exceptions']}")
+        if s["gate"]["fail_open"]:
+            raise AssertionError(f"{nm}: the gate failed open {s['gate']['fail_open']} times")
+    if stops:
+        raise AssertionError(f"peers stopped for errors: {stops}")
+    # the launches
+    live = {nm: list(range(1, last + 1)) for nm in ("V0", "V1", "V2")}
+    live["V3"] = list(range(GOSSIP_LATE_AFTER + 1, last + 1))
+    caught = {"V3": list(range(1, GOSSIP_LATE_AFTER + 1))}
+    logs = {nm: s["calls"] for nm, s in node_stats.items()}
+    logs["default"] = shared_log.take()
+    exp = gossip_expected(doc, logs, live, caught, {nm: s["proofs"] for nm, s in node_stats.items()}, gate)
+    sites = sorted(([*k, v] for k, v in shared_log.agg_sites.items()), key=lambda r: (r[1] or 0, r[0], r[3]))
+    if exp["got"] != {k: v for k, v in exp["want"].items() if v}:
+        raise AssertionError(f"dispatches by source {exp['got']}, expected {exp['want']}; aggregate checks "
+                             f"(source, height, thread, callers, count): {sites}")
+    waves = sum(w >= hasher.min_tpu_batch for s in node_stats.values() for w in s["waves"])
+    own_parts = sum(1 for h in range(1, last + 1) if proposers[h] != "stub"
+                    and want_records[h - 1]["parts_total"] >= hasher.min_tpu_batch)
+    hs = {k: h1[k] - h0[k] for k in ("tpu_part_batches", "tpu_tx_roots", "tpu_leaves", "cpu_leaves",
+                                     "tx_root_cache_hits")}
+    if hs["tpu_part_batches"] != own_parts + waves or not last <= hs["tpu_tx_roots"] <= 5 * last:
+        raise AssertionError(f"hasher {hs}: expected {own_parts} own part sets and {waves} waves, "
+                             f"and {last} to {5 * last} tx roots")
+    want_launches = {"b1": exp["b1"], "dsm": exp["dsm"], "ripemd160": hs["tpu_tx_roots"] + own_parts + waves,
+                     "merkle_tree": hs["tpu_tx_roots"] + own_parts}
+    _launch_delta(launches, want_launches, "gossip net")
+    lanes = {k: sum(s["verifier"][k] for s in node_stats.values()) + (v1[k] - v0[k])
+             for k in ("tpu_sigs", "cpu_sigs", "agg_lanes_device", "agg_lanes_cpu")}
+    if (lanes["tpu_sigs"], lanes["agg_lanes_device"], lanes["cpu_sigs"], lanes["agg_lanes_cpu"]) != \
+            (exp["tpu_sigs"], exp["agg_lanes_device"], exp["cpu_sigs"], exp["agg_lanes_cpu"]):
+        raise AssertionError(f"verifier lanes {lanes}, expected {exp}")
+    log({"phase": "gossip_path", **tag, "heights": last, "proposers": proposers, "launches": launches,
+         "sources": exp["want"], "lanes": lanes, "hasher": hs, "waves_device": waves, "own_part_sets": own_parts,
+         "agg_catchup_heights": agg_heights, "forged_precommit": forged, "aggregate_sites": sites,
+         "formats": [r["format"] for r in want_records], "records": "equal on V0-V3 and to the host replay"})
+    return {"launches": launches, "node_stats": node_stats, "committed_at": committed_at, "wall_s": wall_s,
+            "catchup": catchup, "catchup_s": catchup_s, "bytes_sent": bytes_sent, "ref": ref,
+            "ref_wall_s": ref_wall_s, "gate": gate, "shared": logs["default"], "relay_bytes": relay.received,
+            "steps": steps, "thread_cpu_s": dict(sorted(cpu.items(), key=lambda kv: -kv[1])[:12])}
+
+
+def _seen_signers(p, seen_json, keys) -> set[bytes]:
+    """The validator addresses whose precommits a stored seen commit holds
+    (a full commit's precommits, or an aggregate's signers)."""
+    from tendermint_tpu_torch.types.agg_commit import commit_from_json
+
+    commit = commit_from_json(seen_json)
+    if hasattr(commit, "signers"):
+        return {keys[i].pub_key().address() for i in commit.signers.indices()}
+    return {pc.validator_address for pc in commit.precommits if pc is not None}
+
+
+def gossip_time(name, power, ctx) -> None:
+    """Phase 34: phase 33's run (one run, as §4's cuts): the net's blocks/s
+    over heights 2..GOSSIP_HEIGHTS, each node's trace segments a height; its
+    vote batches (the widths, how many reached the card, the singletons,
+    the votes it received direct from the stubs' peer and relayed by the
+    nodes), the duplicate-vote ratio (consensus_vote_duplicates /
+    consensus_vote_accepted, as benches/bench_localnet.py reads it),
+    has_votes_applied and the part announces; the bytes a height over the
+    net; V3's catch-up seconds a height, split into parts and commit; and
+    the host replay's seconds beside the card's (not a rate)."""
+    tag = {"card": name, "power_limit": power}
+    at = ctx["committed_at"]
+    last = GOSSIP_HEIGHTS
+    gate = ctx["gate"]
+    log({"phase": "gossip_time", **tag, "heights": [2, last],
+         "blocks_per_sec": (last - 1) / (at[last] - at[1]), "wall_s": ctx["wall_s"],
+         "height_s": {h: at[h] - at[h - 1] for h in range(2, last + 1)},
+         "bytes_per_height": ctx["bytes_sent"] / last, "stub_sink_bytes": ctx["relay_bytes"],
+         "catchup_s": ctx["catchup_s"], "catchup_per_height": ctx["catchup"], "pump_steps": ctx["steps"],
+         "thread_cpu_s": ctx["thread_cpu_s"],
+         "host_replay_s": ctx["ref"]["seconds"], "host_replay_tail_s": ctx["ref_wall_s"]})
+    for nm, s in ctx["node_stats"].items():
+        votes = [n for src, n in s["calls"] if src == "vote"]
+        segs: dict[str, float] = {}
+        for t in s["traces"]:
+            for k, v in t["segments"].items():
+                segs[k] = segs.get(k, 0.0) + v
+        log({"phase": "gossip_node", **tag, "node": nm, "vote_batch_widths": votes,
+             "vote_batches_on_card": sum(1 for n in votes if n >= gate), **s["vote_plane"],
+             "votes_direct": s["votes_in"].get("stubs", 0),
+             "votes_relayed": sum(v for k, v in s["votes_in"].items() if k != "stubs"),
+             "duplicate_ratio": s["vote_duplicates"] / max(1, s["vote_accepted"]),
+             "vote_duplicates": s["vote_duplicates"], "vote_accepted": s["vote_accepted"],
+             "has_votes_applied": s["has_votes_applied"], "part_announces_sent": s["part_announces_sent"],
+             "part_announces_applied": s["part_announces_applied"], "agg_commits_sent": s["agg_commits_sent"],
+             "gate_batches": len(s["gate_sizes"]), "segments_s": segs,
+             "per_height": [{"height": t["height"], "wall_s": t["wall_s"], "segments": t["segments"]}
+                            for t in s["traces"]]})
+    hist = _hist_reading()
+    log({"phase": "gossip_time", **tag, "vote_verify_batches_process": hist["vote_batch"][0],
+         "consensus_vote_verify_batch_seconds_process": hist["vote_batch"][1]})
 
 
 if __name__ == "__main__":

@@ -48,8 +48,10 @@ deliberate difference: a kernel or device failure (ops.gateway
 deferred apply) is not caught as a bad input. The receive routine's
 handlers re-raise it, the routine stops, and the error is logged once and
 kept in ``device_error``; the JAX package would fall through to
-singleton CPU verifies or drop the proposal as invalid. Input errors
-from peers keep the JAX handling.
+singleton CPU verifies or drop the proposal as invalid. The consensus
+reactor hands it one met on a peer's receive thread
+(``stop_on_device_error``). Input errors from peers keep the JAX
+handling.
 """
 
 from __future__ import annotations
@@ -646,6 +648,15 @@ class ConsensusState(BaseService):
                 fr.note_exception("consensus", exc)
             raise
 
+    def stop_on_device_error(self, exc: BaseException) -> None:
+        """A device error met off the receive routine (the consensus
+        reactor's aggregate screen, on a peer's receive thread) stops
+        consensus as one in the routine does: the first is kept and
+        logged, and the routine handles no input after it."""
+        if self.device_error is None:
+            self._note_device_error(exc)
+        self._inputs.put(("quit", None))
+
     def _note_device_error(self, exc: BaseException) -> None:
         """Keep, log and record the device error that stops consensus."""
         self.device_error = exc
@@ -669,7 +680,7 @@ class ConsensusState(BaseService):
                 if self._stopping.is_set():
                     return
                 continue
-            if tag == "quit":
+            if tag == "quit" or self.device_error is not None:
                 return
             # When a vote heads a burst, drain the already-queued run and
             # batch-verify the signatures ahead of dispatch (SURVEY §7;
@@ -704,7 +715,7 @@ class ConsensusState(BaseService):
                     # failed device does (above)
                     self.logger.exception("vote verify-ahead failed; falling through")
             for tag, item in batch:
-                if tag == "quit":
+                if tag == "quit" or self.device_error is not None:
                     return
                 steps += 1
                 try:

@@ -12,7 +12,10 @@ interleaves with state transition (state/execution.py commit path).
 
 The port's copy of the JAX package's `mempool/mempool.py`: the same
 admission, lanes, WAL bytes and env knobs. The `SigBatcher` takes the
-verifier it is given; the mempool has no default one.
+verifier it is given; the mempool has no default one. One deliberate
+difference: a device error (ops.gateway.DeviceError) from the gate's
+verify refuses the batch's txs and is kept in `SigBatcher.device_error`,
+where the JAX package fails open; any other exception still fails open.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from tendermint_tpu_torch.abci.types import (
 from tendermint_tpu_torch.libs.autofile import Group
 from tendermint_tpu_torch.libs.clist import CList
 from tendermint_tpu_torch.libs.envknob import env_number
+from tendermint_tpu_torch.ops.gateway import DeviceError
 
 CACHE_SIZE = 100_000
 
@@ -108,6 +112,9 @@ class SigBatcher:
         # delivered == submitted - refused.
         self.delivered = 0
         self.fail_open = 0  # batches delivered un-verified (see _deliver)
+        # the first device error of a verify (ops.gateway.DeviceError):
+        # its batch and every later failed one are refused, not admitted
+        self.device_error: BaseException | None = None
         # gate verdicts that failed — the mempool-flood
         # adversary's garbage signatures, shed here without ever
         # reaching the app (p2p_adversary_flood_txs_rejected)
@@ -195,6 +202,8 @@ class SigBatcher:
                     resolver = self.verifier.verify_batch_async(
                         [b[0] for b in batch]
                     )
+                except DeviceError as exc:
+                    resolver = self._refuse(exc)
                 except Exception:  # noqa: BLE001 — fail OPEN at delivery
                     # (see _deliver); dispatch failures must not stall
                     # the intake side of the pipeline
@@ -204,10 +213,29 @@ class SigBatcher:
             if pending and (not batch or len(pending) >= self.max_inflight):
                 self._deliver(*pending.popleft())
 
+    def _refuse(self, exc: DeviceError):
+        """A resolver that raises `exc` where the batch's verdicts are
+        read; the first device error is kept and logged."""
+        if self.device_error is None:
+            self.device_error = exc
+            logger.error("sig gate: device error; refusing the batch: %s", exc, exc_info=exc)
+
+        def raise_it():
+            raise exc
+
+        return raise_it
+
     def _deliver(self, batch: list, resolver) -> None:
         t0 = time.perf_counter()
+        verified = True
         try:
             oks = resolver() if resolver is not None else None
+        except DeviceError as exc:
+            # a failed device is no verdict: the batch is refused, so no
+            # unverified tx enters the pool and the mempool reactor
+            # never gossips one (the JAX package fails open here)
+            self._refuse(exc)
+            oks, verified = [False] * len(batch), False
         except Exception:  # noqa: BLE001 — fail OPEN (latch
             # sweep: genuinely unconditional, NOT breaker business — the
             # verifier underneath already did the breaker accounting and
@@ -229,7 +257,8 @@ class SigBatcher:
         ]
         self._batch_hist.observe(time.perf_counter() - t0)
         self.delivered += len(results)
-        self.bad_sigs += sum(1 for _ctx, ok in results if not ok)
+        if verified:
+            self.bad_sigs += sum(1 for _ctx, ok in results if not ok)
         try:
             self.on_results(results)
         except Exception:  # noqa: BLE001 — a bad sink must not stall the gate

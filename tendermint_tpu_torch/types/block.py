@@ -20,6 +20,7 @@ from dataclasses import dataclass, field
 
 from tendermint_tpu_torch.codec import jsonval as jv
 from tendermint_tpu_torch.codec.binary import Decoder, Encoder
+from tendermint_tpu_torch.libs.bitarray import BitArray
 from tendermint_tpu_torch.merkle.simple import leaf_hash, simple_hash_from_hashes, simple_hash_from_map
 from tendermint_tpu_torch.types.block_id import BlockID
 from tendermint_tpu_torch.types.part_set import PartSet
@@ -133,6 +134,7 @@ class Commit:
         self.block_id = block_id
         self.precommits = precommits
         self._hash: bytes | None = None
+        self._bit_array: BitArray | None = None
         self._first: Vote | None = None
 
     def first_precommit(self) -> Vote | None:
@@ -148,8 +150,22 @@ class Commit:
         fp = self.first_precommit()
         return fp.round_ if fp else 0
 
+    def type_(self) -> int:
+        return VOTE_TYPE_PRECOMMIT
+
     def size(self) -> int:
         return len(self.precommits)
+
+    def bit_array(self) -> BitArray:
+        if self._bit_array is None:
+            self._bit_array = BitArray.from_indices(
+                len(self.precommits),
+                [i for i, p in enumerate(self.precommits) if p is not None],
+            )
+        return self._bit_array.copy()
+
+    def get_by_index(self, index: int) -> Vote | None:
+        return self.precommits[index]
 
     def is_commit(self) -> bool:
         return len(self.precommits) != 0

@@ -1034,3 +1034,87 @@ def test_device_error_stops_consensus(fail, at, tmp_path, caplog):
         assert len(stopped) == 1
     finally:
         node.stop()
+
+
+# -- the reactor's peer mirror (tests/test_consensus.py's cases that need the
+# consensus reactor) ----------------------------------------------------------
+
+
+class TestPeerStateRobustness:
+    """The reactor's peer mirror is driven by attacker-controlled
+    messages; stale or replayed ones must never move it backwards
+    (reactor.go:1050-1053)."""
+
+    def _ps(self):
+        from tendermint_tpu_torch.consensus.reactor import PeerState
+
+        return PeerState(peer=object())
+
+    def _nrs(self, h, r, s, last_commit_round=0):
+        return msgs.NewRoundStepMessage(
+            height=h, round_=r, step=s,
+            seconds_since_start_time=0, last_commit_round=last_commit_round,
+        )
+
+    def test_stale_new_round_step_ignored(self):
+        ps = self._ps()
+        ps.apply_new_round_step(self._nrs(5, 2, 3))
+        ps.ensure_vote_bit_arrays(5, 4)
+        ps.prs.prevotes.set_index(1, True)
+
+        # replayed earlier round: bit arrays must survive
+        ps.apply_new_round_step(self._nrs(5, 1, 6))
+        assert ps.prs.round_ == 2
+        assert ps.prs.prevotes is not None and ps.prs.prevotes.get_index(1)
+
+        # exact duplicate: also a no-op
+        ps.apply_new_round_step(self._nrs(5, 2, 3))
+        assert ps.prs.prevotes is not None
+
+        # genuine progress still applies and resets
+        ps.apply_new_round_step(self._nrs(5, 3, 1))
+        assert ps.prs.round_ == 3
+        assert ps.prs.prevotes is None
+
+    def test_last_commit_bit_array_uses_last_commit_size(self):
+        ps = self._ps()
+        ps.apply_new_round_step(self._nrs(7, 0, 1))
+        # current set has 10 validators, height-6 commit had 4
+        ps.ensure_vote_bit_arrays(7, 10)
+        ps.ensure_vote_bit_arrays(6, 4)
+        assert ps.prs.prevotes.size == 10
+        assert ps.prs.last_commit.size == 4
+
+
+def test_add_peer_message_never_blocks_when_full():
+    """The peer recv routine calls add_peer_message; a full queue (state
+    machine behind or stopped) must drop, not block — a blocking put
+    wedges the whole multiplexed connection and hands a flooding peer a
+    DoS lever."""
+    from tests.test_torch_reactors import make_genesis, make_node
+
+    doc, pvs = make_genesis(1)
+    node = make_node(doc, pvs[0])  # cs constructed, NOT started: no drain
+    cs = node.cs
+
+    class _Msg:
+        pass
+
+    for _ in range(cs.peer_msg_queue.maxsize):
+        cs.add_peer_message(_Msg(), "peerX")
+    assert cs.peer_msg_queue.full()
+    t0 = time.monotonic()
+    for _ in range(3):
+        cs.add_peer_message(_Msg(), "peerX")
+    dt = time.monotonic() - t0
+    assert dt < 3 * cs.PEER_PUT_TIMEOUT + 1.0, f"wedged for {dt:.1f}s"
+    assert cs._peer_msg_drops == 3
+    # the sibling peer-originated entry points share the bounded helper
+    from tendermint_tpu_torch.types import PartSetHeader
+
+    block_id = BlockID(b"\x11" * 20, PartSetHeader(1, b"\x22" * 20))
+    v = Vote(b"\x00" * 20, 0, 1, 0, VOTE_TYPE_PREVOTE, block_id)
+    t0 = time.monotonic()
+    cs.add_vote_msg(v, "peerX")
+    assert time.monotonic() - t0 < cs.PEER_PUT_TIMEOUT + 1.0
+    assert cs._peer_msg_drops == 4

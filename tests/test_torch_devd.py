@@ -515,3 +515,70 @@ def test_concurrent_clients_get_what_each_gets_alone(cpu_daemon):
 def test_socket_paths_are_short_and_under_tmp(cpu_daemon, sim_daemon):
     for d in (cpu_daemon, sim_daemon):
         assert d.sock.startswith("/tmp/tmd") and len(d.sock.encode()) < 108
+
+
+def test_fast_sync_rides_the_daemon(sim_daemon, routed):
+    """End to end, the production topology in miniature: a fast-syncing
+    port node (the real ConsensusReactor beside its BlockchainReactor)
+    sends its commit-signature batches, concurrent speculative dispatches
+    included, over IPC to the device daemon; the synced chain is
+    byte-identical and the node process did no kernel work itself. The
+    socket is under mkdtemp(prefix="tmd", dir="/tmp") (DevdProc)."""
+    from tendermint_tpu_torch.blockchain.reactor import BlockchainReactor
+    from tendermint_tpu_torch.consensus.reactor import ConsensusReactor
+    from tendermint_tpu_torch.ops import kernels
+    from tendermint_tpu_torch.p2p import Switch, connect2_switches
+    from tests.test_torch_reactors import make_genesis, make_node, node_info, stop_net, wait_until
+
+    assert sim_daemon.sock.startswith("/tmp/tmd")
+    routed(sim_daemon.sock)
+    client = devd.DevdClient(sim_daemon.sock)
+    verifier = gateway.Verifier(min_tpu_batch=1)
+    assert verifier.kernel == "devd"
+    before = client.stats()
+    launches_before = kernels.launch_counts()
+
+    doc, pvs = make_genesis(1)
+    node_a = make_node(doc, pvs[0])
+    node_b = make_node(doc, None)
+
+    def init(i, sw):
+        node = (node_a, node_b)[i]
+        fast_sync = i == 1
+        con_r = ConsensusReactor(node.cs, fast_sync=fast_sync)
+        con_r.set_event_switch(node.evsw)
+        sw.add_reactor("CONSENSUS", con_r)
+        sw.add_reactor("BLOCKCHAIN", BlockchainReactor(
+            node.state.copy(), node.cs.proxy_app_conn, node.store, fast_sync=fast_sync,
+            batch_verifier=verifier.commit_batch_verifier() if fast_sync else None,
+            async_batch_verifier=verifier.verify_batch_async if fast_sync else None,
+            status_update_interval=0.5,
+        ))
+        sw.set_node_info(node_info(sw, f"devd-node{i}"))
+        return sw
+
+    switches = [init(i, Switch()) for i in range(2)]
+    for sw in switches:
+        sw.start()
+    try:
+        assert wait_until(lambda: node_a.store.height() >= 3, timeout=120)
+        node_a.cs.stop()
+        target = node_a.store.height()
+        connect2_switches(switches, 0, 1)
+        assert wait_until(
+            lambda: node_b.store.height() >= target, timeout=120
+        ), f"B at {node_b.store.height()}, A at {target}"
+        for h in range(1, target + 1):
+            assert node_b.store.load_block(h).hash() == node_a.store.load_block(h).hash()
+        # the signature work landed in the daemon, and the node-side
+        # verifier recorded those batches as accelerated (devd)
+        vstats = verifier.stats()
+        assert vstats["tpu_sigs"] > 0 and vstats["tpu_batches"] > 0, vstats
+        after = client.stats()
+        moved = sum(after.get(k, 0) - before.get(k, 0) for k in ("tpu_sigs", "cpu_sigs"))
+        assert moved >= vstats["tpu_sigs"]
+        assert kernels.launch_counts() == launches_before  # no kernel in this process
+        assert wait_until(lambda: not switches[1].reactor("CONSENSUS").fast_sync, timeout=30)
+    finally:
+        client.close()
+        stop_net([node_a, node_b], switches)

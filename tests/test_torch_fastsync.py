@@ -496,3 +496,70 @@ def test_verifier_error_stops_the_sync_visibly_and_keeps_the_peer():
     finally:
         node_a.stop()
         node_b.stop()
+
+
+def test_fast_sync_hands_over_to_the_real_consensus_reactor(monkeypatch):
+    """A port validator that starts empty fast-syncs from a port net, hands
+    over through switch_to_consensus to its real ConsensusReactor (no
+    stand-in), and then commits new heights with the net: its store passes
+    the height it synced to, with the blocks the net made, and a later
+    block's LastCommit holds its own precommit. The net's validator holds
+    3 of the 4 votes, so the chain moves while the new one syncs; its
+    commit timeout paces it at about two blocks a second."""
+    from tendermint_tpu_torch.blockchain.reactor import BlockchainReactor
+    from tendermint_tpu_torch.consensus.reactor import ConsensusReactor
+    from tendermint_tpu_torch.ops import gateway
+    from tendermint_tpu_torch.ops.gateway import Hasher
+    from tendermint_tpu_torch.p2p import Switch, connect2_switches
+    from tendermint_tpu_torch.types import GenesisDoc, GenesisValidator, PrivValidatorFS
+    from tests.test_torch_reactors import TEST_CHAIN_ID, make_node, node_info, stop_net
+
+    monkeypatch.setattr(gateway, "_default_hasher", Hasher(device="cpu", min_tpu_batch=1 << 30))
+    pvs = sorted((PrivValidatorFS(PORT.gen_priv_key_ed25519(b"handover-%d" % i), None) for i in range(2)),
+                 key=lambda pv: pv.get_address())
+    doc = GenesisDoc(genesis_time_ns=0, chain_id=TEST_CHAIN_ID,
+                     validators=[GenesisValidator(pvs[0].get_pub_key(), 3, "net"),
+                                 GenesisValidator(pvs[1].get_pub_key(), 1, "joiner")])
+    net, joiner = make_node(doc, pvs[0]), make_node(doc, pvs[1])
+    net.cs.config.timeout_commit = 0.5
+    net.cs.config.skip_timeout_commit = False
+
+    def init(i, node):
+        fast_sync = i == 1
+        sw = Switch()
+        con_r = ConsensusReactor(node.cs, fast_sync=fast_sync)
+        con_r.set_event_switch(node.evsw)
+        sw.add_reactor("CONSENSUS", con_r)
+        sw.add_reactor("BLOCKCHAIN", BlockchainReactor(
+            node.state.copy(), node.cs.proxy_app_conn, node.store, fast_sync=fast_sync,
+            status_update_interval=0.5))
+        sw.set_node_info(node_info(sw, f"node{i}"))
+        return sw
+
+    switches = [init(i, n) for i, n in enumerate((net, joiner))]
+    for sw in switches:
+        sw.start()
+    try:
+        assert wait_until(lambda: net.store.height() >= 4, timeout=60)
+        connect2_switches(switches, 0, 1)
+        con_r = switches[1].reactor("CONSENSUS")
+        assert wait_until(lambda: not con_r.fast_sync, timeout=60), joiner.store.height()
+        synced = joiner.store.height()
+        assert synced >= 3
+        assert wait_until(lambda: joiner.store.height() >= synced + 3, timeout=60), \
+            (joiner.store.height(), net.store.height())
+        top = joiner.store.height()
+        for h in range(1, top + 1):
+            assert joiner.store.load_block(h).hash() == net.store.load_block(h).hash()
+
+        def signed_by_joiner():
+            for h in range(synced + 2, net.store.height() + 1):
+                pcs = net.store.load_block(h).last_commit.precommits
+                if len(pcs) == 2 and pcs[1] is not None:
+                    return True
+            return False
+
+        assert wait_until(signed_by_joiner, timeout=60)
+        assert joiner.cs.device_error is None
+    finally:
+        stop_net([net, joiner], switches)

@@ -584,3 +584,134 @@ def test_mempool_wal_bytes_equal(tmp_path):
 
     wal, codes, _ = both(body, tmp_path)
     assert wal.count(b"\n") == 20 and len(codes) == 20
+
+
+# -- a device error at the gate ------------------------------------------------
+
+
+class _RaisingGateVerifier:
+    """A gate verifier whose dispatch (`at="dispatch"`) or verdicts
+    (`at="resolve"`) raise `exc`: a kernel that fails on the card
+    (ops.gateway.DeviceError), or any other fault (ValueError)."""
+
+    def __init__(self, exc: Exception, at: str):
+        self.exc, self.at = exc, at
+
+    def verify_batch_async(self, items):
+        if self.at == "dispatch":
+            raise self.exc
+
+        def resolve():
+            raise self.exc
+
+        return resolve
+
+
+def _gated_pair(p, verifier):
+    """Two mempools of package `p` peered by their MempoolReactors over
+    pipe switches: A behind a SigBatcher on `verifier`, B plain. Returns
+    (A's mempool, its batcher, B's mempool, the txs B's reactor received,
+    the switches)."""
+    from_p2p = importlib.import_module(f"{p.root}.p2p")
+    mreactor = importlib.import_module(f"{p.root}.mempool.reactor")
+    node_info = importlib.import_module(f"{p.root}.p2p.node_info")
+    batcher = p.mempool.SigBatcher(verifier, p.parse_sig_tx, max_wait_s=0.01)
+    a = p.mempool.Mempool(p.make_test_config().mempool,
+                          p.AppConnMempool(p.LocalClient(p.SignedKVStoreApp(verify_in_app=False))),
+                          sig_batcher=batcher)
+    b = p.mempool.Mempool(p.make_test_config().mempool,
+                          p.AppConnMempool(p.LocalClient(p.SignedKVStoreApp())))
+    heard: list[bytes] = []
+
+    def init(i, sw):
+        r = mreactor.MempoolReactor(p.make_test_config().mempool, (a, b)[i])
+        if i == 1:
+            receive = r.receive
+
+            def counting(ch_id, peer, msg_bytes):
+                heard.append(msg_bytes)
+                return receive(ch_id, peer, msg_bytes)
+
+            r.receive = counting
+        sw.add_reactor("MEMPOOL", r)
+        sw.set_node_info(node_info.NodeInfo(pub_key=sw.node_priv_key.pub_key(), moniker=f"m{i}",
+                                            network="gate-chain", version=node_info.default_version("test")))
+        return sw
+
+    return a, batcher, b, heard, from_p2p.make_connected_switches(2, init)
+
+
+@pytest.mark.parametrize("at", ["dispatch", "resolve"])
+def test_gate_device_error_refuses_the_batch_and_gossips_none(at, caplog):
+    """A DeviceError from the gate's verify, at dispatch or where the
+    verdicts are read, refuses the batch's txs (their CheckTx answers
+    carry the bad-signature code, the pool stays empty), is kept in
+    SigBatcher.device_error and logged once, counts no fail-open, and
+    the peer's MempoolReactor receives none of the txs. A ValueError from
+    the same seam still fails open in both packages: the txs are admitted
+    and gossiped, as in JAX. (The reactor's catch-all around check_tx
+    never sees the DeviceError: the gate verifies on its own thread.)"""
+    from tendermint_tpu_torch.ops.gateway import DeviceError
+    from tests.test_torch_reactors import wait_until
+
+    txs = [TestSigPreVerification._signed(PORT, i) for i in range(6)]
+    a, batcher, b, heard, switches = _gated_pair(
+        PORT, _RaisingGateVerifier(DeviceError("ed25519_verify kernel launch failed: cudaError 700"), at))
+    try:
+        codes = {}
+        for i, tx in enumerate(txs):
+            a.check_tx(tx, cb=lambda res, i=i: codes.__setitem__(i, res.code))
+        assert wait_until(lambda: len(codes) == len(txs), timeout=30)
+        assert all(c == PORT.CODE_UNAUTHORIZED for c in codes.values()), codes
+        assert a.size() == 0 and isinstance(batcher.device_error, DeviceError)
+        assert batcher.fail_open == 0 and batcher.bad_sigs == 0
+        time.sleep(0.5)
+        assert not heard and b.size() == 0
+        logged = [r for r in caplog.records if "sig gate: device error" in r.getMessage()]
+        assert len(logged) == 1
+    finally:
+        for sw in switches:
+            sw.stop()
+        batcher.stop()
+
+    def fails_open(p):
+        a, batcher, b, heard, switches = _gated_pair(p, _RaisingGateVerifier(ValueError("a bug"), at))
+        try:
+            for tx in txs:
+                a.check_tx(tx)
+            assert wait_until(lambda: b.size() == len(txs), timeout=30), b.size()
+            return a.size(), b.reap(-1) == txs, batcher.fail_open > 0, len(heard) >= len(txs), \
+                getattr(batcher, "device_error", None)
+        finally:
+            for sw in switches:
+                sw.stop()
+            batcher.stop()
+
+    assert fails_open(PORT) == fails_open(JAX) == (len(txs), True, True, True, None)
+
+
+def test_mempool_reactor_does_not_hide_a_device_error():
+    """The mempool reactor's catch-all around check_tx keeps JAX's handling
+    of refusals (a duplicate is dropped quietly) but lets a DeviceError
+    through; the gate's test above shows none reaches it today."""
+    from tendermint_tpu_torch.mempool.reactor import MEMPOOL_CHANNEL, MempoolReactor, _encode_tx
+    from tendermint_tpu_torch.ops.gateway import DeviceError
+
+    class _Peer:
+        def id(self):
+            return "peer-x"
+
+    class _Mempool:
+        def __init__(self, exc):
+            self.exc = exc
+
+        def check_tx(self, tx, **kw):
+            raise self.exc
+
+    from tendermint_tpu_torch.mempool import TxInCacheError
+
+    quiet = MempoolReactor(PORT.make_test_config().mempool, _Mempool(TxInCacheError("dup")))
+    quiet.receive(MEMPOOL_CHANNEL, _Peer(), _encode_tx(b"k=v"))
+    loud = MempoolReactor(PORT.make_test_config().mempool, _Mempool(DeviceError("dsm failed")))
+    with pytest.raises(DeviceError):
+        loud.receive(MEMPOOL_CHANNEL, _Peer(), _encode_tx(b"k=v"))

@@ -1,10 +1,10 @@
 """The port's transport (p2p/, libs/flowrate.py, version.py) against the
 JAX package's.
 
-The cases of tests/test_p2p.py that need neither the consensus reactor
-nor the address book and PEX reactor (which the port does not hold yet)
-run on the port's modules, and so do the flowrate and PeerSet cases of
-tests/test_libs_wire.py. Beside them: MConnection packets and NodeInfo
+The cases of tests/test_p2p.py that do not need the address book and
+PEX reactor (which the port does not hold yet) run on the port's
+modules (the two on the gossip reactors' channel ceilings at the end),
+and so do the flowrate and PeerSet cases of tests/test_libs_wire.py. Beside them: MConnection packets and NodeInfo
 bytes equal to the JAX package's for the same messages, an MConnection
 of each package on the two ends of one stream, and a port Switch and a
 JAX Switch peered over TCP with secret connections, either side dialing,
@@ -823,3 +823,77 @@ def test_switches_peer_across_packages_over_tcp(port_dials):
     finally:
         sw_p.stop()
         sw_j.stop()
+
+
+# -- the gossip reactors' channels ----------------------------------------------
+
+
+def test_reactor_recv_ceilings_right_sized():
+    """The per-channel reassembly ceilings are right-sized to each
+    channel's largest legal message, equal to the JAX package's: every
+    channel inheriting the 21 MiB block ceiling would let an
+    oversized-frame peer park ~147 MiB of never-delivered reassembly
+    bytes across one connection's channels. (The PEX reactor's channel
+    waits for p2p/pex.py.)"""
+    from tendermint_tpu.consensus.reactor import ConsensusReactor as JConsensusReactor
+    from tendermint_tpu.mempool.reactor import MempoolReactor as JMempoolReactor
+    from tendermint_tpu_torch.codec import jsonval as jv
+    from tendermint_tpu_torch.consensus.reactor import (
+        DATA_CHANNEL,
+        STATE_CHANNEL,
+        VOTE_CHANNEL,
+        VOTE_SET_BITS_CHANNEL,
+        ConsensusReactor,
+    )
+    from tendermint_tpu_torch.mempool.reactor import MempoolReactor
+    from tendermint_tpu_torch.types.params import MAX_BLOCK_PART_SIZE_BYTES
+
+    caps = {
+        d.id: d.recv_message_capacity
+        for d in ConsensusReactor.get_channels(None)
+    }
+    assert caps[VOTE_CHANNEL] == 1 << 16  # a vote is ~700 B
+    assert caps[STATE_CHANNEL] == 1 << 16
+    assert caps[VOTE_SET_BITS_CHANNEL] == 1 << 16
+    # the DATA cap derives from the params-validated part-size bound
+    assert caps[DATA_CHANNEL] == 2 * MAX_BLOCK_PART_SIZE_BYTES + (1 << 16)
+    assert caps[DATA_CHANNEL] < 1 << 20
+    [mp] = MempoolReactor.get_channels(None)
+    # ... but a MAX_TX_BYTES tx must still fit (hex-doubled + envelope)
+    assert mp.recv_message_capacity >= 2 * jv.MAX_TX_BYTES
+    assert mp.recv_message_capacity < 10 * (1 << 20)
+
+    def fields(descs):
+        return [(d.id, d.priority, d.send_queue_capacity, d.recv_buffer_capacity, d.recv_message_capacity)
+                for d in descs]
+
+    assert fields(ConsensusReactor.get_channels(None)) == fields(JConsensusReactor.get_channels(None))
+    assert fields(MempoolReactor.get_channels(None)) == fields(JMempoolReactor.get_channels(None))
+    # ... and genesis validation refuses a part size the channel could
+    # not carry (the binding that keeps cap and params consistent)
+    from tendermint_tpu_torch.types.params import ConsensusParams
+
+    cp = ConsensusParams()
+    cp.block_gossip.block_part_size_bytes = MAX_BLOCK_PART_SIZE_BYTES + 1
+    err = cp.validate()
+    assert err is not None and "recv ceiling" in err
+    cp.block_gossip.block_part_size_bytes = MAX_BLOCK_PART_SIZE_BYTES
+    assert cp.validate() is None
+
+
+def test_vote_channel_reassembly_past_ceiling_drops_peer():
+    """Streaming a message past the vote channel's 64 KiB bound errors the
+    connection (the switch then drops the peer for cause) instead of
+    buffering toward the old 21 MiB."""
+    from tendermint_tpu_torch.consensus.reactor import VOTE_CHANNEL, ConsensusReactor
+
+    descs = ConsensusReactor.get_channels(None)
+    ma, mb, recv_a, recv_b, err = _mconn_pair(descs=descs)
+    try:
+        assert ma.send(VOTE_CHANNEL, b"\x00" * (1 << 17))  # 128 KiB
+        assert wait_until(lambda: err, timeout=5), "oversize never errored"
+        assert any("exceeds" in str(e) for e in err), err
+        assert not recv_b, "oversized message must never be delivered"
+    finally:
+        ma.stop()
+        mb.stop()
