@@ -252,16 +252,15 @@ Phases, in order; any failure raises and exits non-zero:
    sqlite files reopen to the same state and blocks, and a fresh card
    app replays the stored blocks through `exec_commit_block` to the same
    app hashes.
-28. Times, one warm run each, card and host in turns on fresh chains (a
-   fresh `Hasher` each card run), each height after a full collection of
-   the heap: the burst (first check_tx to drained, and the gate thread's
-   seconds in the verifier), `make_block`, `validate_block`, `apply_block`
-   split into the deliver, the app commit and the state save with
-   indexing, and `save_block`.
+28. Times of phase 27's card and host chains (each height after a full
+   collection of the heap, the two chains in turns): the burst (first
+   check_tx to drained, and the gate thread's seconds in the verifier),
+   `make_block`, `validate_block`, `apply_block` split into the deliver,
+   the app commit and the state save with indexing, and `save_block`.
 
 29. The transport and fast sync, in process (no daemon socket): node A, an
    exec_chain of benches/bench_fastsync.py's 1,000 validators (phase 3's
-   1,000-validator set) with `upgrade_height` 6, builds 8 heights of
+   1,000-validator set) with `upgrade_height` 6, builds 7 heights of
    1,000 signed txs (960-byte values: blocks over 1 MB, 17 or more 64 KB
    parts) and serves its sqlite store through a BlockchainReactor on a
    switch with a listener on 127.0.0.1. Node B, empty, wired as
@@ -303,7 +302,7 @@ Phases, in order; any failure raises and exits non-zero:
    a height's 1,000 signed txs and 10 forged through check_tx, builds a
    stub proposer's block as the node would, and injects the 399 stubs'
    prevotes and precommits; at height 3 one precommit carries a flipped
-   signature. 9 heights, a stop, a new node over the same files
+   signature. 8 heights, a stop, a new node over the same files
    (Handshaker replay, WAL catchup, the seen commit primed) and 2 more.
    Every height commits at round 0; records and states equal the host
    reference's (the native CPU floor, the host's aggregate check, host
@@ -325,7 +324,7 @@ Phases, in order; any failure raises and exits non-zero:
    overlap, and the pump's signing seconds.
 33. The gossip, in process: four port validators V0-V3 of a 100-validator
    chain (phase 3's first 100 keys; GOSSIP_NODE_KEYS at GOSSIP_NODE_POWER,
-   35% of the power, the other 96 at power 1; `upgrade_height` 5), each
+   35% of the power, the other 96 at power 1; `upgrade_height` 3), each
    wired as node/node.py wires one (`gossip_node`: committee_node with the
    kv tx index, its own `Verifier(device="cuda:0")`, the shared card
    `Hasher`, a MempoolReactor and a ConsensusReactor) on a full mesh of
@@ -335,9 +334,10 @@ Phases, in order; any failure raises and exits non-zero:
    a stub proposer's block and parts, one forged precommit at height 3.
    Each height's 1,000 signed txs and 10 forged go through one node's
    check_tx and reach the rest through the mempool reactor. V3 starts
-   empty after height 6 and catches up through the consensus reactor
+   empty after height 3 and catches up through the consensus reactor
    (precommits one at a time; one screened AggregateCommitMessage a height
-   whose stored commit is an aggregate), then votes in 7-8. Every node's
+   whose stored commit is an aggregate), then votes in 4-5 and proposes
+   5. Every node's
    blocks, metas, saved states and tx-index records are equal, and equal
    to a host replay of V0's chain (`gossip_reference`, a process of its
    own); only the forged precommit and the forged txs are refused, at V0
@@ -345,11 +345,45 @@ Phases, in order; any failure raises and exits non-zero:
    stopped. Launches, set to 0 before the first node is built and read
    after the last commit, equal what the chain implies
    (`gossip_expected`), and the lanes the verifiers' stats.
-34. Times of phase 33's run: blocks/s over heights 2-8, the pump's steps a
+34. Times of phase 33's run: blocks/s over heights 2-5, the pump's steps a
    height, each node's trace segments, vote batches (direct, relayed,
    widths, on the card), duplicate ratio, has-votes and part announces,
    bytes a height, V3's catch-up a height (parts, commit), the host
    replay's seconds.
+35. RPC, the light client and state sync (the state_sync cell): node A of
+   a 1,000-validator chain (phase 3's first 1,000 keys, `upgrade_height`
+   6) whose app holds phase 25's 250,000 keys from genesis (its tree
+   loaded before block 1, the genesis app hash their root) builds 9
+   heights of fast sync's bursts and snapshots height 7 (64 KiB chunks),
+   then serves its files from a process of its own: a StateSyncReactor,
+   a BlockchainReactor and an RPCServer (`serve_statesync`); D, a second
+   process on the same files, flips one byte of the first chunk it
+   serves. Node C, empty and wired as node/node.py wires a restoring node
+   (`statesync_node`: a LightClient over HTTPClient to A's RPC on the
+   card's batch verifier, a Restorer on the card's Hasher, the
+   StateSyncReactor, the BlockchainReactor deferred for the tail), dials
+   D then A over TCP with secret connections, light-verifies the manifest
+   (the walk to height 8 crosses the upgrade), downloads, restores and
+   fast-syncs height 8, then switches to consensus once. C equals A
+   (store base and records, seen commit, state, app hash, sampled
+   values), and so does the host reference C' (a process of its own
+   beside C, served by a second process on A's files), which launches
+   nothing; D is stopped once for the flipped
+   chunk and A stays; sampled present and absent keys verify through
+   `LightClient.verified_query` against A's RPC. Launches, set to 0 just
+   before C's dial and read just after, equal `statesync_expected` (B1
+   and dsm a full and an aggregate commit of the walk, the seen commit
+   and the tail's; K1 the whole-manifest digests, each restore wave and
+   the tail's; K3 the tail's), and so do the lanes and the Hasher's
+   stats (the 8-chunk windows on the host).
+36. Times of phase 35's C and C': the wall from the dial to the switch
+   to consensus and its split (discovery, the manifest and the light
+   walk with its verify seconds, the download, the chunk checks, the
+   restore's tree build and seed, the tail with its blocks/s), the bytes
+   received, phase 35's marks (A built, servers ready, C switched, C'
+   done), K1's device time on the whole-manifest digest batch, and the
+   snapshot's CRC-32C frames on this host (`crc32c_fallback` against the
+   byte loop).
 
 Each phase's start is logged on a line of its own, in seconds since
 launch. Each path's launch counts are set to 0 just before it and read just after
@@ -501,7 +535,6 @@ EXEC_BLOCK = (("update", 7_000), ("new", 3_000), ("forged", 10))
 EXEC_VALUE_BYTES = 64
 EXEC_SIGNERS = 64
 EXEC_INDEX_SAMPLE = 64  # txs whose tx-index entries are compared each height
-EXEC_TIME_RUNS = 1  # phase 28: one warm run each (the clock)
 EXEC_DRAIN_S = 300.0  # the bound on a burst's drain
 # phase 27's launches beside the kernels' entries in the kernels line
 EXEC_LAUNCH_KEYS = {"ed25519_verify": "b1", "ed25519_dsm": "dsm", "ripemd160": "ripemd160",
@@ -509,14 +542,14 @@ EXEC_LAUNCH_KEYS = {"ed25519_verify": "b1", "ed25519_dsm": "dsm", "ripemd160": "
 # phases 29-30, the fast_sync cell: benches/bench_fastsync.py's 1,000 validators
 # (BASELINE.json config 4, fast-sync replay) at equal power, default
 # ConsensusParams, an upgrade to aggregate commits at height 6
-# (docs/upgrade.md); 8 heights of config 4's 10,000, each 1,000 signed kv
+# (docs/upgrade.md); 7 heights of config 4's 10,000, each 1,000 signed kv
 # txs (the first all new keys, then 700 updates and 300 new), values of 960
 # bytes so a block, even block 1 with no LastCommit, is over 1 MB
 # (BASELINE.json's 1 MB block): 17 or more 64 KB parts, over the Hasher's
-# 16-leaf gate. 8 heights, not 24, for the smoke's clock since phases 33-34
-# (the upgrade moved with them: three aggregate heights; block 5, which
-# peer C tampers, keeps a full LastCommit)
-FASTSYNC_HEIGHTS = 8
+# 16-leaf gate. 7 heights, not 24, for the smoke's clock since phases 33-36
+# (8 before phases 35-36; the upgrade moved with them: two aggregate heights; block
+# 5, which peer C tampers, keeps a full LastCommit)
+FASTSYNC_HEIGHTS = 7
 FASTSYNC_UPGRADE_HEIGHT = 6
 FASTSYNC_FIRST_BLOCK = (("new", 1_000),)
 FASTSYNC_BLOCK = (("update", 700), ("new", 300))
@@ -534,13 +567,13 @@ FASTSYNC_P2P = {"send_rate": 5_120_000, "recv_rate": 5_120_000, "flush_throttle_
 # phases 31-32, the consensus_committee cell: benches/bench_committee.py's
 # largest committee (BENCH_r22.json's wire:n=400), phase 3's first 400 keys,
 # default ConsensusParams, an upgrade to aggregate commits at height 7
-# (docs/upgrade.md); 9 heights (the bench runs 3) of 1,000 signed kv txs and
+# (docs/upgrade.md); 8 heights (the bench runs 3) of 1,000 signed kv txs and
 # 10 forged ones (phase 27's families; fast sync's 960-byte values, so a
 # block of over 1 MB has 17 or more 64 KB parts, over the Hasher's gate),
-# then a restart and 2 more heights. 9 heights, not 12, for the smoke's
-# clock since phases 33-34 (five aggregate heights, 7-11)
+# then a restart and 2 more heights. 8 heights, not 12, for the smoke's
+# clock since phases 33-36 (9 before phases 35-36; four aggregate heights, 7-10)
 COMMITTEE_VALIDATORS = 400
-COMMITTEE_HEIGHTS = 9
+COMMITTEE_HEIGHTS = 8
 COMMITTEE_RESTART_HEIGHTS = 2
 COMMITTEE_UPGRADE_HEIGHT = 7
 COMMITTEE_FIRST_BLOCK = (("new", 1_000), ("forged", 10))
@@ -551,25 +584,40 @@ COMMITTEE_WAIT_S = 120.0  # the bound on each wait of the pump
 COMMITTEE_REFERENCE_S = 600.0  # the bound on the host reference's two sessions
 # phases 33-34, the gossip_net cell: benches/bench_committee.py's 100
 # committee (BENCH_r22.json's wire:n=100), phase 3's first 100 keys, default
-# ConsensusParams, an upgrade to aggregate commits at height 5
+# ConsensusParams, an upgrade to aggregate commits at height 3
 # (docs/upgrade.md); four port validators V0-V3 (gossip_power) and 96 stubs
-# at power 1 behind one peer; 8 heights of phase 31's bursts, fed through one
-# node a height; V3 starts empty once V0-V2 have committed height 6. The cut:
-# 8 heights, not 10 (four nodes' tx gossip shares one interpreter: 10 heights
-# took 353 s on the card; PERF.md §4)
+# at power 1 behind one peer; 5 heights of phase 31's bursts, fed through one
+# node a height; V3 starts empty once V0-V2 have committed height 3, so it
+# catches up height 1 by precommits, 2 by an aggregate commit and 3 by
+# precommits, then proposes 5. The cut: 5 heights (10 took 353 s on the card;
+# 8, upgrade 5 and V3 after 6 before phases 35-36), for their clock (PERF.md §4)
 GOSSIP_VALIDATORS = 100
-GOSSIP_HEIGHTS = 8
-GOSSIP_UPGRADE_HEIGHT = 5
-GOSSIP_LATE_AFTER = 6
+GOSSIP_HEIGHTS = 5
+GOSSIP_UPGRADE_HEIGHT = 3
+GOSSIP_LATE_AFTER = 3
 GOSSIP_FORGED_HEIGHT = 3  # stub 0's precommit to V0 carries a flipped signature
 # V0-V3: the keys at these places in address order, at these powers (3 x 17 + 1
-# of 148, 35%); the rotation then elects V1, V0, V2 at heights 1-3, stubs at
-# 4-7, V3 at 8 and a stub at 9 (gossip_power checks it)
-GOSSIP_NODE_KEYS = (33, 0, 66, 5)
+# of 148, 35%); the rotation then elects V1, V0, V2 at heights 1-3, a stub at
+# 4, V3 at 5 and a stub at 6 (gossip_power checks it)
+GOSSIP_NODE_KEYS = (3, 0, 6, 2)
 GOSSIP_NODE_POWER = (17, 17, 17, 1)
 GOSSIP_MIN_PARTS = 17  # every block is over 1 MB: 17 or more 64 KB parts
 GOSSIP_INDEX_SAMPLE = 8  # a block's txs whose tx-index records are compared
 GOSSIP_WAIT_S = 120.0  # the bound on each wait of the pump
+# phases 35-36, the state_sync cell: a node joins phase 29's 1,000-validator
+# chain (upgrade_height FASTSYNC_UPGRADE_HEIGHT) whose app holds phase 25's
+# 250,000-key state from genesis; A builds STATESYNC_HEIGHTS heights of fast
+# sync's bursts and snapshots STATESYNC_SNAPSHOT_HEIGHT (the light walk to it
+# and the next height crosses the upgrade); C restores it and fast-syncs the
+# tail to A's height less one. Height 7, not 5, leaves a one-block tail: the
+# host reference C', which checks each aggregate commit on the host (seconds
+# each at 1,001 lanes, two a tail block), then ends soon after C
+STATESYNC_HEIGHTS = 9
+STATESYNC_SNAPSHOT_HEIGHT = 7
+STATESYNC_APP_FILE = "app-state.json"  # A's app state at its height less one, for its RPC's app
+STATESYNC_SAMPLE_KEYS = 64  # keys (half from the genesis state, half from the bursts) C must hold as A
+STATESYNC_PROOF_KEYS = 8  # present keys of the sample, and as many absent ones, proven over A's RPC
+STATESYNC_SYNC_S = 600.0  # the bound on each wait of the state sync
 # phase 21's daemon launches beside each kernel's entry in the kernels line
 DEVD_LAUNCH_KEYS = {"ed25519_verify": "b1", "ed25519_comb": "comb", "ed25519_comb_tables": "tables",
                     "ed25519_dsm": "dsm", "ripemd160": "ripemd160", "merkle_tree": "merkle_tree"}
@@ -975,6 +1023,9 @@ def main() -> int:
         committee_inputs_s = time.perf_counter() - t_cmt
         t_gsp = time.perf_counter()
         gossip_inputs = make_gossip_inputs(pool, np.random.default_rng(SEED + 33))
+        gossip_inputs_s = time.perf_counter() - t_gsp
+        t_ss = time.perf_counter()
+        statesync_inputs = make_statesync_inputs(pool, np.random.default_rng(SEED + 35))
     log({"phase": "setup", "keys": n_keys,
          "signatures": MIXED_LANES + n_small + 4 * n_mid + n_keys + AGG_SIZES[1],
          "app_state_keys": APP_STATE_KEYS, "app_signed_txs": sum(len(b["txs"]) for b in app_inputs["blocks"]),
@@ -984,7 +1035,9 @@ def main() -> int:
          "committee_signed_txs": sum(len(b["txs"]) for b in committee_inputs),
          "committee_inputs_s": committee_inputs_s,
          "gossip_signed_txs": sum(len(b["txs"]) for b in gossip_inputs),
-         "gossip_inputs_s": time.perf_counter() - t_gsp, "seconds": time.perf_counter() - t0})
+         "gossip_inputs_s": gossip_inputs_s,
+         "statesync_signed_txs": sum(len(b["txs"]) for b in statesync_inputs),
+         "statesync_inputs_s": time.perf_counter() - t_ss, "seconds": time.perf_counter() - t0})
 
     # -- phase 2: kernel vs plain version on the card ---------------------------
     phase_start(2, "kernel vs plain version")
@@ -1198,6 +1251,7 @@ def main() -> int:
     phase_start(26, "application plane times")
     app_time(name, power, app_ctx)
     app_launches = app_ctx["launches"]
+    state_entries = app_inputs["entries"]  # phase 35's genesis state
     del app_ctx, app_inputs
 
     # -- phases 27 and 28: the execution path --------------------------------------
@@ -1235,7 +1289,15 @@ def main() -> int:
     gossip_time(name, power, gsp_ctx)
     gossip_launches = gsp_ctx["launches"]
     del gsp_ctx, gossip_inputs
-    phase_start(35, "kernels line")
+
+    # -- phases 35 and 36: RPC, the light client and state sync -------------------
+    phase_start(35, "RPC, light client and state sync")
+    ss_ctx = statesync_phase(name, power, vs1000, seed_of, statesync_inputs, state_entries)
+    phase_start(36, "state-sync times")
+    statesync_time(name, power, ss_ctx)
+    statesync_launches = ss_ctx["launches"]
+    del ss_ctx, statesync_inputs, state_entries
+    phase_start(37, "kernels line")
 
     entries = []
     for kname, module, launches, err, ms, p_ms, lanes in (
@@ -1289,6 +1351,7 @@ def main() -> int:
             entry["fastsync_launches"] = fastsync_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
             entry["consensus_launches"] = committee_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
             entry["gossip_launches"] = gossip_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
+            entry["statesync_launches"] = statesync_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
     log({"kernels": entries})
     log(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4493,6 +4556,7 @@ def exec_phase(name, power, vs, seed_of, bursts) -> dict:
                   "host": exec_chain(doc, ref_v, host_hasher(), agg_default=ref_v)}
         gate_min = verifier.min_tpu_batch
         records = {"card": [], "host": []}
+        runs = {"card": [], "host": []}  # phase 28's rows, a height each
         app_hashes = []
         try:
             for height, burst in enumerate(bursts, 1):
@@ -4563,6 +4627,10 @@ def exec_phase(name, power, vs, seed_of, bursts) -> dict:
                     if ch.mempool.size() != 0:
                         raise AssertionError(f"{label} height {height}: {ch.mempool.size()} txs left in the pool")
                     save_s = ch.save(seed_of, block, parts)
+                    row = {"gate_s": gate["gate_s"], "gate_verify_s": gate["gate_verify_s"],
+                           "gate_batches": len(sizes), "make_block_s": make_s, **times, "save_block_s": save_s}
+                    row["height_s"] = row["gate_s"] + make_s + times["apply_s"] + save_s
+                    runs[label].append(row)
                     if label == "card":  # the host's block is the same: checked below
                         picks = sample_rng.choice(len(block.data.txs), size=EXEC_INDEX_SAMPLE, replace=False)
                         sample = [block.data.txs[i] for i in sorted(picks)]
@@ -4638,7 +4706,7 @@ def exec_phase(name, power, vs, seed_of, bursts) -> dict:
              "verifier": verifier.stats(), "launches": total,
              "route": {"verify": verifier.kernel, "hash": hasher._route}})
     return {"doc": doc, "vs": vs, "seed_of": seed_of, "bursts": bursts, "records": records["card"],
-            "launches": total}
+            "runs": {label: [rows] for label, rows in runs.items()}, "launches": total}
 
 
 EXEC_STAGES = ("gate_s", "gate_verify_s", "make_block_s", "validate_s", "deliver_s", "app_commit_s", "save_and_index_s",
@@ -4646,52 +4714,14 @@ EXEC_STAGES = ("gate_s", "gate_verify_s", "make_block_s", "validate_s", "deliver
 
 
 def exec_time(name, power, ctx) -> None:
-    """Phase 28: warm best of EXEC_TIME_RUNS, card and host reference in
-    turns, the three heights replayed on fresh chains (a fresh Hasher on
-    the card each run: no tx root comes from its cache), each height after
-    a full collection of the heap: the burst from the first check_tx to
-    drained, make_block, validate_block (height 2 on B1, height 3 on dsm),
-    apply_block split into the deliver, the app commit and the state save
-    with indexing, and save_block. Every run's blocks and app hashes must
-    equal phase 27's."""
-    from tendermint_tpu_torch.ops import gateway
-    from tendermint_tpu_torch.ops.gateway import Hasher, Verifier
-    from tendermint_tpu_torch.types import tx as ptx
-
+    """Phase 28: phase 27's card and host chains, a height at a time (the
+    smoke's clock leaves no second pair of chains: PERF.md §4): the burst
+    from the first check_tx to drained, make_block, validate_block (height
+    2 on B1, height 3 on dsm), apply_block split into the deliver, the app
+    commit and the state save with indexing, and save_block, each height
+    after a full collection of the heap."""
     tag = {"card": name, "power_limit": power}
-    doc, seed_of, bursts = ctx["doc"], ctx["seed_of"], ctx["bursts"]
-    runs = {"card": [], "host": []}
-    with routed_to():
-        gateway._default_verifier = None
-        verifier = gateway.default_verifier()
-        ref_v = Verifier(min_tpu_batch=APP_REF_GATE, device="cpu")
-        for _ in range(EXEC_TIME_RUNS):
-            for label in ("card", "host"):
-                if label == "card":
-                    ch = exec_chain(doc, verifier, Hasher(device=DEVICE))
-                else:
-                    ch = exec_chain(doc, ref_v, host_hasher(), agg_default=ref_v)
-                heights = []
-                try:
-                    for height, burst in enumerate(bursts, 1):
-                        gc.collect()
-                        gate = ch.burst(burst["txs"], burst["forged"])
-                        block, parts, make_s = ch.build(height)
-                        times = ch.apply(block, parts)
-                        save_s = ch.save(seed_of, block, parts)
-                        want = ctx["records"][height - 1]
-                        if block.to_bytes() != want["block"] or ch.state.app_hash != want["app_hash"]:
-                            raise AssertionError(f"{label} run, height {height}: block or app hash differs")
-                        row = {"gate_s": gate["gate_s"], "gate_verify_s": gate["gate_verify_s"],
-                               "gate_batches": len(gate["sizes"]), "make_block_s": make_s, **times,
-                               "save_block_s": save_s}
-                        row["height_s"] = row["gate_s"] + make_s + times["apply_s"] + save_s
-                        heights.append(row)
-                finally:
-                    ch.close()
-                    ch.discard()
-                runs[label].append(heights)
-        ptx.set_batch_tx_root(None)
+    doc, bursts, runs = ctx["doc"], ctx["bursts"], ctx["runs"]
     for height in range(1, len(bursts) + 1):
         best = {label: min((r[height - 1] for r in rows), key=lambda row: row["height_s"])
                 for label, rows in runs.items()}
@@ -4854,15 +4884,22 @@ class serving_process:
     (the stop message, then join; killed after DEVD_STOP_S)."""
 
     def __init__(self, root: str, doc, tamper_height: int = 0):
+        self._spawn(serve_chain, (root, doc.to_json(), tamper_height))
+        self.port, self.node_id = self._first_message()
+
+    def _spawn(self, target, args: tuple) -> None:
+        """target(*args, conn) in a spawned process."""
         ctx = multiprocessing.get_context("spawn")
         self.conn, child = ctx.Pipe()
-        self.proc = ctx.Process(target=serve_chain, args=(root, doc.to_json(), tamper_height, child), daemon=True)
+        self.proc = ctx.Process(target=target, args=(*args, child), daemon=True)
         self.proc.start()
+        self.stops = None
+
+    def _first_message(self):
         if not self.conn.poll(FASTSYNC_SYNC_S):
             self.proc.kill()
             raise AssertionError("the serving process did not start")
-        self.port, self.node_id = self.conn.recv()
-        self.stops = None
+        return self.conn.recv()
 
     def close(self) -> None:
         try:
@@ -6877,6 +6914,722 @@ def gossip_time(name, power, ctx) -> None:
     hist = _hist_reading()
     log({"phase": "gossip_time", **tag, "vote_verify_batches_process": hist["vote_batch"][0],
          "consensus_vote_verify_batch_seconds_process": hist["vote_batch"][1]})
+
+
+# -- phases 35-36: RPC, the light client and state sync ---------------------------------
+
+
+def make_statesync_inputs(pool, rng) -> list[dict]:
+    """Node A's bursts for the state_sync cell, from their own generator:
+    STATESYNC_HEIGHTS of them in fast sync's families (see make_bursts)."""
+    return make_bursts(pool, rng, STATESYNC_HEIGHTS, FASTSYNC_FIRST_BLOCK, FASTSYNC_BLOCK,
+                       FASTSYNC_VALUE_BYTES, FASTSYNC_SIGNERS, b"ssync-%07d")
+
+
+class tampered_snapshots:
+    """A SnapshotStore whose first chunk served comes back with one byte
+    flipped (the middle byte, bit 0)."""
+
+    def __init__(self, store):
+        self.store = store
+        self.flipped = None
+
+    def __getattr__(self, attr):
+        return getattr(self.store, attr)
+
+    def load_chunk(self, height: int, index: int):
+        chunk = self.store.load_chunk(height, index)
+        if chunk is not None and self.flipped is None:
+            self.flipped = index
+            raw = bytearray(chunk)
+            raw[len(raw) // 2] ^= 0x01
+            chunk = bytes(raw)
+        return chunk
+
+
+def serve_statesync(root: str, doc_json, tamper: bool, conn) -> None:
+    """A state-sync serving node in a process of its own, on node A's files
+    under `root`: the sqlite `state` and `blockstore` behind a p2p_node
+    (BlockchainReactor(fast_sync=False)) with a StateSyncReactor serving
+    the SnapshotStore under root/snapshots and an RPCServer on 127.0.0.1
+    port 0 over the store, the state and an app: a SignedKVStoreApp on the
+    host (its tree hashed by the host, its block verify on a Verifier whose
+    gate sends every lane to the native CPU floor) loaded with A's app
+    state at the height before the last (STATESYNC_APP_FILE), the last
+    stored block then replayed into it as a Handshaker replays a block its
+    app lacks, so that proofs at the height before the last verify against
+    the last header. With `tamper` (peer D) the snapshot store flips one
+    byte of the first chunk it serves, and no RPC is served. Sends (p2p
+    port, node id, RPC address), then serves until told to stop."""
+    from tendermint_tpu_torch.abci.apps.signedkv import SignedKVStoreApp
+    from tendermint_tpu_torch.blockchain import BlockStore
+    from tendermint_tpu_torch.libs.db import db_provider
+    from tendermint_tpu_torch.ops.gateway import Verifier
+    from tendermint_tpu_torch.proxy import AppConns, LocalClientCreator
+    from tendermint_tpu_torch.rpc.core import RPCContext
+    from tendermint_tpu_torch.rpc.server import RPCServer
+    from tendermint_tpu_torch.state import State, exec_commit_block
+    from tendermint_tpu_torch.statesync import SnapshotStore
+    from tendermint_tpu_torch.statesync.reactor import StateSyncReactor
+    from tendermint_tpu_torch.types.genesis import GenesisDoc
+
+    doc = GenesisDoc.from_json(doc_json)
+    dbs = {n: db_provider(n, "sqlite", root) for n in ("state", "blockstore")}
+    store = BlockStore(dbs["blockstore"])
+    state = State.load_state(dbs["state"], doc)
+    snaps = SnapshotStore(os.path.join(root, "snapshots"))
+    node = p2p_node(doc, state, store, None, False, "D" if tamper else "A")
+    node.sw.add_reactor("STATESYNC", StateSyncReactor(tampered_snapshots(snaps) if tamper else snaps))
+    conns = rpc = None
+    try:
+        if not tamper:
+            app = SignedKVStoreApp(verify_in_app=False)
+            app.deliver_verifier = Verifier(min_tpu_batch=APP_REF_GATE, device="cpu")
+            app.shards = APP_SHARDS
+            with open(os.path.join(root, STATESYNC_APP_FILE), "rb") as f:
+                app.restore(f.read())
+            conns = AppConns(LocalClientCreator(app))
+            conns.start()
+            exec_commit_block(conns.consensus(), store.load_block(store.height()))
+            if app.app_hash != state.app_hash:
+                raise AssertionError("A's app, replayed to the last height, differs from A's state")
+            rpc = RPCServer("tcp://127.0.0.1:0", RPCContext(
+                block_store=store, proxy_app_query=conns.query(), genesis_doc=doc, state=state, switch=node.sw))
+            rpc.start()
+        node.start()
+        conn.send((node.listener.internal_address().port, node.node_id(),
+                   f"127.0.0.1:{rpc.port}" if rpc else None))
+        conn.recv()
+        conn.send(node.stops)
+    finally:
+        node.close()
+        if rpc is not None:
+            rpc.stop()
+        if conns is not None:
+            conns.stop()
+        for db in dbs.values():
+            db.close()
+
+
+def warm_statesync_imports() -> None:
+    """The imports a phase-35 process needs, done while A is built."""
+    import torch  # noqa: F401
+
+    from tendermint_tpu_torch.abci.apps import signedkv  # noqa: F401
+    from tendermint_tpu_torch.ops import gateway  # noqa: F401
+    from tendermint_tpu_torch.rpc import light, server  # noqa: F401
+    from tendermint_tpu_torch.statesync import reactor, restore  # noqa: F401
+
+
+def serve_statesync_later(conn) -> None:
+    """serve_statesync on the (root, genesis JSON, tamper) it is sent."""
+    warm_statesync_imports()
+    serve_statesync(*conn.recv(), conn)
+
+
+class statesync_server(serving_process):
+    """serve_statesync in a spawned process, started before A is built
+    (its imports meanwhile) and given A's files by serve(); the servers of
+    phase 35 load their apps side by side; ready() waits for its port,
+    node id and RPC address; close() is serving_process's."""
+
+    def __init__(self):
+        self._spawn(serve_statesync_later, ())
+
+    def serve(self, root: str, doc, tamper: bool = False) -> None:
+        self.conn.send((root, doc.to_json(), tamper))
+
+    def ready(self) -> "statesync_server":
+        self.port, self.node_id, self.rpc = self._first_message()
+        return self
+
+
+class statesync_node:
+    """Node C of the state_sync cell (C' on the host's floor), empty, wired
+    as node/node.py:540-597 wires a restoring node, in a temp directory of
+    its own: sqlite `state`, `blockstore` and `tx_index`, a SignedKVStoreApp
+    on APP_SHARDS shards (verify_in_app off, its block verify through
+    `verifier`, its tree through `hasher` by a wave_recorder), a LightClient
+    over rpc.client.HTTPClient to A's RPC trusting the genesis set with the
+    verifier's commit_batch_verifier, a Restorer on `hasher` and that batch
+    verifier, a StateSyncReactor armed with it whose on_complete hands the
+    restored state to BlockchainReactor.start_after_statesync, and a
+    p2p_node whose BlockchainReactor waits for the restore
+    (defer_for_statesync) and then fast-syncs the tail on the verifier and
+    the hasher as fastsync_node wires them. sync() starts the switch."""
+
+    def __init__(self, doc, verifier, hasher, rpc_addr: str, label: str):
+        from tendermint_tpu_torch.abci.apps.signedkv import SignedKVStoreApp
+        from tendermint_tpu_torch.blockchain import BlockStore
+        from tendermint_tpu_torch.libs.db import db_provider
+        from tendermint_tpu_torch.proxy import AppConns, LocalClientCreator
+        from tendermint_tpu_torch.rpc.client import HTTPClient
+        from tendermint_tpu_torch.rpc.light import LightClient
+        from tendermint_tpu_torch.state import State
+        from tendermint_tpu_torch.state.txindex import KVTxIndexer
+        from tendermint_tpu_torch.statesync import Restorer, SnapshotStore
+        from tendermint_tpu_torch.statesync.reactor import StateSyncReactor
+        from tendermint_tpu_torch.types.validator import Validator
+        from tendermint_tpu_torch.types.validator_set import ValidatorSet
+
+        self.doc, self.verifier, self.hasher = doc, verifier, hasher
+        self.root = tempfile.mkdtemp(prefix="statesync-")
+        self.dbs = {n: db_provider(n, "sqlite", self.root) for n in ("state", "blockstore", "tx_index")}
+        self.state = State.get_state(self.dbs["state"], doc)
+        self.state.tx_indexer = KVTxIndexer(self.dbs["tx_index"])
+        self.store = BlockStore(self.dbs["blockstore"])
+        self.app = SignedKVStoreApp(verify_in_app=False)
+        self.rec = wave_recorder(hasher)
+        self.app.tree.hasher = self.rec
+        self.app.deliver_verifier = verifier
+        self.app.shards = APP_SHARDS
+        self.conns = AppConns(LocalClientCreator(self.app))
+        self.conns.start()
+        self.gate = batch_recorder(verifier)
+        self.applied: list[float] = []
+        self.marks: dict[str, float] = {}
+        self.node = p2p_node(doc, self.state, self.store, self.conns.consensus(), True, label,
+                             batch_verifier=verifier.commit_batch_verifier(),
+                             async_batch_verifier=self.gate.verify_batch_async,
+                             part_hasher=hasher.part_leaf_hashes, part_tree_hasher=hasher.part_set_tree,
+                             post_apply_hook=lambda state, block: self.applied.append(time.perf_counter()),
+                             defer_for_statesync=True)
+        vs = ValidatorSet([Validator.new(v.pub_key, v.power) for v in doc.validators])
+        self.light = LightClient(HTTPClient(rpc_addr), doc.chain_id, vs, trusted_height=0,
+                                 batch_verifier=verifier.commit_batch_verifier())
+        self.restorer = Restorer(doc, self.app, self.dbs["state"], self.store, hasher=hasher,
+                                 light_client=self.light, batch_verifier=verifier.commit_batch_verifier())
+        self.ss = StateSyncReactor(SnapshotStore(os.path.join(self.root, "snapshots")), self.restorer,
+                                   enabled=True, on_complete=self._on_complete)
+        self.node.sw.add_reactor("STATESYNC", self.ss)
+        switch_to_consensus = self.node.consensus.switch_to_consensus
+
+        def switched(state):
+            switch_to_consensus(state)
+            self.marks.setdefault("switched", time.perf_counter())
+
+        self.node.consensus.switch_to_consensus = switched
+        # the bytes a stopped peer moved, read before the switch drops it
+        self.stopped_bytes = 0
+        stop_peer = self.node.sw.stop_peer_for_error
+
+        def counted_stop(peer, reason):
+            self.stopped_bytes += peer.mconn.recv_monitor.status().bytes
+            stop_peer(peer, reason)
+
+        self.node.sw.stop_peer_for_error = counted_stop
+        self.loop_done = threading.Event()
+        loop = self.node.bc._pool_routine
+
+        def pool_routine():
+            try:
+                loop()
+            finally:
+                self.loop_done.set()
+
+        self.node.bc._pool_routine = pool_routine
+        self.started = False
+
+    def _on_complete(self, state) -> None:
+        """node/node.py's _on_statesync_complete: the restored state to the
+        fast-sync reactor, which then syncs the tail."""
+        t = time.perf_counter()
+        self.restored = None if state is None else state.bytes_()
+        self.marks["restored"] = t
+        self.node.bc.start_after_statesync(state)
+
+    def sync(self, *serving: tuple[int, str]) -> dict:
+        """Start the switch, dial the serving nodes' (port, node id) in
+        order (after the first, once it is a peer), then wait for the
+        switch to consensus, or the restore's or the sync's error, within
+        STATESYNC_SYNC_S. The tx-root hook and the gateway's default
+        verifier (an aggregate commit's, in the light walk and the tail)
+        are this node's for the run. The stages are clocked: discovery
+        (_pick_snapshot), the manifest with the light walk and its commit
+        checks (_fetch_manifest, LightClient._verify_with), the download
+        and its 8-chunk window checks (the reactor's verify_chunk_batch,
+        whose widths are recorded), the restore (Restorer.restore) with
+        the whole-manifest check (verify_chunks), the app's restore (its tree build, the Hasher's calls
+        by the wave recorder) and the seed; the tail from the handoff."""
+        from tendermint_tpu_torch.ops import gateway
+        from tendermint_tpu_torch.rpc.light import LightClient
+        from tendermint_tpu_torch.statesync import Restorer
+        from tendermint_tpu_torch.statesync import reactor as ss_reactor
+        from tendermint_tpu_torch.statesync.reactor import StateSyncReactor
+        from tendermint_tpu_torch.types import tx as ptx
+
+        bc = self.node.bc
+        windows: list[int] = []
+        window_s = [0.0]
+        window_check = ss_reactor.verify_chunk_batch
+
+        def recorded_window(manifest, items, hasher=None):
+            t = time.perf_counter()
+            try:
+                return window_check(manifest, items, hasher=hasher)
+            finally:
+                windows.append(len(items))
+                window_s[0] += time.perf_counter() - t
+
+        saved = gateway._default_verifier
+        gateway._default_verifier = self.verifier
+        ptx.set_batch_tx_root(self.hasher.tx_merkle_root)
+        ss_reactor.verify_chunk_batch = recorded_window
+        waves0 = len(self.rec.widths)
+        try:
+            with stage_clock(discovery=(StateSyncReactor, "_pick_snapshot"),
+                             manifest=(StateSyncReactor, "_fetch_manifest"),
+                             walk_verify=(LightClient, "_verify_with"),
+                             download=(StateSyncReactor, "_download_chunks"),
+                             restore=(Restorer, "restore"), manifest_verify=(Restorer, "verify_chunks"),
+                             app_restore=(type(self.app), "restore"), seed=(Restorer, "_seed")) as clk:
+                t0 = time.perf_counter()
+                self.node.start()
+                self.started = True
+                for i, (port, node_id) in enumerate(serving):
+                    if i:
+                        first = serving[0][1]
+                        wait_for(lambda: self.node.sw.peers.get(first) is not None, STATESYNC_SYNC_S,
+                                 "the first peer")
+                    self.node.dial(port)
+                wait_for(lambda: "switched" in self.marks or self.ss.sync_error is not None
+                         or bc.sync_error is not None or ("restored" in self.marks and self.restored is None),
+                         STATESYNC_SYNC_S, f"the state sync (store at {self.store.height()})")
+        finally:
+            ss_reactor.verify_chunk_batch = window_check
+            gateway._default_verifier = saved
+            ptx.set_batch_tx_root(None)
+        for err, what in ((self.ss.sync_error, "the restore"), (bc.sync_error, "the tail's fast sync")):
+            if err is not None:
+                raise AssertionError(f"{what} stopped: {err!r}")
+        if self.restored is None:
+            raise AssertionError("the restore fell back to fast sync from genesis")
+        sec = clk.seconds
+        restored, switched = self.marks["restored"], self.marks["switched"]
+        tail_blocks = len(self.applied)
+        waves = self.rec.widths[waves0:]
+        recv = self.stopped_bytes + sum(p.mconn.recv_monitor.status().bytes for p in self.node.sw.peers.list())
+        return {
+            "wall_s": switched - t0, "discovery_s": sec["discovery"],
+            "manifest_and_walk_s": sec["manifest"], "walk_verify_s": sec["walk_verify"],
+            "download_s": sec["download"] - window_s[0], "window_verify_s": window_s[0],
+            "manifest_verify_s": sec["manifest_verify"],
+            "restore_s": sec["restore"], "restore_split_s": {
+                "manifest_verify": sec["manifest_verify"], "app_restore": sec["app_restore"],
+                "seed": sec["seed"]},
+            "restore_waves": len(waves), "restore_hasher_s": self.rec.seconds,
+            "handoff_to_switch_s": switched - restored, "tail_blocks": tail_blocks,
+            "tail_blocks_per_s": tail_blocks / (switched - restored), "bytes_received": recv,
+            "windows": windows, "waves": waves, "stage_s": dict(bc.stage_s),
+        }
+
+    def records(self, snap_h: int, target: int, keys: list[bytes]) -> dict:
+        return statesync_records(self.store, self.node.bc.state, self.app, snap_h, target, keys)
+
+    def close(self) -> None:
+        self.node.close()
+        if "restored" in self.marks:  # start_after_statesync started the sync loop
+            if not self.loop_done.wait(STATESYNC_SYNC_S):
+                raise AssertionError("the fast-sync loop did not end")
+        self.conns.stop()
+        for db in self.dbs.values():
+            db.close()
+        shutil.rmtree(self.root, ignore_errors=True)
+
+
+def statesync_records(store, state, app, snap_h: int, target: int, keys: list[bytes], seen=None) -> dict:
+    """What a node holds from the snapshot height up: its store's base and
+    height, the blocks, metas and LastCommits (`load_block_commit`) of
+    heights snap_h..target, the seen commits (`seen(h)`, or the store's),
+    the state's bytes and app hash, and the app's values of `keys`. (No
+    tx-index entries: the restored State carries the null indexer, as on
+    a node wired by node/node.py, so the tail's txs are not indexed.)"""
+    seen = seen or (lambda h: store.load_seen_commit(h))
+    return {
+        "base": store.base(), "height": store.height(),
+        "blocks": [store.load_block(h).to_bytes() for h in range(snap_h, target + 1)],
+        "metas": [store.load_block_meta(h).to_json() for h in range(snap_h, target + 1)],
+        "commits": [store.load_block_commit(h).to_json() for h in range(snap_h, target)],
+        "seen": [seen(h).to_json() for h in range(snap_h, target + 1)],
+        "state": state.bytes_(), "app_hash": state.app_hash,
+        "values": [app.state.get(k.decode("latin-1")) for k in keys],
+    }
+
+
+def statesync_expected(doc, snap_h: int, target: int, n_vals: int, chunks: int, seen_full: bool,
+                       waves: list[int], groups: list[int], delivered: int, windows: list[int],
+                       hash_gate: int) -> dict:
+    """The launches and lanes C's state sync implies. The light walk checks
+    the commit of each height 1..snap_h + 1 (a block's commit is stored
+    with its successor: aggregate from the upgrade on), B1 for a full one
+    and dsm for an aggregate one; the restore checks the seen commit at
+    snap_h (B1 if full, dsm if not); the download digests each window of
+    chunks and the restore the whole manifest, one K1 launch a batch at or
+    above the Hasher's gate (on the card's default gate of 16 the windows
+    of 8 hash on the host, counted in its cpu_leaves); the app's restore hands its tree's waves of 32 or more to the
+    Hasher (K1 each); the tail snap_h + 1..target is phase 29's sync
+    (fastsync_expected's terms: B1 a group of full commits, a full
+    LastCommit at apply, a deliver; dsm an aggregate proof and an
+    aggregate LastCommit at apply; K1 and K3 a part set and a tx root a
+    block, K1 the commit waves)."""
+    walk = range(1, snap_h + 2)
+    walk_full = sum(not doc.aggregate_commits_at(h + 1) for h in walk)
+    walk_agg = len(walk) - walk_full
+    tail = range(snap_h + 1, target + 1)
+    full_apply = sum(not doc.aggregate_commits_at(h) for h in tail)
+    agg_apply = len(tail) - full_apply
+    agg_proof = sum(doc.aggregate_commits_at(h + 1) for h in tail)
+    b1_commits = walk_full + int(seen_full) + full_apply
+    dsm = walk_agg + int(not seen_full) + agg_proof + agg_apply
+    batches = [chunks] + windows  # the whole-manifest check and the windows, each one digest batch
+    on_card = sum(n >= hash_gate for n in batches)
+    return {
+        "launches": {"b1": b1_commits + len(groups) + len(tail), "dsm": dsm,
+                     "ripemd160": on_card + len(waves) + 2 * len(tail), "merkle_tree": 2 * len(tail)},
+        "lanes": {"tpu_sigs": n_vals * b1_commits + sum(groups) + delivered, "cpu_sigs": 0,
+                  "agg_lanes_device": (n_vals + 1) * dsm, "agg_lanes_cpu": 0},
+        "hasher": {"cpu_leaves": sum(n for n in batches if n < hash_gate), "tpu_tx_roots": len(tail)},
+    }
+
+
+def statesync_reference(doc_json, port: int, node_id: str, rpc_addr: str, snap_h: int, target: int,
+                        keys: list[bytes], knobs: dict, conn) -> None:
+    """C', the host reference, in a process of its own beside C: a
+    statesync_node on a Verifier whose gate sends every lane to the native
+    CPU floor (installed as the default verifier: the aggregate commits on
+    the host's reference check) and host_hasher(), syncing from A's files
+    alone (a serve_statesync process of its own: C and C' share no
+    server's CPU).
+    Sends "ready", syncs on the word, then sends its run, launches, lanes
+    and records. `knobs` are the parent's STATESYNC_* values."""
+    from tendermint_tpu_torch.ops.gateway import Verifier
+    from tendermint_tpu_torch.types.genesis import GenesisDoc
+
+    globals().update(knobs)
+    doc = GenesisDoc.from_json(doc_json)
+    with routed_to():
+        ref_v = Verifier(min_tpu_batch=APP_REF_GATE, device="cpu")
+        node = statesync_node(doc, ref_v, host_hasher(), rpc_addr, "C-host")
+        try:
+            conn.send("ready")
+            conn.recv()
+            reset_launches()
+            run = node.sync((port, node_id))
+            launches = read_launches()
+            out = {"run": run, "launches": launches, "stops": node.node.stops,
+                   "lanes": {k: ref_v.stats()[k] for k in ("tpu_sigs", "cpu_sigs", "agg_lanes_device",
+                                                           "agg_lanes_cpu")},
+                   "records": node.records(snap_h, target, keys)}
+        except BaseException as exc:
+            out = {"error": f"{type(exc).__name__}: {exc}"}
+        finally:
+            node.close()
+    conn.send(out)
+
+
+def statesync_reference_later(conn) -> None:
+    """statesync_reference on the arguments it is sent."""
+    warm_statesync_imports()
+    statesync_reference(*conn.recv(), conn)
+
+
+def statesync_phase(name, power, vs, seed_of, bursts, entries: dict[bytes, bytes]) -> dict:
+    """Phase 35: RPC, the light client and state sync on the card. Node A
+    (an exec_chain on the default Verifier and Hasher) holds `entries`
+    (phase 25's 250,000 keys) from genesis: its app's tree is loaded with
+    them before the first block and the genesis app hash is their root. It
+    builds STATESYNC_HEIGHTS heights of `bursts` with a SnapshotProducer
+    (64 KiB chunks, full snapshots) taking STATESYNC_SNAPSHOT_HEIGHT, and
+    keeps its app state at the height before the last
+    (STATESYNC_APP_FILE). A serves its files from a process of its own
+    (serve_statesync: the state-sync and fast-sync reactors and the RPC);
+    D, a second process on the same files, serves the snapshot with one
+    byte flipped. In this process node C (a statesync_node on
+    Verifier(device=DEVICE) and a fresh Hasher(device=DEVICE)) dials D,
+    then A, over TCP with secret connections, light-verifies the manifest
+    through A's RPC, downloads, restores and fast-syncs the tail to A's
+    height less one, then switches to consensus once; the host reference
+    C' does the same, from a second honest process on A's files, in a
+    process of its own at the same
+    time. The launches are set to 0 just before C's dial and read just
+    after, and equal statesync_expected; C and C' hold A's records, state,
+    app hash, tx-index entries and sampled values; D is stopped once, for
+    the chunk it flipped, and A stays; sampled present and absent keys
+    verify through LightClient.verified_query against A's RPC. Returns
+    what phase 36 reports and the launches."""
+    import torch
+
+    from tendermint_tpu_torch.ops import gateway
+    from tendermint_tpu_torch.ops.gateway import Hasher, Verifier
+    from tendermint_tpu_torch.statesync import SnapshotProducer, SnapshotStore
+    from tendermint_tpu_torch.statetree import VersionedTree
+    from tendermint_tpu_torch.types import tx as ptx
+    from tendermint_tpu_torch.types.agg_commit import commit_is_aggregate
+
+    tag = {"card": name, "power_limit": power}
+    dev_type = torch.device(DEVICE).type
+    snap_h, n_vals = STATESYNC_SNAPSHOT_HEIGHT, vs.size()
+    rng = np.random.default_rng(SEED + 35)
+    t_phase = time.perf_counter()
+    marks: dict[str, float] = {}
+
+    def mark(what: str) -> None:
+        marks[what] = time.perf_counter() - t_phase
+
+    # A's server, D, the mirror for C' and C' itself start now and import
+    # while A is built; they get A's files after
+    rctx = multiprocessing.get_context("spawn")
+    servers = [statesync_server() for _ in range(3)]
+    conn, child = rctx.Pipe()
+    reference = rctx.Process(target=statesync_reference_later, daemon=True, args=(child,))
+    reference.start()
+    with routed_to():
+        gateway._default_verifier = gateway._default_hasher = None
+        t0 = time.perf_counter()
+        tree = VersionedTree.from_entries(entries, 0, hasher=gateway.default_hasher())
+        doc = exec_genesis(vs, FASTSYNC_UPGRADE_HEIGHT)
+        doc.app_hash = tree.root_hash()
+        a = exec_chain(doc, gateway.default_verifier(), gateway.default_hasher())
+        tree.hasher = a.rec
+        a.app.tree, a.app.app_hash = tree, doc.app_hash
+        a.app.state = {k.decode("latin-1"): v for k, v in entries.items()}
+        genesis_s = time.perf_counter() - t0
+        producer = SnapshotProducer(SnapshotStore(os.path.join(a.root, "snapshots")), a.app, a.store,
+                                    hasher=a.hasher, interval=snap_h, full_every=1)
+        try:
+            ctx = multiprocessing.get_context("spawn")
+            with ctx.Pool(processes=min(8, os.cpu_count() or 1)) as pool:
+                for height, burst in enumerate(bursts, 1):
+                    gate = a.burst(burst["txs"], burst["forged"])
+                    if gate["refused"] != burst["forged"]:
+                        raise AssertionError(f"A height {height}: refused {gate['refused']}")
+                    block, parts, _ = a.build(height)
+                    if parts.total < a.hasher.min_tpu_batch:
+                        raise AssertionError(f"A height {height}: {parts.total} parts, under the Hasher's gate")
+                    a.apply(block, parts)
+                    a.save(seed_of, block, parts, pool)
+                    producer.maybe_snapshot(a.state)
+                    if height == len(bursts) - 1:
+                        with open(os.path.join(a.root, STATESYNC_APP_FILE), "wb") as f:
+                            f.write(a.app.snapshot())
+                        target_state = a.state.bytes_(), a.state.app_hash
+                        burst_keys = sorted({k.encode("latin-1") for k in a.app.state} - set(entries))
+                        state_keys = sorted(entries)
+                        half = STATESYNC_SAMPLE_KEYS // 2
+                        keys = ([state_keys[i] for i in rng.choice(len(state_keys), half, replace=False)]
+                                + [burst_keys[i] for i in rng.choice(len(burst_keys), half, replace=False)])
+                        values = [a.app.state.get(k.decode("latin-1")) for k in keys]
+            ptx.set_batch_tx_root(None)
+            height_a = a.store.height()
+            target = height_a - 1
+            if producer.snapshots_taken != 1 or producer.store.heights() != [snap_h]:
+                raise AssertionError(f"A's snapshots: {producer.store.heights()}, "
+                                     f"{producer.snapshot_failures} failed")
+            manifest = producer.store.load_manifest(snap_h)
+            seen_full = not commit_is_aggregate(a.store.load_seen_commit(snap_h))
+            tail_txs = sum(len(a.store.load_block(h).data.txs) for h in range(snap_h + 1, target + 1))
+            want = statesync_records(a.store, a.state, a.app, snap_h, target, keys,
+                                     seen=lambda h: (a.store.load_seen_commit(h) if h == snap_h
+                                                     else a.store.load_block(h + 1).last_commit))
+            want["state"], want["app_hash"] = target_state
+            want["values"] = values
+            want["base"], want["height"] = snap_h, target
+            chain = {"validators": n_vals, "heights": height_a, "upgrade_height": FASTSYNC_UPGRADE_HEIGHT,
+                     "state_keys": len(entries), "genesis_app_hash": doc.app_hash.hex(),
+                     "genesis_load_s": genesis_s, "snapshot_height": snap_h, "chunks": manifest.chunks,
+                     "snapshot_bytes": manifest.total_bytes, "chunk_bytes": producer.chunk_size,
+                     "snapshot_s": producer.last_snapshot_seconds,
+                     "formats": [a.store.load_block(h).commit_format() for h in range(2, height_a + 1)],
+                     "build_s": time.perf_counter() - t0}
+        except BaseException:
+            for s in servers:
+                s.proc.kill()
+            reference.kill()
+            raise
+        finally:
+            a.close()
+        mark("a_built")
+        log({"phase": "statesync_chain", **tag, **chain})
+        c = None
+        try:
+            server, tampered, mirror = servers  # the mirror: A's files for C', so C and C' share no server
+            for s in servers:
+                s.serve(a.root, doc, tamper=s is tampered)
+            for s in servers:
+                s.ready()
+            mark("servers_ready")
+            knobs = {k: v for k, v in globals().items() if k.startswith("STATESYNC_")}
+            conn.send((doc.to_json(), mirror.port, mirror.node_id, mirror.rpc, snap_h, target, keys, knobs))
+            # C on the card: the main path, its launches and lanes counted
+            verifier = Verifier(device=DEVICE)
+            if verifier.kernel != "f32p" or verifier.device is None or verifier.device.type != dev_type:
+                raise AssertionError(f"C's Verifier: kernel {verifier.kernel}, device {verifier.device}")
+            hasher = Hasher(device=DEVICE)
+            if hasher._route != "local":
+                raise AssertionError(f"C's Hasher: route {hasher._route}")
+            c = statesync_node(doc, verifier, hasher, server.rpc, "C")
+            if not conn.poll(STATESYNC_SYNC_S) or conn.recv() != "ready":
+                raise AssertionError("the host reference did not start")
+            mark("reference_ready")
+            v0, h0 = verifier.stats(), hasher.stats()
+            gc.collect()
+            conn.send("go")
+            reset_launches()
+            run = c.sync((tampered.port, tampered.node_id), (server.port, server.node_id))
+            launches = read_launches()
+            mark("c_switched")
+            v1, h1 = verifier.stats(), hasher.stats()
+            groups = [n for n in c.gate.sizes if n]
+            exp = statesync_expected(doc, snap_h, target, n_vals, manifest.chunks, seen_full, run["waves"],
+                                     groups, tail_txs, run["windows"], hasher.min_tpu_batch)
+            lanes = {k: v1[k] - v0[k] for k in exp["lanes"]}
+            hashed = {k: h1[k] - h0[k] for k in exp["hasher"]}
+            bc = c.node.bc
+            if c.store.height() != target or bc.blocks_synced != target - snap_h or \
+                    c.node.consensus.switched != [want["state"]]:
+                raise AssertionError(f"C: store at {c.store.height()}, synced {bc.blocks_synced}, "
+                                     f"switched {len(c.node.consensus.switched)} times")
+            bans = c.node.stops
+            if len(bans) != 1 or bans[0][0] != tampered.node_id or "digest mismatch" not in bans[0][1] \
+                    or c.ss.offerer_bans_corrupt != 1 or c.ss.peers_banned != 1:
+                raise AssertionError(f"the tampered peer: stops {bans}, {c.ss.stats()}")
+            if [p.id() for p in c.node.sw.peers.list()] != [server.node_id]:
+                raise AssertionError("the tampered peer: A dropped")
+            _launch_delta(launches, exp["launches"], "C's state sync")
+            if lanes != exp["lanes"] or hashed != exp["hasher"]:
+                raise AssertionError(f"C's lanes {lanes} and Hasher {hashed}, expected {exp['lanes']} "
+                                     f"and {exp['hasher']}")
+            got = c.records(snap_h, target, keys)
+            if got != want:
+                raise AssertionError(f"C differs from A in {[k for k in got if got[k] != want[k]]}")
+            # C', beside C
+            if not conn.poll(STATESYNC_SYNC_S):
+                raise AssertionError("the host reference did not end")
+            ref = conn.recv()
+            mark("reference_done")
+            if "error" in ref:
+                raise AssertionError(f"the host reference: {ref['error']}")
+            _launch_delta(ref["launches"], {}, "C' (host reference)")
+            if ref["records"] != want or ref["stops"]:
+                raise AssertionError(f"C' differs from A in "
+                                     f"{[k for k in want if ref['records'][k] != want[k]]}, stops {ref['stops']}")
+            if ref["lanes"]["tpu_sigs"] or ref["lanes"]["agg_lanes_device"]:
+                raise AssertionError(f"C' verified on a device: {ref['lanes']}")
+            # proofs of sampled present and absent keys over A's RPC, after
+            # the launches were read (the walk goes on to target + 1)
+            lc = c.restorer.light_client
+            absent = [b"acct-absent-%03d" % i for i in range(STATESYNC_PROOF_KEYS)]
+            present = keys[:STATESYNC_PROOF_KEYS // 2] + keys[-(STATESYNC_PROOF_KEYS // 2):]
+            saved = gateway._default_verifier
+            gateway._default_verifier = verifier
+            try:
+                proofs = {k: lc.verified_query(k, height=target) for k in present + absent}
+            finally:
+                gateway._default_verifier = saved
+            wanted = dict(zip(keys, values))
+            bad = [k for k in present if proofs[k]["absent"] or proofs[k]["value"] != wanted[k]] + \
+                  [k for k in absent if not proofs[k]["absent"] or proofs[k]["value"] is not None]
+            if bad or any(p["height"] != target for p in proofs.values()):
+                raise AssertionError(f"verified queries against A's RPC: {bad}")
+            log({"phase": "statesync_path", **tag, "node": "C", "route": {"verify": verifier.kernel,
+                 "hash": hasher._route}, "snapshot_height": snap_h, "synced_to": c.store.height(),
+                 "tail_blocks": run["tail_blocks"], "groups": groups, "launches": launches, "lanes": lanes,
+                 "hasher": hashed, "tampered_peer": {"stops": [(pid[:12], why) for pid, why in bans],
+                                                    "stats": {k: c.ss.stats()[k] for k in (
+                                                        "peers_banned", "offerer_bans_corrupt", "chunks_fetched",
+                                                        "chunk_failures")}},
+                 "verified_queries": {"present": len(present), "absent": len(absent), "height": target},
+                 "records": "equal to A's", **{k: v for k, v in run.items() if k not in ("waves", "windows")},
+                 "window_widths": sorted(set(run["windows"])), "waves_k1": len(run["waves"])})
+            log({"phase": "statesync_path", **tag, "node": "C-host", "lanes": ref["lanes"],
+                 "records": "equal to A's", **{k: v for k, v in ref["run"].items() if k not in ("waves", "windows")}})
+            mark("checked")
+        finally:
+            if c is not None:
+                c.close()
+            reference.join(DEVD_STOP_S)
+            if reference.is_alive():
+                reference.kill()
+                reference.join()
+            for s in servers:
+                s.close()
+    mark("closed")
+    chunks = [producer.store.load_chunk(snap_h, i) for i in range(manifest.chunks)]
+    shutil.rmtree(a.root, ignore_errors=True)
+    log({"phase": "statesync_plane", **tag, "launches": launches, "verifier": verifier.stats(),
+         "hasher": hasher.stats()})
+    log({"phase": "statesync_marks", **tag, "s_since_phase_start": marks})
+    return {"runs": {"card": run, "host": ref["run"]}, "chunks": chunks, "chain": chain,
+            "launches": {k: launches[k] for k in ("b1", "dsm", "ripemd160", "merkle_tree")}}
+
+
+def statesync_time(name, power, ctx) -> None:
+    """Phase 36: phase 35's C and C' (one run each, beside each other): the
+    sync's wall time from the dial to the switch to consensus and its
+    split (discovery; the manifest with the light walk and its verify
+    seconds; the download; the window checks and the whole-manifest
+    check; the restore: the app's tree build with the Hasher's calls, the
+    seed; the tail and its blocks/s), the bytes received; K1's device time
+    on the whole-manifest digest batch; and the CRC-32C that frames each
+    chunk on disk (snapshot.frame_chunk / unframe_chunk), on this host:
+    the fallback without google_crc32c (crc32c_fallback) on one chunk and
+    on every chunk, against the byte loop on one window of chunks, the
+    values equal."""
+    from tendermint_tpu_torch.libs import crc32c as crc
+    from tendermint_tpu_torch.ops import hashing as th
+    from tendermint_tpu_torch.ops import merkle as ops_merkle
+
+    tag = {"card": name, "power_limit": power}
+    runs = ctx["runs"]
+    log({"phase": "statesync_time", **tag, **ctx["chain"],
+         "card_run": {k: v for k, v in runs["card"].items() if k not in ("waves", "windows")},
+         "host_run": {k: v for k, v in runs["host"].items() if k not in ("waves", "windows")},
+         "speedup": runs["host"]["wall_s"] / runs["card"]["wall_s"],
+         "restore_speedup": runs["host"]["restore_s"] / runs["card"]["restore_s"]})
+    chunks = ctx["chunks"]
+    words, first, nblocks = th.pack_ragged(chunks, True)
+    args = th.to_device(words, first, nblocks, DEVICE)
+    try:
+        dev_ms = device_ms(lambda: th.ripemd160_lanes(*args), "hash_blocks_kernel")
+    except RuntimeError:  # no device event in any trace: the CUDA events' time stands
+        dev_ms = None
+    t0 = time.perf_counter()
+    ops_merkle.part_leaf_hashes(chunks, DEVICE)
+    call_ms = 1e3 * (time.perf_counter() - t0)
+    log({"phase": "statesync_time", **tag, "what": "k1_manifest_digests", "chunks": len(chunks),
+         "bytes": sum(map(len, chunks)), "compressions": len(words), "device_ms": dev_ms,
+         "kernel_ms": cuda_ms(lambda: th.ripemd160_lanes(*args)), "hasher_call_ms": call_ms})
+
+    def byte_loop(data: bytes) -> int:
+        return crc._register(0xFFFFFFFF, data) ^ 0xFFFFFFFF
+
+    def best_s(fn, data, reps=3) -> float:
+        out = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn(data)
+            out.append(time.perf_counter() - t)
+        return min(out)
+
+    window = chunks[:8]
+    if [crc.crc32c_fallback(ch) for ch in window] != [byte_loop(ch) for ch in window]:
+        raise AssertionError("crc32c_fallback differs from the byte loop")
+    t0 = time.perf_counter()
+    for ch in chunks:
+        crc.crc32c_fallback(ch)
+    all_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for ch in window:
+        byte_loop(ch)
+    loop_window_s = time.perf_counter() - t0
+    total = sum(map(len, chunks))
+    log({"phase": "statesync_time", **tag, "what": "crc32c_frames", "impl": crc.IMPL,
+         "chunk_bytes": len(chunks[0]), "chunk_fallback_ms": 1e3 * best_s(crc.crc32c_fallback, chunks[0]),
+         "chunk_byte_loop_ms": 1e3 * best_s(byte_loop, chunks[0]), "snapshot_bytes": total,
+         "snapshot_fallback_s": all_s, "window_bytes": sum(map(len, window)),
+         "window_byte_loop_s": loop_window_s,
+         "fallback_mb_s": total / all_s / 1e6,
+         "byte_loop_mb_s": sum(map(len, window)) / loop_window_s / 1e6})
 
 
 if __name__ == "__main__":

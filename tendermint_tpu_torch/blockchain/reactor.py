@@ -297,15 +297,17 @@ class BlockchainReactor(Reactor, BaseService):
     def _pool_routine(self) -> None:
         try:
             self._sync_loop()
-        except Exception as exc:  # noqa: BLE001 — recorded, logged, stops the reactor
-            self.sync_error = exc
+        except Exception as exc:  # noqa: BLE001 — logged, stops the reactor, recorded
             self.logger.exception("fast sync stopped at height %d: %s", self.store.height() + 1, exc)
             if self.flightrec is not None:
                 self.flightrec.record(
                     "fastsync", event="sync_error", height=self.store.height(),
                     err=f"{type(exc).__name__}: {exc}"[:200],
                 )
-            self.stop()
+            try:
+                self.stop()
+            finally:  # kept last: whoever sees the error sees the reactor stopped
+                self.sync_error = exc
 
     def _sync_loop(self) -> None:
         last_status = 0.0

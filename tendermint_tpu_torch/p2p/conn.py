@@ -288,7 +288,11 @@ class MConnection(BaseService):
                         self._pm.ping_sent()
                     if now - self._last_pong > cfg.ping_interval + cfg.pong_timeout:
                         raise TimeoutError("pong timeout")
-                # drain up to a burst of packets, fairly
+                # drain up to a burst of packets, fairly, into one write
+                # (connection.go's buffered writer), and while packets
+                # remain keep awake instead of waiting out the throttle
+                # (connection.go:sendRoutine signals itself again)
+                burst = []
                 for _ in range(64):
                     ch = self._least_ratio_channel()
                     if ch is None:
@@ -296,11 +300,15 @@ class MConnection(BaseService):
                     frame = ch.next_packet()
                     if frame is None:
                         break
-                    self._write(frame)
+                    burst.append(frame)
                     if self._pm is not None:
                         # frame layout: type, channel, eof (msg done)
                         self._pm.sent_frame(frame[1], len(frame),
                                             bool(frame[2]))
+                else:
+                    self._send_signal.set()
+                if burst:
+                    self._write(b"".join(burst))
                 # decay fairness counters once per wakeup (connection.go:544)
                 for ch in self.channels.values():
                     ch.recently_sent = int(ch.recently_sent * 0.8)

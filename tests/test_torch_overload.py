@@ -1,14 +1,19 @@
-"""The port's mempool lanes (mempool/mempool.py: priority lanes, typed
-rejects, per-source limits, reap order) on tests/test_overload.py's
-TestMempoolLanes and TestLaneHammer. The file's other cases need the RPC
-admission plane and a live node, which the port does not hold yet
-(A.7e-1, A.7e-2). The last case holds the port's lanes against the JAX
-package's on the same submissions."""
+"""The port's overload plane on tests/test_overload.py: the RPC ingress
+admission (rpc/admission.py: token buckets, the in-flight and connection
+caps, the load-shed ladder, request deadlines) in TestAdmission, the
+WebSocket fan-out backpressure (rpc/server.py WSConnection) in
+TestWSBackpressure, and the mempool lanes (mempool/mempool.py: priority
+lanes, typed rejects, per-source limits, reap order) in TestMempoolLanes
+and TestLaneHammer. The file's four live-node cases need the node, which
+the port does not hold yet (A.7e-2). The last case holds the port's
+lanes against the JAX package's on the same submissions."""
 
 from __future__ import annotations
 
+import socket
 import threading
 import time
+from types import SimpleNamespace
 
 import pytest
 
@@ -23,6 +28,9 @@ from tendermint_tpu_torch.mempool import (
     TxInCacheError,
 )
 from tendermint_tpu_torch.proxy.app_conn import AppConnMempool
+from tendermint_tpu_torch.rpc import admission
+from tendermint_tpu_torch.rpc.admission import AdmissionController, retry_after_header
+from tendermint_tpu_torch.rpc.core import handlers
 
 
 def wait_until(cond, timeout=30.0, tick=0.05):
@@ -32,6 +40,196 @@ def wait_until(cond, timeout=30.0, tick=0.05):
             return True
         time.sleep(tick)
     return cond()
+
+
+@pytest.fixture(autouse=True)
+def _clean_request_tls():
+    """Admission state rides a thread-local; tests must not leak a
+    deadline or source into each other (or into other test files)."""
+    yield
+    admission.clear_deadline()
+    admission._tls.source_ip = ""
+
+
+# -- admission unit matrix ---------------------------------------------------
+
+
+class TestAdmission:
+    def test_token_bucket_burst_edge(self, monkeypatch):
+        """Exactly `burst` requests admit back-to-back; the next one is a
+        429 with a positive Retry-After derived from the refill rate."""
+        monkeypatch.setenv("TENDERMINT_RPC_RATE_LIMIT", "5")
+        monkeypatch.setenv("TENDERMINT_RPC_RATE_BURST", "2")
+        ctl = AdmissionController()
+        for _ in range(2):
+            a = ctl.admit_request("9.9.9.9", "write")
+            assert a
+            ctl.request_done()
+        a = ctl.admit_request("9.9.9.9", "write")
+        assert not a
+        assert a.status == 429
+        assert a.reason == admission.SHED_RATE_LIMITED
+        assert 0 < a.retry_after <= 0.2 + 0.01  # (1 token) / (5/s)
+        assert ctl.sheds[admission.SHED_RATE_LIMITED] == 1
+        # a different source has its own bucket
+        assert ctl.admit_request("8.8.8.8", "write")
+        ctl.request_done()
+        # waiting one refill interval restores exactly one token
+        time.sleep(0.21)
+        assert ctl.admit_request("9.9.9.9", "write")
+        ctl.request_done()
+        assert not ctl.admit_request("9.9.9.9", "write")
+
+    def test_unix_peers_exempt_from_rate_limit(self, monkeypatch):
+        monkeypatch.setenv("TENDERMINT_RPC_RATE_LIMIT", "1")
+        monkeypatch.setenv("TENDERMINT_RPC_RATE_BURST", "1")
+        ctl = AdmissionController()
+        for _ in range(10):
+            assert ctl.admit_request("unix", "write")
+            ctl.request_done()
+        assert ctl.sheds_total == 0
+
+    def test_inflight_cap(self, monkeypatch):
+        monkeypatch.setenv("TENDERMINT_RPC_MAX_INFLIGHT", "2")
+        ctl = AdmissionController()
+        assert ctl.admit_request("1.1.1.1", "read")
+        assert ctl.admit_request("1.1.1.1", "read")
+        a = ctl.admit_request("1.1.1.1", "read")
+        assert not a and a.status == 503
+        assert a.reason == admission.SHED_INFLIGHT
+        ctl.request_done()
+        assert ctl.admit_request("1.1.1.1", "read")
+        ctl.request_done()
+        ctl.request_done()
+        assert ctl.inflight == 0
+
+    def test_connection_cap(self, monkeypatch):
+        monkeypatch.setenv("TENDERMINT_RPC_MAX_CONNECTIONS", "1")
+        ctl = AdmissionController()
+        assert ctl.conn_acquire()
+        a = ctl.conn_acquire()
+        assert not a and a.reason == admission.SHED_CONN_CAP
+        ctl.conn_release()
+        assert ctl.conn_acquire()
+
+    def test_ladder_sheds_reads_never_writes(self):
+        ctl = AdmissionController()
+        ctl.pressure_fn = lambda: admission.PRESSURE_SHED_READS
+        for kind in ("read", "ws"):
+            a = ctl.admit_request("1.1.1.1", kind)
+            assert not a and a.reason == admission.SHED_READS
+        # writes pass the edge even at shed-writes: the MEMPOOL decides
+        # by lane, so the priority lane stays reachable
+        ctl.pressure_fn = lambda: admission.PRESSURE_SHED_WRITES
+        assert ctl.admit_request("1.1.1.1", "write")
+        ctl.request_done()
+        # ops stays observable at any ladder level, uncounted
+        assert ctl.admit_request("1.1.1.1", "ops")
+        assert ctl.inflight == 0
+
+    def test_deadline_armed_and_cleared(self, monkeypatch):
+        monkeypatch.setenv("TENDERMINT_RPC_DEADLINE_S", "0.5")
+        ctl = AdmissionController()
+        assert ctl.admit_request("1.1.1.1", "write")
+        left = admission.deadline_remaining()
+        assert left is not None and 0 < left <= 0.5
+        assert admission.request_source() == "1.1.1.1"
+        ctl.request_done()
+        assert admission.deadline_remaining() is None
+        assert admission.request_source() == ""
+
+    def test_deadline_expiry_mid_handler(self):
+        """A handler wait that outlives the request budget fails typed
+        (deadline_exceeded) and lands on the deadline shed counter —
+        never the generic timed-out 500."""
+        ctl = AdmissionController()
+        ctx = SimpleNamespace(node=SimpleNamespace(rpc_admission=ctl))
+        admission.set_deadline(0.02)
+        time.sleep(0.03)
+        with pytest.raises(handlers.RPCError, match="deadline_exceeded"):
+            handlers._wait_or_deadline(ctx, threading.Event(), 10.0, "CheckTx")
+        assert ctl.sheds[admission.SHED_DEADLINE] == 1
+        # without a deadline the handler's own timeout still fires
+        admission.clear_deadline()
+        with pytest.raises(handlers.RPCError, match="timed out"):
+            handlers._wait_or_deadline(ctx, threading.Event(), 0.01, "CheckTx")
+        assert ctl.sheds[admission.SHED_DEADLINE] == 1
+
+    def test_retry_after_header_contract(self):
+        # RFC 7231: whole seconds, and never "0" (clients would hot-loop)
+        assert retry_after_header(0.05) == "1"
+        assert retry_after_header(1.0) == "1"
+        assert retry_after_header(3.2) == "4"
+
+    def test_snapshot_keys(self):
+        snap = AdmissionController().snapshot()
+        for key in ("inflight", "connections", "sheds", "deadline_rejects",
+                    "ws_clients", "ws_evictions", "ws_dropped_events"):
+            assert key in snap, key
+
+
+# -- WS fan-out backpressure (unit: no sockets on the event-bus side) --------
+
+
+class _FakeWSServer:
+    def __init__(self, ctl):
+        self.admission = ctl
+        self.ctx = SimpleNamespace(event_switch=None)
+        import logging
+
+        self.logger = logging.getLogger("test.ws")
+
+
+class TestWSBackpressure:
+    def _conn(self, ctl):
+        from tendermint_tpu_torch.rpc.server import WSConnection
+
+        a, b = socket.socketpair()
+        self._peer = b
+        return WSConnection(_FakeWSServer(ctl), a)
+
+    def test_queue_overflow_drops_oldest_then_evicts(self, monkeypatch):
+        monkeypatch.setenv("TENDERMINT_RPC_WS_QUEUE", "4")
+        monkeypatch.setenv("TENDERMINT_RPC_WS_MAX_OVERFLOWS", "2")
+        ctl = AdmissionController()
+        conn = self._conn(ctl)
+        assert ctl.ws_register(conn)
+        assert ctl.ws_clients() == 1
+        # writer thread deliberately NOT started: the consumer is stuck
+        for i in range(4):
+            conn.send_json({"i": i})
+        assert conn.sendq_depth() == 4
+        conn.send_json({"i": 4})  # overflow 1: drop-oldest, stay connected
+        assert ctl.ws_dropped_events == 1
+        assert conn.sendq_depth() == 4
+        assert not conn._torn
+        conn.send_json({"i": 5})  # overflow 2: evicted
+        assert ctl.ws_evictions == 1
+        assert conn._torn
+        assert ctl.ws_clients() == 0
+        # post-eviction sends are no-ops, not errors (event bus safety)
+        conn.send_json({"i": 6})
+        self._peer.close()
+
+    def test_ws_client_cap(self, monkeypatch):
+        monkeypatch.setenv("TENDERMINT_RPC_WS_MAX_CLIENTS", "1")
+        ctl = AdmissionController()
+        c1, c2 = self._conn(ctl), self._conn(ctl)
+        assert ctl.ws_register(c1)
+        assert not ctl.ws_register(c2)
+        assert ctl.sheds[admission.SHED_WS_CAP] == 1
+        ctl.ws_unregister(c1)
+        assert ctl.ws_register(c2)
+
+    def test_queue_frac_feeds_pressure(self, monkeypatch):
+        monkeypatch.setenv("TENDERMINT_RPC_WS_QUEUE", "8")
+        ctl = AdmissionController()
+        conn = self._conn(ctl)
+        ctl.ws_register(conn)
+        assert ctl.ws_queue_frac() == 0.0
+        for i in range(4):
+            conn.send_json({"i": i})
+        assert ctl.ws_queue_frac() == pytest.approx(0.5)
 
 
 def _mk_lane_mempool():

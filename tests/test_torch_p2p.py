@@ -169,6 +169,52 @@ def test_mconnection_priority_fairness():
     mb.stop()
 
 
+def test_mconnection_long_message_skips_the_flush_throttle():
+    """A message of several bursts (64 packets a wakeup) goes out back to
+    back, as connection.go's send routine signals itself again while
+    packets remain: 300 packets at a 2 s flush throttle arrive before the
+    first throttle wait would have ended."""
+    ma, mb, _, recv_b, _ = _mconn_pair(flush_throttle=2.0)
+    msg = bytes(range(256)) * 1200
+    t0 = time.monotonic()
+    assert ma.send(0x01, msg)
+    assert wait_until(lambda: recv_b, timeout=10.0)
+    assert time.monotonic() - t0 < 2.0
+    assert recv_b == [(0x01, msg)]
+    ma.stop()
+    mb.stop()
+
+
+def test_mconnection_writes_a_burst_at_once():
+    """The packets of one wakeup reach the stream in one write, as
+    connection.go's buffered writer hands them on, so a secret connection
+    under it seals full frames rather than two a packet."""
+    from tendermint_tpu_torch.p2p.conn import MConnConfig
+
+    descs = [ChannelDescriptor(id=0x01, priority=1)]
+    a, b = pipe_pair()
+    writes = []
+    write = a.write
+
+    def counted(data):
+        writes.append(len(data))
+        return write(data)
+
+    a.write = counted
+    recv_b = []
+    ma = MConnection(a, descs, lambda ch, m: None, lambda e: None, MConnConfig())
+    mb = MConnection(b, descs, lambda ch, m: recv_b.append((ch, m)), lambda e: None, MConnConfig())
+    ma.start()
+    mb.start()
+    msg = b"z" * (10 * 1024)
+    assert ma.send(0x01, msg)
+    assert wait_until(lambda: recv_b)
+    assert recv_b == [(0x01, msg)]
+    assert writes == [10 * (5 + 1024)]
+    ma.stop()
+    mb.stop()
+
+
 # -- switch -------------------------------------------------------------------
 
 

@@ -797,3 +797,17 @@ def test_crc32c_random_buffers_equal_jax_and_table_fallback():
     for n in [1, 2, 3, 7, 8, 63, 64, 65, 1000, 4097]:
         data = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
         assert mod.crc32c(data) == jcrc(data) == by_table(data)
+
+
+@pytest.mark.parametrize("n", [4095, 4096, 4097, 65_548, 100_003, 1 << 20])
+def test_crc32c_segmented_fallback_equals_jax(n):
+    """The fallback's segmented path (buffers of SEGMENT_MIN bytes or more,
+    a state-sync chunk among them) equals the JAX package's crc32c on
+    random buffers around the cut and at chunk sizes."""
+    import numpy as np
+
+    from tendermint_tpu.libs.crc32c import crc32c as jcrc
+    from tendermint_tpu_torch.libs import crc32c as mod
+
+    data = np.random.default_rng(n).integers(0, 256, n, dtype=np.uint8).tobytes()
+    assert mod.crc32c_fallback(data) == jcrc(data) == mod.crc32c(data)
