@@ -384,6 +384,39 @@ Phases, in order; any failure raises and exits non-zero:
    done), K1's device time on the whole-manifest digest batch, and the
    snapshot's CRC-32C frames on this host (`crc32c_fallback` against the
    byte loop).
+37. The node (the node_validator cell): one port `Node`, built by
+   `default_new_node` from a home written as an operator's (`node_home`:
+   config.toml through the port's config/toml, genesis.json,
+   priv_validator.json; the signed kvstore behind the gate, the kv tx
+   index, sqlite, RPC and p2p on 127.0.0.1, PEX with its address book, no
+   UPnP, a snapshot every 4 heights, no pruning), a validator of a
+   100-validator chain (phase 3's first 100 keys at power 1, the node at
+   `committee_power`'s 24; `upgrade_height` 3) on the gateway's defaults
+   (the card's Verifier and Hasher). `committee_pump` drives it through a
+   thin adapter (`node_adapter`: its consensus state, genesis, priv
+   validator; each burst sent over the node's own HTTP JSON-RPC
+   `broadcast_tx_sync` by 64 client threads on keep-alive connections)
+   with the other 99 keys as stubs: heights 1-6 of 1,000 signed txs and
+   10 forged, a forged stub precommit at 6; the node stops and a second
+   Node from the same home (the Handshaker's replay, the WAL, the seen
+   commit primed) commits 7-8. A host replay of the node's stored chain
+   (`gossip_reference`, a process of its own beside the card) holds
+   every saved state, app hash and tx-index sample the node's; every
+   valid tx is in exactly one block, every forged one refused at the
+   gate; only the forged precommit refused; /status, /health, /block and
+   /commit of each height, GET /metrics' gateway counters against
+   `stats()` (above 0 on the card), a sampled tx's /tx_trace. Each
+   session's launches, set to 0 before its node is built and read after
+   its pump and snapshots, equal `node_expected` (B1 the full LastCommit
+   checks at 2, the delivers, the replay, the seen commit, the gate's and
+   vote plane's batches as recorded; dsm four aggregate checks a height
+   from 3; K1 and K3 the tx roots and own part sets, K1 the tree waves and
+   the snapshot's chunk digests at 4 and 8).
+38. Times of phase 37, read through the node's RPC and `stats()`: each
+   height's wall and /consensus_trace segments, the RPC ingest rate of
+   each burst, the gate's batches and the share of gate lanes on the host
+   floor, the restart's build (handshake) seconds, the host replay's
+   seconds.
 
 Each phase's start is logged on a line of its own, in seconds since
 launch. Each path's launch counts are set to 0 just before it and read just after
@@ -618,6 +651,26 @@ STATESYNC_APP_FILE = "app-state.json"  # A's app state at its height less one, f
 STATESYNC_SAMPLE_KEYS = 64  # keys (half from the genesis state, half from the bursts) C must hold as A
 STATESYNC_PROOF_KEYS = 8  # present keys of the sample, and as many absent ones, proven over A's RPC
 STATESYNC_SYNC_S = 600.0  # the bound on each wait of the state sync
+# phases 37-38, the node_validator cell: one port Node, built by
+# default_new_node from its home, a validator of benches/bench_committee.py's
+# 100 committee (BENCH_r22.json's wire:n=100; phase 3's first 100 keys) at
+# committee_power's power, the other 99 keys the pump's stubs, an upgrade to
+# aggregate commits at height 3; 6 heights of phase 31's bursts, each over
+# the node's own RPC from NODE_RPC_CLIENTS threads, a forged stub precommit at
+# the last height before the stop (its missing precommit then holds no later
+# height for the commit timeout), then a second Node from the same home for
+# 2 more. A started node waits NODE_TIMEOUT_COMMIT before its first height, the
+# window in which its first burst arrives over RPC (the node proposes height 1)
+NODE_VALIDATORS = 100
+NODE_HEIGHTS = 6
+NODE_RESTART_HEIGHTS = 2
+NODE_UPGRADE_HEIGHT = 3
+NODE_FORGED_HEIGHT = 6
+NODE_RPC_CLIENTS = 64
+NODE_SNAPSHOT_INTERVAL = 4
+NODE_TIMEOUT_COMMIT = 3.0
+NODE_INDEX_SAMPLE = 8  # a block's txs whose tx-index records are compared
+NODE_WAIT_S = 120.0  # the bound on each wait of the pump
 # phase 21's daemon launches beside each kernel's entry in the kernels line
 DEVD_LAUNCH_KEYS = {"ed25519_verify": "b1", "ed25519_comb": "comb", "ed25519_comb_tables": "tables",
                     "ed25519_dsm": "dsm", "ripemd160": "ripemd160", "merkle_tree": "merkle_tree"}
@@ -1026,6 +1079,9 @@ def main() -> int:
         gossip_inputs_s = time.perf_counter() - t_gsp
         t_ss = time.perf_counter()
         statesync_inputs = make_statesync_inputs(pool, np.random.default_rng(SEED + 35))
+        statesync_inputs_s = time.perf_counter() - t_ss
+        t_node = time.perf_counter()
+        node_inputs = make_node_inputs(pool, np.random.default_rng(SEED + 37))
     log({"phase": "setup", "keys": n_keys,
          "signatures": MIXED_LANES + n_small + 4 * n_mid + n_keys + AGG_SIZES[1],
          "app_state_keys": APP_STATE_KEYS, "app_signed_txs": sum(len(b["txs"]) for b in app_inputs["blocks"]),
@@ -1037,7 +1093,9 @@ def main() -> int:
          "gossip_signed_txs": sum(len(b["txs"]) for b in gossip_inputs),
          "gossip_inputs_s": gossip_inputs_s,
          "statesync_signed_txs": sum(len(b["txs"]) for b in statesync_inputs),
-         "statesync_inputs_s": time.perf_counter() - t_ss, "seconds": time.perf_counter() - t0})
+         "statesync_inputs_s": statesync_inputs_s,
+         "node_signed_txs": sum(len(b["txs"]) for b in node_inputs),
+         "node_inputs_s": time.perf_counter() - t_node, "seconds": time.perf_counter() - t0})
 
     # -- phase 2: kernel vs plain version on the card ---------------------------
     phase_start(2, "kernel vs plain version")
@@ -1297,7 +1355,15 @@ def main() -> int:
     statesync_time(name, power, ss_ctx)
     statesync_launches = ss_ctx["launches"]
     del ss_ctx, statesync_inputs, state_entries
-    phase_start(37, "kernels line")
+
+    # -- phases 37 and 38: the node -------------------------------------------------
+    phase_start(37, "node")
+    node_ctx = node_phase(name, power, seeds, node_inputs)
+    phase_start(38, "node times")
+    node_time(name, power, node_ctx)
+    node_launches = node_ctx["launches"]
+    del node_ctx, node_inputs
+    phase_start(39, "kernels line")
 
     entries = []
     for kname, module, launches, err, ms, p_ms, lanes in (
@@ -1352,6 +1418,7 @@ def main() -> int:
             entry["consensus_launches"] = committee_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
             entry["gossip_launches"] = gossip_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
             entry["statesync_launches"] = statesync_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
+            entry["node_launches"] = node_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
     log({"kernels": entries})
     log(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7631,6 +7698,594 @@ def statesync_time(name, power, ctx) -> None:
          "fallback_mb_s": total / all_s / 1e6,
          "byte_loop_mb_s": sum(map(len, window)) / loop_window_s / 1e6})
 
+
+# -- phases 37-38: the node (the node_validator cell) ----------------------------
+
+
+def make_node_inputs(pool, rng) -> list[dict]:
+    """Phase 37's bursts, from their own generator so the earlier phases'
+    draws stay as they were: one a height (the restart's included), of
+    phase 31's families."""
+    return make_bursts(pool, rng, NODE_HEIGHTS + NODE_RESTART_HEIGHTS, COMMITTEE_FIRST_BLOCK, COMMITTEE_BLOCK,
+                       COMMITTEE_VALUE_BYTES, EXEC_SIGNERS, b"node-%07d")
+
+
+class node_setup:
+    """The node_validator cell's chain: phase 3's first NODE_VALIDATORS keys,
+    the node's power from committee_power (it proposes height 1 and a
+    height from the upgrade on, and none after NODE_HEIGHTS: the restart
+    finds no proposal of its own in flight, and no proposal of its own
+    follows the last height), the genesis and the bursts."""
+
+    def __init__(self, seeds, bursts):
+        self.p = committee_pkg()
+        self.keys = sorted((self.p.gen_priv_key_ed25519(s) for s in seeds[:NODE_VALIDATORS]),
+                           key=lambda k: k.pub_key().address())
+        self.last = NODE_HEIGHTS + NODE_RESTART_HEIGHTS
+        self.own, self.own_power, self.own_heights = committee_power(
+            self.p, self.keys, NODE_HEIGHTS, NODE_UPGRADE_HEIGHT, idle=tuple(range(NODE_HEIGHTS + 1, self.last + 2)))
+        self.own_key = next(k for k in self.keys if k.pub_key().address() == self.own)
+        self.doc = committee_genesis(self.p, self.keys, self.own, self.own_power, NODE_UPGRADE_HEIGHT)
+        self.bursts = bursts
+
+
+def node_home(setup, root: str) -> str:
+    """The node's home as its operator writes one: config.toml through the
+    port's config/toml (the signed kvstore, so the gate is the SigBatcher;
+    the kv tx index; sqlite; RPC and p2p on 127.0.0.1; PEX with its address
+    book; no UPnP; a snapshot every NODE_SNAPSHOT_INTERVAL heights; no
+    pruning; no fast sync, as the net's one live validator; generous
+    liveness timeouts, and NODE_TIMEOUT_COMMIT before a started node's
+    first height), genesis.json and priv_validator.json. Returns the
+    node's database directory."""
+    from tendermint_tpu_torch.config import default_config
+    from tendermint_tpu_torch.config.toml import config_to_toml
+
+    cfg = default_config()
+    cfg.set_root(root)
+    cfg.base.moniker = "node-validator"
+    cfg.base.proxy_app = "signedkv"
+    cfg.base.tx_index = "kv"
+    cfg.base.db_backend = "sqlite"
+    cfg.base.fast_sync = False
+    cfg.rpc.laddr = "tcp://127.0.0.1:0"
+    cfg.p2p.laddr = "tcp://127.0.0.1:0"
+    cfg.p2p.pex_reactor = True
+    cfg.p2p.skip_upnp = True
+    cfg.statesync.snapshot_interval = NODE_SNAPSHOT_INTERVAL
+    cfg.pruning.retain_blocks = 0
+    cc = cfg.consensus
+    cc.timeout_commit = NODE_TIMEOUT_COMMIT
+    cc.skip_timeout_commit = True
+    cc.timeout_propose = cc.timeout_prevote = cc.timeout_precommit = 60.0
+    os.makedirs(cfg.base.db_dir(), exist_ok=True)
+    with open(os.path.join(root, "config.toml"), "w") as f:
+        f.write(config_to_toml(cfg))
+    setup.doc.save_as(cfg.base.genesis_file())
+    setup.p.PrivValidatorFS(setup.own_key, cfg.base.priv_validator_file()).save()
+    return cfg.base.db_dir()
+
+
+# The node's Verifier and Hasher are called with no source tag, so phase 37
+# names each call by where it runs: the gate's thread, or the first of these
+# functions of the port on the caller's stack. The smoke depends on these
+# internal names alone; a renamed one shows as an unexpected source, which
+# node_expected refuses.
+NODE_GATE_THREAD = "mempool.sigbatch"  # mempool/mempool.py, SigBatcher's thread
+NODE_CALL_SITES = {
+    "deliver_txs": "deliver",  # abci/apps/signedkv.py, a block's signatures
+    "reconstruct_last_commit": "seen_commit",  # consensus/state.py, a restart's prime
+    "_chunk_digests": "snapshot",  # statesync/producer.py, a snapshot's chunk digests
+    "_hash_batch": "tree",  # statetree/tree.py, one commit wave
+    "from_data": "parts",  # types/part_set.py, a part set's host leaves
+}
+
+
+def call_site(default: str, depth: int = 2) -> str:
+    """The NODE_CALL_SITES name of the nearest listed function on the
+    caller's stack, else `default`."""
+    frame = sys._getframe(depth)
+    while frame is not None:
+        named = NODE_CALL_SITES.get(frame.f_code.co_name)
+        if named is not None:
+            return named
+        frame = frame.f_back
+    return default
+
+
+class node_verify_log(verify_log):
+    """verify_log around the node's own Verifier, whose callers are not
+    tagged: a dispatch is named by where it runs: the gate's thread
+    ("gate"), the signed kvstore's deliver_txs ("deliver"), the restart's
+    reconstruct_last_commit ("seen_commit"), a vote micro-batch ("vote"),
+    an aggregate LastCommit ("aggregate"), else a full LastCommit
+    ("commit")."""
+
+    def _note(self, source: str, lanes: int) -> None:
+        if source == "commit":
+            source = "gate" if threading.current_thread().name == NODE_GATE_THREAD else call_site("commit")
+        super()._note(source, lanes)
+
+
+class node_hash_log:
+    """The node's Hasher with every part_leaf_hashes batch recorded as
+    (source, leaves): "snapshot" for the snapshot producer's chunk digests,
+    "tree" for a state-tree wave, "parts" for a part set under the size
+    gate (PartSet.from_data's host leaves), else "other". The method is
+    wrapped on the instance, so the node's wiring (the app's tree, the
+    producer, the consensus state's part hasher) calls it as before."""
+
+    def __init__(self, hasher):
+        self.calls: list[tuple[str, int]] = []
+        self._mtx = threading.Lock()
+        leaf_hashes = hasher.part_leaf_hashes
+
+        def logged(chunks):
+            source = call_site("other")
+            with self._mtx:
+                self.calls.append((source, len(chunks)))
+            return leaf_hashes(chunks)
+
+        hasher.part_leaf_hashes = logged
+
+    def take(self) -> list[tuple[str, int]]:
+        with self._mtx:
+            out, self.calls = self.calls, []
+        return out
+
+
+class rpc_feeder:
+    """A wallet gateway in front of the node: a pool of NODE_RPC_CLIENTS
+    threads, each on its own keep-alive connection (HTTPClient keeps one a
+    thread), sends a burst by broadcast_tx_sync and keeps every answer. The
+    connections open one at a time before the first burst, as a gateway's
+    pool fills (64 at once overflow the RPC listener's backlog of 5)."""
+
+    def __init__(self, addr: str):
+        from concurrent.futures import ThreadPoolExecutor
+
+        from tendermint_tpu_torch.rpc.client import HTTPClient
+
+        self.client = HTTPClient(addr, timeout=60.0)
+        self.pool = ThreadPoolExecutor(NODE_RPC_CLIENTS, thread_name_prefix="wallet")
+        self.bursts: list[dict] = []
+        self._on_every_worker(self.client.status)
+
+    def _on_every_worker(self, fn) -> None:
+        """fn once on each of the pool's threads, one call at a time: each
+        call holds its thread until all have run, so no thread takes two."""
+        turn, all_in = threading.Lock(), threading.Barrier(NODE_RPC_CLIENTS)
+
+        def once() -> None:
+            try:
+                with turn:
+                    fn()
+            finally:
+                all_in.wait(timeout=NODE_WAIT_S)
+
+        for f in [self.pool.submit(once) for _ in range(NODE_RPC_CLIENTS)]:
+            f.result()
+
+    def send(self, txs: list[bytes]) -> tuple[dict[int, dict], list]:
+        from tendermint_tpu_torch.rpc.client import RPCClientError
+
+        def one(tx: bytes):
+            try:
+                return self.client.broadcast_tx_sync(tx=tx.hex()), None
+            except (RPCClientError, OSError) as exc:
+                return None, f"{type(exc).__name__}: {exc}"
+
+        reconnects = self.client.reconnects
+        t0 = time.perf_counter()
+        results = list(self.pool.map(one, txs))
+        seconds = time.perf_counter() - t0
+        answers = {i: a for i, (a, err) in enumerate(results) if err is None}
+        errors = [(i, err) for i, (_a, err) in enumerate(results) if err is not None]
+        self.bursts.append({"txs": len(txs), "seconds": seconds, "txs_per_s": len(txs) / seconds,
+                            "refused": sum(1 for a in answers.values() if a["code"]), "errors": len(errors),
+                            "reconnects": self.client.reconnects - reconnects})
+        return answers, errors
+
+    def close(self) -> None:
+        self._on_every_worker(self.client.close)
+        self.pool.shutdown()
+
+
+class node_adapter:
+    """committee_pump's view of a started port Node: its consensus state,
+    genesis, priv validator, block store and mempool, and `feed`, which
+    sends a burst over the node's own RPC (rpc_feeder) and waits until the
+    pool holds the accepted txs. The pump's start of the consensus state
+    finds it started (node.start() did, through the consensus reactor)."""
+
+    def __init__(self, p, node):
+        self.p, self.node = p, node
+        self.cs, self.doc, self.pv = node.consensus_state, node.genesis_doc, node.priv_validator
+        self.store, self.mempool = node.block_store, node.mempool
+        self.started = True
+        self.feeder = rpc_feeder(f"127.0.0.1:{node.rpc_port()}")
+
+    def feed(self, txs: list[bytes], timeout: float = EXEC_DRAIN_S) -> list[int]:
+        before = self.mempool.size()
+        answers, errors = self.feeder.send(txs)
+        if errors or len(answers) != len(txs):
+            raise AssertionError(f"RPC ingest: {len(errors)} of {len(txs)} txs shed or unanswered: {errors[:3]}")
+        refused = sorted(i for i, a in answers.items() if a["code"])
+        wait_for(lambda: self.mempool.size() >= before + len(txs) - len(refused), timeout,
+                 "the burst's accepted txs in the pool")
+        return refused
+
+    def close(self) -> None:
+        self.feeder.close()
+
+
+def _get_json(port: int, path: str) -> tuple[int, dict]:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as resp:
+            return resp.status, json.loads(resp.read().decode())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read().decode() or "{}")
+
+
+def node_rpc_reads(node, first: int, last: int) -> dict:
+    """What the node's own HTTP surface says after a session, each read
+    held against the node: /status at the last height, /health ok,
+    /block and /commit of each height of the session equal to the store's
+    bytes, GET /metrics' gateway_verify_* and gateway_hash_* equal to the
+    Verifier's and the Hasher's stats() (read before and after the
+    scrape, unchanged) with device counters above 0, a sampled tx's
+    /tx_trace stages, the session's /consensus_trace and /debug/flight's
+    refused votes and exceptions."""
+    import urllib.request
+
+    from tendermint_tpu_torch.rpc.client import HTTPClient
+    from tendermint_tpu_torch.types.block import Block
+
+    port = node.rpc_port()
+    client = HTTPClient(f"127.0.0.1:{port}")
+    store = node.block_store
+    status = client.status()
+    if status["latest_block_height"] != last:
+        raise AssertionError(f"/status: height {status['latest_block_height']}, expected {last}")
+    code, health = _get_json(port, "/health")
+    if code != 200 or health.get("status") != "ok":
+        raise AssertionError(f"/health: {code} {health}")
+    for h in range(first, last + 1):
+        got = client.block(height=h)
+        if Block.from_json(got["block"]).to_bytes() != store.load_block(h).to_bytes() or \
+                got["block_meta"] != json.loads(json.dumps(store.load_block_meta(h).to_json())):
+            raise AssertionError(f"/block at {h} differs from the store")
+        got = client.commit(height=h)
+        want = store.load_seen_commit(h) if h == last else store.load_block_commit(h)
+        if got["commit"] != json.loads(json.dumps(want.to_json())) or \
+                got["header"] != json.loads(json.dumps(store.load_block_meta(h).header.to_json())):
+            raise AssertionError(f"/commit at {h} differs from the store")
+    before = (node.verifier.stats(), node.hasher.stats())
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as resp:
+        body = resp.read().decode()
+    after = (node.verifier.stats(), node.hasher.stats())
+    if before != after:
+        raise AssertionError("the gateway's stats moved during the scrape")
+    scraped = {}
+    for line in body.splitlines():
+        if line.startswith(("gateway_verify_", "gateway_hash_")) and " " in line:
+            key, value = line.rsplit(" ", 1)
+            scraped[key] = float(value)
+    for prefix, stats in (("gateway_verify", before[0]), ("gateway_hash", before[1])):
+        for k, v in stats.items():
+            if isinstance(v, (int, float)) and not isinstance(v, bool) and scraped.get(f"{prefix}_{k}") != float(v):
+                raise AssertionError(f"/metrics {prefix}_{k} {scraped.get(f'{prefix}_{k}')} != stats() {v}")
+    device = {k: before[0][k] for k in ("tpu_batches", "tpu_sigs", "agg_batches", "agg_lanes_device")}
+    device.update({k: before[1][k] for k in ("tpu_part_batches", "tpu_tx_roots", "tpu_leaves")})
+    if not all(v > 0 for v in device.values()):
+        raise AssertionError(f"/metrics shows no device work: {device}")
+    traced = [t for t in client.tx_trace(last=256)["traces"] if t["outcome"] == "committed"]
+    if not traced:
+        raise AssertionError("/tx_trace: no committed trace")
+    sample = client.tx_trace(hash=traced[0]["hash"])["traces"]
+    stages = set(sample[0]["stages"]) if sample else set()
+    if not {"rpc_ingress", "sig_gate", "mempool_admit", "block_commit"} <= stages:
+        raise AssertionError(f"/tx_trace {traced[0]['hash']}: stages {sorted(stages)}")
+    traces = client.consensus_trace(last=last - first + 1)["traces"]
+    _, flight = _get_json(port, "/debug/flight")
+    rejects = [(e["height"], e["type"], e["err"].split(":")[0]) for e in flight["events"] if e["kind"] == "vote_reject"]
+    exceptions = [e for e in flight["events"] if e["kind"] == "exception"]
+    return {"status_height": status["latest_block_height"], "health": health["status"], "metrics_device": device,
+            "tx_trace": {"hash": traced[0]["hash"], "stages": sample[0]["stages"], "spans": sample[0]["spans"]},
+            "traces": sorted(traces, key=lambda t: t["height"]), "rejects": rejects, "exceptions": exceptions}
+
+
+def node_session(setup, vlog, hlog, root: str, first: int, last: int, restarted: bool, on_started=None) -> dict:
+    """One session of the port Node in `root`: built by default_new_node
+    from the home's config (on a home that holds a chain: the Handshaker's
+    replay, the WAL, the seen commit primed), started, pumped through
+    heights first..last by committee_pump over node_adapter, its launches
+    read once the session's snapshots are on disk, its RPC read, stopped.
+    The block times are pinned through the consensus state's
+    propose_time_source seam, as phase 31's node pins them."""
+    from tendermint_tpu_torch.config.toml import load_config
+    from tendermint_tpu_torch.node import default_new_node
+    from tendermint_tpu_torch.types.tx import tx_hash
+
+    verifier = vlog.verifier
+    gc.collect()
+    reset_launches()
+    t0 = time.perf_counter()
+    node = default_new_node(load_config(root))
+    build_s = time.perf_counter() - t0
+    if node.verifier is not verifier:
+        raise AssertionError("the node did not take the gateway's default Verifier")
+    node.consensus_state.propose_time_source = lambda h: BLOCK_TIME_NS + h * 10**9
+    node.start()
+    adapter = None
+    try:
+        if on_started is not None:
+            on_started(node)
+        adapter = node_adapter(setup.p, node)
+        out = committee_pump(adapter, setup.keys, setup.bursts, first, last, forged_height=NODE_FORGED_HEIGHT,
+                             restarted=restarted, wait_s=NODE_WAIT_S)
+        snaps = {h for h in range(first, last + 1) if h % NODE_SNAPSHOT_INTERVAL == 0}
+        wait_for(lambda: snaps <= set(node.snapshot_store.heights()), NODE_WAIT_S, "the session's snapshots")
+        if DEVICE != "cpu":
+            _sync()
+        launches = read_launches()
+        calls, hash_calls = vlog.take(), hlog.take()
+        store = node.block_store
+        records = []
+        for h in range(1, last + 1):
+            meta, block = store.load_block_meta(h), store.load_block(h)
+            records.append({"height": h, "parts_total": meta.block_id.parts_header.total,
+                            "block": block.to_bytes(), "txs": list(block.data.txs)})
+        round_zero = all(all(v is None or v.round_ == 0 for v in store.load_seen_commit(h).precommits)
+                         for h in range(first, last + 1))
+        rpc = node_rpc_reads(node, first, last)
+        index = [[node.tx_indexer.get(tx_hash(tx)).to_json() for tx in r["txs"][:NODE_INDEX_SAMPLE]]
+                 for r in records]
+        ingest = list(adapter.feeder.bursts)
+        device_error = node.consensus_state.device_error
+        gate = {"fail_open": node.mempool.sig_batcher.fail_open, "device_error": node.mempool.sig_batcher.device_error}
+    finally:
+        if adapter is not None:
+            adapter.close()
+        node.stop()
+    if device_error is not None or gate["device_error"] is not None or gate["fail_open"] or rpc["exceptions"]:
+        raise AssertionError(f"node stopped: {device_error} {gate} {rpc['exceptions']}")
+    return {"out": out, "launches": launches, "calls": calls, "hash_calls": hash_calls, "records": records,
+            "round_zero": round_zero, "rpc": rpc, "index": index, "ingest": ingest, "build_s": build_s,
+            "gate": gate, "verifier": verifier.stats(), "hasher": node.hasher.stats()}
+
+
+def node_expected(run: dict, setup, first: int, last: int, gate: int, hash_gate: int, restarted: bool) -> dict:
+    """The dispatches and launches one session implies, from the code's call
+    sites (consensus/state.py, state/execution.py, the signed kvstore,
+    statesync/producer.py, statetree/tree.py), as committee_expected counts
+    them: four LastCommit checks a height from 2 (prevote, lock, finalize,
+    apply), "commit" (B1) for a full one, "aggregate" (dsm, n + 1 lanes)
+    from the upgrade; one deliver a height applied and, on a restart, one a
+    block the Handshaker replays, and the seen commit primed; the gate's
+    batches and the vote micro-batches as recorded (both batch by time).
+    A dispatch of `gate` lanes or more is one launch. K1 and K3: one each
+    a height's tx root and a part set of the node's own proposals of
+    `hash_gate` parts or more; K1 once more a state-tree wave (a replayed
+    block's too: the node hands the tree its Hasher before the handshake)
+    or a snapshot's chunk digests (one a height on the interval) of
+    `hash_gate` leaves or more."""
+    doc = setup.doc
+    calls = run["calls"]
+    heights = range(first, last + 1)
+    full = sum(h >= 2 and not doc.aggregate_commits_at(h) for h in heights)
+    agg = sum(doc.aggregate_commits_at(h) for h in heights)
+    replayed = first - 1 if restarted else 0
+    want = {"commit": 4 * full, "deliver": len(heights) + replayed, "aggregate": 4 * agg,
+            "seen_commit": 1 if restarted else 0}
+    got: dict[str, int] = {}
+    for src, _n in calls:
+        got[src] = got.get(src, 0) + 1
+    if {k: got.get(k, 0) for k in want} != want or set(got) - set(want) - {"vote", "gate", "one"}:
+        raise AssertionError(f"dispatches by source {got}, expected {want} and vote, gate, one")
+    fixed = [(src, n) for src, n in calls if src in want]
+    if any(n < gate for _src, n in fixed):
+        raise AssertionError(f"a LastCommit, deliver or seen commit under the size gate: {fixed}")
+    snaps = [src for src, _n in run["hash_calls"] if src == "snapshot"]
+    want_snaps = sum(h % NODE_SNAPSHOT_INTERVAL == 0 for h in heights)
+    if len(snaps) != want_snaps or any(src == "other" for src, _n in run["hash_calls"]):
+        raise AssertionError(f"hash calls {run['hash_calls']}: expected {want_snaps} snapshot digest batches")
+    parts = {r["height"]: r["parts_total"] for r in run["records"]}
+    own = sum(h in setup.own_heights and parts[h] >= hash_gate for h in heights)
+    own_host_parts = sum(parts[h] for h in heights if h in setup.own_heights and parts[h] < hash_gate)
+    leaves = [(src, n) for src, n in run["hash_calls"] if src != "parts"]  # own part sets are counted above
+    leaf_batches = sum(n >= hash_gate for _src, n in leaves)
+    snap_device = sum(n >= hash_gate for src, n in leaves if src == "snapshot")
+    b1 = sum(1 for src, n in calls if n >= gate and src != "aggregate")
+    return {"b1": b1, "dsm": 4 * agg, "ripemd160": len(heights) + own + leaf_batches,
+            "merkle_tree": len(heights) + own, "sources": want, "recorded": got, "own_proposals": own,
+            "own_host_parts": own_host_parts, "leaf_batches_device": leaf_batches,
+            "snapshots_device": snap_device,
+            "host_leaves": own_host_parts + sum(n for _src, n in leaves if n < hash_gate),
+            "b1_fixed": sum(want.values()) - 4 * agg,
+            "gate_lanes": [n for src, n in calls if src == "gate"],
+            "vote_lanes": [n for src, n in calls if src == "vote"]}
+
+
+def node_phase(name, power, seeds, bursts) -> dict:
+    """Phase 37: the node_validator cell on the card. One port Node, built
+    by default_new_node from a home written as an operator's (node_home),
+    takes the gateway's defaults (the card's Verifier and Hasher; no daemon
+    serves), and commits heights 1..NODE_HEIGHTS under committee_pump with
+    the other 99 keys as its stubs; each burst reaches it over its own
+    HTTP JSON-RPC broadcast_tx_sync from NODE_RPC_CLIENTS client threads;
+    one stub's precommit at NODE_FORGED_HEIGHT is forged. The node stops; a
+    second Node from the same home (the Handshaker's replay, the WAL)
+    commits the rest. A host replay of the node's stored chain
+    (gossip_reference, a process of its own beside the card) gives every
+    saved state, app hash and tx-index sample the node's; every valid tx
+    is in exactly one block and only the forged ones were refused, at every
+    height; only the forged precommit was refused; the node's HTTP answers
+    hold (node_rpc_reads); each session's launches, set to 0 before its
+    node is built and read after its pump and snapshots, equal
+    node_expected's, and the lanes and the Hasher's stats agree. Returns
+    what phase 38 needs and the launches."""
+    from tendermint_tpu_torch.libs.db import db_provider
+    from tendermint_tpu_torch.ops import gateway
+    from tendermint_tpu_torch.state.state import State
+    from tendermint_tpu_torch.types import tx as ptx
+
+    tag = {"card": name, "power_limit": power}
+    setup = node_setup(seeds, bursts)
+    n = len(setup.keys)
+    total = setup.own_power + n - 1
+    log({"phase": "node_setup", **tag, "validators": n, "node_power": setup.own_power, "total_power": total,
+         "node_proposes_at": setup.own_heights, "upgrade_height": NODE_UPGRADE_HEIGHT, "heights": NODE_HEIGHTS,
+         "restart_heights": NODE_RESTART_HEIGHTS, "txs_per_height": [len(b["txs"]) for b in bursts],
+         "forged_precommit_height": NODE_FORGED_HEIGHT, "rpc_clients": NODE_RPC_CLIENTS,
+         "snapshot_interval": NODE_SNAPSHOT_INTERVAL, "timeout_commit_s": NODE_TIMEOUT_COMMIT})
+    saved = gateway._default_verifier, gateway._default_hasher
+    root = tempfile.mkdtemp(prefix="node-validator-")
+    reference = multiprocessing.get_context("spawn").Pool(1)
+    pending = {}
+    t_phase = time.perf_counter()
+    try:
+        with routed_to():
+            gateway._default_verifier = gateway._default_hasher = None
+            verifier, hasher = gateway.default_verifier(), gateway.default_hasher()
+            if verifier.kernel != "f32p" or hasher._route != "local":
+                raise AssertionError(f"the node's routes: {verifier.kernel}, {hasher._route}")
+            vlog, hlog = node_verify_log(verifier), node_hash_log(hasher)
+            db_dir = node_home(setup, root)
+
+            def start_reference(_node) -> None:
+                # the host replay follows the node's store from now on
+                pending["ref"] = reference.apply_async(gossip_reference, (db_dir, setup.doc.to_json(), setup.last,
+                                                                          NODE_INDEX_SAMPLE, 10 * NODE_WAIT_S))
+
+            sessions = ((1, NODE_HEIGHTS, False), (NODE_HEIGHTS + 1, setup.last, True))
+            runs = []
+            for a, b, restarted in sessions:
+                runs.append(node_session(setup, vlog, hlog, root, a, b, restarted,
+                                         on_started=None if restarted else start_reference))
+            db = db_provider("state", "sqlite", db_dir)
+            try:
+                final_state = State.load_state(db, setup.doc).bytes_()
+            finally:
+                db.close()
+            t_ref = time.perf_counter()
+            ref = pending["ref"].get(timeout=10 * NODE_WAIT_S)
+            ref_wait_s = time.perf_counter() - t_ref
+    finally:
+        reference.terminate()
+        reference.join()
+        ptx.set_batch_tx_root(None)
+        gateway._default_verifier, gateway._default_hasher = saved
+        shutil.rmtree(root, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+
+    # -- the checks ----------------------------------------------------------
+    gate, hash_gate = verifier.min_tpu_batch, hasher.min_tpu_batch
+    last = setup.last
+    states = {**runs[0]["out"]["states"], **runs[1]["out"]["states"]}
+    if runs[1]["out"]["states"][NODE_HEIGHTS] != runs[0]["out"]["states"][NODE_HEIGHTS]:
+        raise AssertionError("the restarted node's state differs from the stopped node's")
+    node_states = [states[h] for h in range(1, last + 1)]
+    if node_states != ref["states"][-last:] or final_state != ref["states"][-1]:
+        raise AssertionError(f"saved states differ from the host reference's ({len(ref['states'])})")
+    if runs[1]["index"] != ref["index"]:
+        raise AssertionError("the tx-index samples differ from the host reference's")
+    if not all(r["parts"] and r["data_hash"] for r in ref["roots"]):
+        raise AssertionError(f"a block's part-set root or tx root differs on the host: {ref['roots']}")
+    if any(ref["launches"].values()):
+        raise AssertionError(f"the host reference launched kernels: {ref['launches']}")
+    records = runs[1]["records"]
+    if [r["block"] for r in runs[0]["records"]] != [r["block"] for r in records[:NODE_HEIGHTS]]:
+        raise AssertionError("the restarted node's store differs from the stopped node's")
+    committed: dict[bytes, int] = {}
+    for r in records:
+        for tx in r["txs"]:
+            committed[tx] = committed.get(tx, 0) + 1
+    valid = {tx for b in bursts for i, tx in enumerate(b["txs"]) if i not in set(b["forged"])}
+    if set(committed) != valid or any(c != 1 for c in committed.values()):
+        raise AssertionError(f"{len(set(committed) - valid)} txs committed outside the bursts' valid ones, "
+                             f"{len(valid - set(committed))} valid ones not, "
+                             f"{sum(c > 1 for c in committed.values())} more than once")
+    own_burst = [len(r["txs"]) == len(bursts[r["height"] - 1]["txs"]) - len(bursts[r["height"] - 1]["forged"])
+                 for r in records]
+    refused = {**runs[0]["out"]["refused"], **runs[1]["out"]["refused"]}
+    if sorted(refused) != list(range(1, last + 1)) or any(refused[h] != bursts[h - 1]["forged"] for h in refused):
+        raise AssertionError(f"the gate refused other txs than the forged ones: {refused}")
+    rejects = [runs[0]["rpc"]["rejects"], runs[1]["rpc"]["rejects"]]
+    if rejects != [[(NODE_FORGED_HEIGHT, 2, "InvalidSignatureError")], []]:
+        raise AssertionError(f"refused votes {rejects}: expected the forged precommit alone")
+    if runs[0]["out"]["forged"] is None or not all(r["round_zero"] for r in runs):
+        raise AssertionError("the forged precommit was not sent, or a height committed after round 0")
+    launches, exps = {}, []
+    for i, ((a, b, restarted), run) in enumerate(zip(sessions, runs)):
+        label = f"node session {i + 1}"
+        exp = node_expected(run, setup, a, b, gate, hash_gate, restarted)
+        exps.append(exp)
+        _launch_delta(run["launches"], {k: exp[k] for k in ("b1", "dsm", "ripemd160", "merkle_tree")}, label)
+        for k in ("b1", "dsm", "ripemd160", "merkle_tree"):
+            launches[k] = launches.get(k, 0) + run["launches"][k]
+        log({"phase": "node_path", **tag, "session": i + 1, "heights": [a, b], "restarted": restarted,
+             "launches": run["launches"], "sources": exp["sources"], "recorded": exp["recorded"],
+             "gate_batches": len(exp["gate_lanes"]), "gate_lanes": sum(exp["gate_lanes"]),
+             "gate_lanes_host": sum(x for x in exp["gate_lanes"] if x < gate),
+             "vote_batches": len(exp["vote_lanes"]), "hash_calls": run["hash_calls"],
+             "snapshots_device": exp["snapshots_device"], "build_s": run["build_s"],
+             "wall_s": run["out"]["wall_s"], "ingest": run["ingest"], "rpc": {k: run["rpc"][k] for k in (
+                 "status_height", "health", "metrics_device", "tx_trace")}})
+    # the lanes: the verifier's and the Hasher's stats over the whole phase
+    all_calls = runs[0]["calls"] + runs[1]["calls"]
+    # (cpu_sigs is not held: a lone verify_one of a primed vote pops its lane)
+    lanes = {"tpu_sigs": sum(n for src, n in all_calls if n >= gate and src != "aggregate"),
+             "agg_lanes_device": sum(n for src, n in all_calls if n >= gate and src == "aggregate"),
+             "agg_lanes_cpu": sum(n for src, n in all_calls if n < gate and src == "aggregate")}
+    vstats = runs[1]["verifier"]
+    if {k: vstats[k] for k in lanes} != lanes:
+        raise AssertionError(f"verifier lanes { {k: vstats[k] for k in lanes} }, expected {lanes}")
+    hs = runs[1]["hasher"]
+    want_hash = {"tpu_tx_roots": last, "tpu_part_batches": sum(e["own_proposals"] + e["leaf_batches_device"]
+                                                               for e in exps),
+                 "cpu_leaves": sum(e["host_leaves"] for e in exps)}
+    if {k: hs[k] for k in want_hash} != want_hash:
+        raise AssertionError(f"hasher { {k: hs[k] for k in want_hash} }, expected {want_hash}")
+    log({"phase": "node_plane", **tag, "validators": n, "heights": last, "launches": launches, "lanes": lanes,
+         "hasher": {k: hs[k] for k in ("tpu_part_batches", "tpu_tx_roots", "tpu_leaves", "cpu_leaves")},
+         "forged_precommit": runs[0]["out"]["forged"], "burst_in_its_height": own_burst,
+         "phase_s": phase_s, "reference_wait_s": ref_wait_s,
+         "records": "equal to the host replay; /block and /commit equal to the store"})
+    return {"setup": setup, "runs": runs, "ref": ref, "launches": launches, "gate": gate, "exps": exps,
+            "phase_s": phase_s, "ref_wait_s": ref_wait_s}
+
+
+def node_time(name, power, ctx) -> None:
+    """Phase 38: phase 37's run as its operator reads it, through the node's
+    RPC and its stats(): each height's wall and /consensus_trace segments;
+    the RPC ingest rate of each burst (txs/s from the first send to the
+    last answer); the gate's batches, their widths and the share of gate
+    lanes that fell under the size gate to the native CPU floor; the
+    restart's build seconds (default_new_node: the handshake's replay of
+    the stored blocks into a fresh app); the host replay's seconds and the
+    phase's own."""
+    tag = {"card": name, "power_limit": power}
+    gate = ctx["gate"]
+    for i, run in enumerate(ctx["runs"]):
+        heights = [{"height": t["height"], "wall_s": t["wall_s"], "segments": t["segments"]}
+                   for t in run["rpc"]["traces"]]
+        exp = ctx["exps"][i]
+        gate_lanes = exp["gate_lanes"]
+        log({"phase": "node_time", **tag, "session": i + 1, "wall_s": run["out"]["wall_s"],
+             "blocks_per_sec": len(heights) / run["out"]["wall_s"], "pump_sign_s": run["out"]["sign_s"],
+             "per_height": heights, "build_s": run["build_s"],
+             "ingest_txs_per_s": [b["txs_per_s"] for b in run["ingest"]],
+             "ingest_s": [b["seconds"] for b in run["ingest"]],
+             "gate_batches": len(gate_lanes), "gate_widths": sorted(gate_lanes),
+             "gate_host_share": sum(x for x in gate_lanes if x < gate) / max(1, sum(gate_lanes)),
+             "vote_batches": len(exp["vote_lanes"])})
+    log({"phase": "node_time", **tag, "restart_build_s": ctx["runs"][1]["build_s"],
+         "reference_replay_s": ctx["ref"]["seconds"], "reference_wait_s": ctx["ref_wait_s"],
+         "phase_37_s": ctx["phase_s"]})
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -11,7 +11,9 @@ deliberate difference: only the errors a bad block or commit raises
 (`CommitError`) count as "sent invalid block". Any other error of the
 verify, such as a kernel that fails to build or launch, ends the sync
 loop: it is logged, kept in `sync_error`, and the reactor stops, where
-the JAX package would drop an honest peer and fetch the height again.
+the JAX package would drop an honest peer and fetch the height again. A
+`DeviceError` of the post-apply hook (the snapshot producer's chunk
+digests) ends the loop the same way; the JAX package logs it and syncs on.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import time
 
 from tendermint_tpu_torch.blockchain.pool import BlockPool
 from tendermint_tpu_torch.libs.service import BaseService
+from tendermint_tpu_torch.ops import gateway
 from tendermint_tpu_torch.p2p.conn import ChannelDescriptor
 from tendermint_tpu_torch.p2p.switch import Reactor
 from tendermint_tpu_torch.types.block import Block
@@ -491,10 +494,12 @@ class BlockchainReactor(Reactor, BaseService):
         if first.evidence.evidence and self.evidence_pool is not None:
             self.evidence_pool.mark_committed(first.evidence.evidence)
         if self.post_apply_hook is not None:
-            # snapshot production during catch-up; best-effort
-            # by contract — the hook must never stall or kill the sync loop
+            # snapshot production during catch-up: any error of the hook
+            # is logged and the sync goes on, but a DeviceError ends it
             try:
                 self.post_apply_hook(self.state, first)
+            except gateway.DeviceError:
+                raise  # ends the sync loop: kept in sync_error
             except Exception:  # noqa: BLE001
                 self.logger.exception("post-apply hook failed at %d", first.header.height)
         return True

@@ -50,8 +50,10 @@ handlers re-raise it, the routine stops, and the error is logged once and
 kept in ``device_error``; the JAX package would fall through to
 singleton CPU verifies or drop the proposal as invalid. The consensus
 reactor hands it one met on a peer's receive thread
-(``stop_on_device_error``). Input errors from peers keep the JAX
-handling.
+(``stop_on_device_error``), and so does the post-apply hook (the snapshot
+producer's chunk digests), where the JAX package logs every error and
+carries on. Input errors from peers, and any other error of the hook,
+keep the JAX handling.
 """
 
 from __future__ import annotations
@@ -1527,8 +1529,8 @@ class ConsensusState(BaseService):
     def _post_apply_tail(self, state_copy, block, event_cache, height: int,
                          mark_trace: bool) -> None:
         """The post-apply work both finalize modes share: snapshot hook
-        (best-effort — a producer failure must never wedge consensus)
-        then NewBlock/NewBlockHeader + the cached tx events, post-commit.
+        (an error of the hook is logged and consensus goes on, but a
+        DeviceError stops consensus) then NewBlock/NewBlockHeader + the cached tx events, post-commit.
         Serial mode runs it inline with trace segment marks; pipelined
         mode runs it as the executor's tail (EventSwitch is
         lock-protected; subscribers already handle cross-thread fires
@@ -1544,6 +1546,9 @@ class ConsensusState(BaseService):
             # state and the app just committed H
             try:
                 self.post_apply_hook(state_copy, block)
+            except gateway.DeviceError as exc:
+                # a failed kernel is not a failed snapshot: stop consensus
+                self.stop_on_device_error(exc)
             except Exception:  # noqa: BLE001
                 self.logger.exception("post-apply hook failed at %d", height)
         if mark_trace:

@@ -1,1 +1,3 @@
-"""The node package: for now only `health`; the node itself comes later."""
+from tendermint_tpu_torch.node.node import Node, default_new_node
+
+__all__ = ["Node", "default_new_node"]

@@ -1,8 +1,6 @@
-"""TCP listener (reference: p2p/listener.go:51-110).
-
-The JAX package's listener can also try an IGD port mapping (UPnP) for
-its external address. The port has no `p2p/upnp.py` yet, so
-`skip_upnp=False` raises instead of quietly listening unmapped."""
+"""TCP listener with optional UPnP NAT traversal (reference:
+p2p/listener.go:51-110 — try an IGD port mapping for the external
+address, fall back to the bound interface address)."""
 
 from __future__ import annotations
 
@@ -16,8 +14,6 @@ logger = logging.getLogger("p2p.listener")
 
 class Listener:
     def __init__(self, laddr: str, skip_upnp: bool = True):
-        if not skip_upnp:
-            raise NotImplementedError("UPnP port mapping (p2p/upnp.py) is not in the port yet")
         addr = NetAddress.from_string(laddr) if laddr else NetAddress("0.0.0.0", 0)
         self.sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self.sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -26,13 +22,39 @@ class Listener:
         host, port = self.sock.getsockname()[:2]
         self._internal = NetAddress(host, port)
         self._closed = False
+        self._upnp_external: NetAddress | None = None
+        self._upnp_nat = None
+        if not skip_upnp:
+            self._try_upnp()
+
+    def _try_upnp(self) -> None:
+        """Map our port on a discovered IGD and learn the external IP
+        (listener.go:51-74). Every failure means 'no NAT': log and move
+        on — startup must not block on a network with no gateway."""
+        from tendermint_tpu_torch.p2p import upnp
+
+        try:
+            nat = upnp.discover(timeout=1.0)
+            ext_ip = nat.get_external_address()
+            nat.add_port_mapping(
+                "tcp", self._internal.port, self._internal.port,
+                "tendermint-tpu p2p", 0,
+            )
+            self._upnp_nat = nat
+            self._upnp_external = NetAddress(ext_ip, self._internal.port)
+            logger.info("UPnP mapped port %d, external %s", self._internal.port, ext_ip)
+        except upnp.UPnPError as exc:
+            logger.info("UPnP unavailable: %s", exc)
 
     def internal_address(self) -> NetAddress:
         return self._internal
 
     def external_address(self) -> NetAddress:
-        """Best-effort: the address a remote would dial: with a wildcard
-        bind, the primary interface address."""
+        """Best-effort: the address a remote would dial. UPnP-discovered
+        external address first; with a wildcard bind, the primary
+        interface address."""
+        if self._upnp_external is not None:
+            return self._upnp_external
         if self._internal.ip not in ("0.0.0.0", "::"):
             return self._internal
         try:
@@ -79,3 +101,10 @@ class Listener:
                 self.sock.close()
             except OSError:
                 pass
+            if self._upnp_nat is not None:
+                from tendermint_tpu_torch.p2p import upnp
+
+                try:
+                    self._upnp_nat.delete_port_mapping("tcp", self._internal.port)
+                except upnp.UPnPError:
+                    pass

@@ -1118,3 +1118,44 @@ def test_add_peer_message_never_blocks_when_full():
     cs.add_vote_msg(v, "peerX")
     assert time.monotonic() - t0 < cs.PEER_PUT_TIMEOUT + 1.0
     assert cs._peer_msg_drops == 4
+
+
+@pytest.mark.parametrize("pipelined", [True, False], ids=["pipelined", "serial"])
+@pytest.mark.parametrize("error", ["device", "other"])
+def test_post_apply_hook_device_error_stops_consensus(error, pipelined, caplog):
+    """The post-apply hook (where a node wires its snapshot producer) raises
+    at height 2. A DeviceError goes to stop_on_device_error: logged once,
+    kept in device_error, and no height after 2 commits. Any other error
+    of the hook is logged and consensus goes on, as in the JAX package."""
+    config = _test_config().consensus
+    config.root_dir = tempfile.mkdtemp(prefix="cs-test-")
+    config.pipeline_apply = pipelined
+    cs, _stubs, _ = make_cs_and_stubs(1, app=KVStoreApp(), config=config)
+
+    def hook(state, block):
+        if block.header.height == 2:
+            if error == "device":
+                raise gateway.DeviceError("K1 snapshot digests: cudaError 700")
+            raise ValueError("disk full")
+
+    cs.post_apply_hook = hook
+    cs.start()
+    try:
+        if error == "device":
+            deadline = time.monotonic() + 15
+            while cs.device_error is None and time.monotonic() < deadline:
+                time.sleep(0.01)
+            assert isinstance(cs.device_error, gateway.DeviceError)
+            time.sleep(1.0)
+            assert cs.block_store.height() <= 3
+            stopped_at = cs.block_store.height()
+            time.sleep(0.5)
+            assert cs.block_store.height() == stopped_at
+            stopped = [r for r in caplog.records if "consensus stopped at height" in r.getMessage()]
+            assert len(stopped) == 1
+        else:
+            assert wait_for_height(cs, 5, timeout=15)
+            assert cs.device_error is None
+            assert any("post-apply hook failed at 2" in r.getMessage() for r in caplog.records)
+    finally:
+        cs.stop()

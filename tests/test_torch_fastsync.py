@@ -563,3 +563,42 @@ def test_fast_sync_hands_over_to_the_real_consensus_reactor(monkeypatch):
         assert joiner.cs.device_error is None
     finally:
         stop_net([net, joiner], switches)
+
+
+@pytest.mark.parametrize("error", ["device", "other"])
+def test_post_apply_hook_device_error_stops_the_sync(error):
+    """The post-apply hook (the snapshot producer's chunk digests) raises at
+    B's second applied height. A DeviceError ends the sync as a failed
+    verify does: kept in sync_error, the reactor stopped, A still
+    connected, no later height applied. Any other error of the hook is
+    logged and the sync carries on, as in the JAX package."""
+    from tendermint_tpu_torch.ops.gateway import DeviceError
+
+    doc, keys = genesis(PORT, 4)
+    a = Chain(PORT, doc, keys, heights=5)
+    applied = []
+
+    def hook(state, block):
+        applied.append(block.header.height)
+        if block.header.height == 2:
+            raise DeviceError("K1 snapshot digests: cudaError 700") if error == "device" else ValueError("disk full")
+
+    node_a = Node(PORT, doc, fast_sync=False, chain=a)
+    node_b = Node(PORT, doc, fast_sync=True, post_apply_hook=hook)
+    try:
+        node_b.dial(node_a)
+        if error == "device":
+            assert wait_until(lambda: node_b.bc.sync_error is not None, timeout=30)
+            assert isinstance(node_b.bc.sync_error, DeviceError)
+            assert not node_b.bc.is_running() and not node_b.bc.pool.is_running()
+            time.sleep(0.5)
+            assert applied == [1, 2] and node_b.store.height() == 2
+            assert node_b.stops == [] and node_a.stops == []
+            assert node_b.sw.peers.size() == 1 and node_a.sw.peers.size() == 1
+        else:
+            # the store saves a height before its apply and hook run
+            assert wait_until(lambda: node_b.store.height() == 4 and len(applied) >= 4, timeout=30)
+            assert node_b.bc.sync_error is None and applied[:4] == [1, 2, 3, 4]
+    finally:
+        node_a.stop()
+        node_b.stop()

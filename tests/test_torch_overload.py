@@ -4,15 +4,19 @@ caps, the load-shed ladder, request deadlines) in TestAdmission, the
 WebSocket fan-out backpressure (rpc/server.py WSConnection) in
 TestWSBackpressure, and the mempool lanes (mempool/mempool.py: priority
 lanes, typed rejects, per-source limits, reap order) in TestMempoolLanes
-and TestLaneHammer. The file's four live-node cases need the node, which
-the port does not hold yet (A.7e-2). The last case holds the port's
+and TestLaneHammer, and the file's four live-node wire contracts on a
+port node (on the CPU defaults). test_lanes_equal_jax holds the port's
 lanes against the JAX package's on the same submissions."""
 
 from __future__ import annotations
 
+import json
 import socket
+import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
 from types import SimpleNamespace
 
 import pytest
@@ -31,6 +35,7 @@ from tendermint_tpu_torch.proxy.app_conn import AppConnMempool
 from tendermint_tpu_torch.rpc import admission
 from tendermint_tpu_torch.rpc.admission import AdmissionController, retry_after_header
 from tendermint_tpu_torch.rpc.core import handlers
+from tests.test_torch_node_rpc import host_defaults  # noqa: F401 — module-scoped CPU defaults
 
 
 def wait_until(cond, timeout=30.0, tick=0.05):
@@ -465,3 +470,105 @@ def test_lanes_equal_jax(monkeypatch):
     got = run("tendermint_tpu_torch")
     assert got == run("tendermint_tpu")
     assert {"ok", "TxInCacheError", "MempoolSourceLimitError"} <= set(got[0])
+
+
+# -- live node: wire contracts -----------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def node(host_defaults):  # noqa: F811
+    from tendermint_tpu_torch.config import reset_test_root
+    from tendermint_tpu_torch.node import default_new_node
+
+    tmp = tempfile.mkdtemp(prefix="tmd", dir="/tmp")
+    cfg = reset_test_root(tmp)
+    cfg.base.proxy_app = "kvstore"
+    cfg.rpc.laddr = "tcp://127.0.0.1:0"
+    cfg.p2p.laddr = "tcp://127.0.0.1:0"
+    n = default_new_node(cfg)
+    n.start()
+    assert wait_until(lambda: n.block_store.height() >= 1, timeout=30)
+    yield n
+    n.stop()
+
+
+@pytest.fixture(scope="module")
+def client(node):
+    from tendermint_tpu_torch.rpc.client import HTTPClient
+
+    return HTTPClient(f"127.0.0.1:{node.rpc_port()}")
+
+
+def test_duplicate_tx_is_typed_not_500(node, client):
+    from tendermint_tpu_torch.rpc.client import RPCClientError
+
+    tx = b"overload-dup=1".hex()
+    assert client.broadcast_tx_sync(tx=tx)["code"] == 0
+    with pytest.raises(RPCClientError, match="^tx_in_cache:"):
+        client.broadcast_tx_sync(tx=tx)
+
+
+def test_rate_limit_429_retry_after_on_the_wire(node, client, monkeypatch):
+    monkeypatch.setenv("TENDERMINT_RPC_RATE_LIMIT", "1")
+    monkeypatch.setenv("TENDERMINT_RPC_RATE_BURST", "1")
+    url = f"http://127.0.0.1:{node.rpc_port()}/"
+    payload = json.dumps({"jsonrpc": "2.0", "id": 1, "method": "status",
+                          "params": {}}).encode()
+
+    def post():
+        req = urllib.request.Request(
+            url, data=payload, headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=10) as resp:
+                return resp.status, dict(resp.headers), resp.read()
+        except urllib.error.HTTPError as exc:
+            return exc.code, dict(exc.headers), exc.read()
+
+    before = node.rpc_admission.sheds[admission.SHED_RATE_LIMITED]
+    results = [post() for _ in range(5)]
+    limited = [r for r in results if r[0] == 429]
+    assert limited, [r[0] for r in results]
+    status, headers, body = limited[0]
+    assert int(headers["Retry-After"]) >= 1
+    assert json.loads(body)["error"] == "shed:rate_limited"
+    assert node.rpc_admission.sheds[admission.SHED_RATE_LIMITED] > before
+    # ops endpoints stay reachable while the same IP is throttled
+    with urllib.request.urlopen(
+        f"http://127.0.0.1:{node.rpc_port()}/metrics", timeout=10
+    ) as resp:
+        assert resp.status == 200
+
+
+def test_ws_dead_socket_between_subscribe_and_event(node):
+    """Regression: a subscriber whose socket dies between
+    subscribe and the next event must be torn down on the server —
+    listener deregistered, registry slot freed — not leak a callback on
+    the event delivery path."""
+    from tendermint_tpu_torch.rpc.client import WSClient
+
+    ws = WSClient(f"127.0.0.1:{node.rpc_port()}")
+    ws.subscribe("NewBlock")
+    assert wait_until(
+        lambda: any(l.startswith("ws-") for l in node.evsw._listeners),
+        timeout=10)
+    assert node.rpc_admission.ws_clients() == 1
+    # kill the socket abruptly — no close frame, no unsubscribe
+    ws.sock.close()
+    assert wait_until(
+        lambda: not any(l.startswith("ws-") for l in node.evsw._listeners),
+        timeout=15), "dead subscriber left its event listener registered"
+    assert wait_until(lambda: node.rpc_admission.ws_clients() == 0, timeout=10)
+
+
+def test_overload_monitor_level_and_snapshot(node):
+    mon = node.overload
+    snap = mon.snapshot()
+    assert snap["level"] == 0
+    assert 0.0 <= snap["score"] <= 1.0
+    for key in ("frac_mempool", "frac_rpc_inflight", "frac_ws_queue",
+                "frac_apply_backlog"):
+        assert key in snap, key
+    # the ladder level is what both ingress layers consult (bound-method
+    # equality: same function, same monitor)
+    assert node.rpc_admission.pressure_fn == mon.level
+    assert node.mempool.pressure_fn == mon.level

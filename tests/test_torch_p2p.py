@@ -1,10 +1,9 @@
 """The port's transport (p2p/, libs/flowrate.py, version.py) against the
 JAX package's.
 
-The cases of tests/test_p2p.py that do not need the address book and
-PEX reactor (which the port does not hold yet) run on the port's
-modules (the two on the gossip reactors' channel ceilings at the end),
-and so do the flowrate and PeerSet cases of tests/test_libs_wire.py. Beside them: MConnection packets and NodeInfo
+The cases of tests/test_p2p.py run on the port's modules (the two on
+the gossip reactors' channel ceilings, then the address book and PEX
+cases, at the end), and so do the flowrate and PeerSet cases of tests/test_libs_wire.py. Beside them: MConnection packets and NodeInfo
 bytes equal to the JAX package's for the same messages, an MConnection
 of each package on the two ends of one stream, and a port Switch and a
 JAX Switch peered over TCP with secret connections, either side dialing,
@@ -32,6 +31,7 @@ from tendermint_tpu_torch.p2p import (
     connect2_switches,
     make_connected_switches,
 )
+from tendermint_tpu_torch.p2p.addrbook import AddrBook
 from tendermint_tpu_torch.p2p.node_info import default_version
 from tendermint_tpu_torch.p2p.secret_connection import SecretConnection
 from tendermint_tpu_torch.p2p.stream import pipe_pair
@@ -331,11 +331,28 @@ def test_switch_tcp_listener_end_to_end():
         sw_b.stop()
 
 
-def test_listener_refuses_upnp_until_ported():
+def test_listener_refuses_upnp_until_ported(monkeypatch):
+    """Listener(skip_upnp=False) tries an IGD port mapping (p2p/upnp.py) and,
+    where no gateway answers, listens unmapped: the external address is the
+    bound one and stop() deletes no mapping. Discovery is pointed at a
+    local UDP socket that never answers."""
+    import functools
+
+    from tendermint_tpu_torch.p2p import upnp
     from tendermint_tpu_torch.p2p.listener import Listener
 
-    with pytest.raises(NotImplementedError, match="upnp"):
-        Listener("127.0.0.1:0", skip_upnp=False)
+    sink = _socket.socket(_socket.AF_INET, _socket.SOCK_DGRAM)
+    sink.bind(("127.0.0.1", 0))
+    monkeypatch.setattr(upnp, "discover", functools.partial(upnp.discover, ssdp_addr=sink.getsockname()))
+    try:
+        lst = Listener("127.0.0.1:0", skip_upnp=False)
+        try:
+            assert lst._upnp_nat is None
+            assert lst.external_address() == lst.internal_address()
+        finally:
+            lst.stop()
+    finally:
+        sink.close()
 
 
 def test_inbound_ip_range_count_released_on_peer_removal():
@@ -879,8 +896,7 @@ def test_reactor_recv_ceilings_right_sized():
     channel's largest legal message, equal to the JAX package's: every
     channel inheriting the 21 MiB block ceiling would let an
     oversized-frame peer park ~147 MiB of never-delivered reassembly
-    bytes across one connection's channels. (The PEX reactor's channel
-    waits for p2p/pex.py.)"""
+    bytes across one connection's channels."""
     from tendermint_tpu.consensus.reactor import ConsensusReactor as JConsensusReactor
     from tendermint_tpu.mempool.reactor import MempoolReactor as JMempoolReactor
     from tendermint_tpu_torch.codec import jsonval as jv
@@ -891,7 +907,9 @@ def test_reactor_recv_ceilings_right_sized():
         VOTE_SET_BITS_CHANNEL,
         ConsensusReactor,
     )
+    from tendermint_tpu.p2p.pex import PEXReactor as JPEXReactor
     from tendermint_tpu_torch.mempool.reactor import MempoolReactor
+    from tendermint_tpu_torch.p2p.pex import PEXReactor
     from tendermint_tpu_torch.types.params import MAX_BLOCK_PART_SIZE_BYTES
 
     caps = {
@@ -908,6 +926,8 @@ def test_reactor_recv_ceilings_right_sized():
     # ... but a MAX_TX_BYTES tx must still fit (hex-doubled + envelope)
     assert mp.recv_message_capacity >= 2 * jv.MAX_TX_BYTES
     assert mp.recv_message_capacity < 10 * (1 << 20)
+    [px] = PEXReactor.get_channels(None)
+    assert px.recv_message_capacity == 1 << 16
 
     def fields(descs):
         return [(d.id, d.priority, d.send_queue_capacity, d.recv_buffer_capacity, d.recv_message_capacity)
@@ -915,6 +935,7 @@ def test_reactor_recv_ceilings_right_sized():
 
     assert fields(ConsensusReactor.get_channels(None)) == fields(JConsensusReactor.get_channels(None))
     assert fields(MempoolReactor.get_channels(None)) == fields(JMempoolReactor.get_channels(None))
+    assert fields(PEXReactor.get_channels(None)) == fields(JPEXReactor.get_channels(None))
     # ... and genesis validation refuses a part size the channel could
     # not carry (the binding that keeps cap and params consistent)
     from tendermint_tpu_torch.types.params import ConsensusParams
@@ -943,3 +964,218 @@ def test_vote_channel_reassembly_past_ceiling_drops_peer():
     finally:
         ma.stop()
         mb.stop()
+
+
+# -- the address book and PEX (tests/test_p2p.py's cases) ---------------------
+
+
+def test_addrbook_add_pick_good(tmp_path):
+    book = AddrBook(str(tmp_path / "addrbook.json"))
+    src = NetAddress("1.2.3.4", 26656)
+    for i in range(50):
+        assert book.add_address(NetAddress(f"5.6.{i}.1", 26656), src) or True
+    assert book.size() > 0
+    picked = book.pick_address()
+    assert picked is not None
+    book.mark_good(picked)
+    # non-routable rejected in strict mode
+    assert not book.add_address(NetAddress("192.168.1.1", 26656), src)
+    book.save()
+
+    book2 = AddrBook(str(tmp_path / "addrbook.json"))
+    assert book2.size() == book.size()
+    assert any(str(picked) == str(ka.addr) and ka.is_old()
+               for ka in book2._addrs.values())
+
+
+def test_addrbook_selection_and_removal():
+    book = AddrBook("", routability_strict=False)
+    src = NetAddress("127.0.0.1", 1)
+    for i in range(20):
+        book.add_address(NetAddress("127.0.0.1", 1000 + i), src)
+    sel = book.get_selection()
+    assert 0 < len(sel) <= 20
+    victim = sel[0]
+    book.remove_address(victim)
+    assert str(victim) not in book._addrs
+
+
+def test_pex_reactor_exchanges_addresses():
+    from tendermint_tpu_torch.p2p.pex import PEXReactor
+
+    books = [AddrBook("", routability_strict=False) for _ in range(2)]
+    books[0].add_address(NetAddress("127.0.0.1", 7771), NetAddress("127.0.0.1", 1))
+
+    def init(i, sw):
+        sw.add_reactor("pex", PEXReactor(books[i], ensure_peers_period=3600))
+        sw.set_node_info(
+            NodeInfo(
+                pub_key=sw.node_priv_key.pub_key(),
+                moniker=f"n{i}",
+                network="test",
+                version=default_version("0.1.0"),
+                listen_addr=f"127.0.0.1:{7000 + i}",
+            )
+        )
+        return sw
+
+    sws = make_connected_switches(2, init)
+    try:
+        # node1's inbound peer (node0... whichever side is inbound) requests
+        # addrs; eventually node1 learns node0's known address
+        assert wait_until(
+            lambda: books[0].size() + books[1].size() >= 3, timeout=5
+        )
+    finally:
+        for sw in sws:
+            sw.stop()
+
+
+def test_addrbook_is_bad_and_eviction():
+    import time as _time
+
+    from tendermint_tpu_torch.p2p import addrbook as ab
+
+    book = AddrBook("", routability_strict=False)
+    src = NetAddress("127.0.0.1", 1)
+    addr = NetAddress("127.0.0.1", 2000)
+    book.add_address(addr, src)
+    ka = book._addrs[str(addr)]
+
+    # fresh address: not bad
+    assert not ka.is_bad()
+    # repeated failures without a success -> bad (once past the
+    # recent-attempt grace window)
+    for _ in range(ab.MAX_FAILURES):
+        book.mark_attempt(addr)
+    assert not ka.is_bad()  # just tried: within RECENT_ATTEMPT grace
+    ka.last_attempt -= ab.RECENT_ATTEMPT + 1
+    assert ka.is_bad()
+    # a success clears badness; old addresses are never bad
+    book.mark_good(addr)
+    assert ka.is_old() and not ka.is_bad()
+    # staleness: not heard from in STALE_AFTER
+    ka2 = ab.KnownAddress(NetAddress("127.0.0.1", 2001), src)
+    ka2.added = _time.time() - ab.STALE_AFTER - 1
+    assert ka2.is_bad()
+
+    # mark_bad removes outright (ref MarkBad)
+    book.mark_bad(addr)
+    assert str(addr) not in book._addrs
+
+
+def test_addrbook_pick_skips_bad():
+    from tendermint_tpu_torch.p2p import addrbook as ab
+
+    book = AddrBook("", routability_strict=False)
+    src = NetAddress("127.0.0.1", 1)
+    good = NetAddress("127.0.0.1", 3000)
+    bad = NetAddress("127.0.0.1", 3001)
+    book.add_address(good, src)
+    book.add_address(bad, src)
+    kb = book._addrs[str(bad)]
+    kb.attempts = ab.MAX_FAILURES
+    kb.last_attempt = 1.0  # long ago, never succeeded -> bad
+    for _ in range(50):
+        picked = book.pick_address(new_bias_pct=100)
+        assert str(picked) == str(good)
+
+
+def test_addrbook_need_more_addrs():
+    from tendermint_tpu_torch.p2p import addrbook as ab
+
+    book = AddrBook("", routability_strict=False)
+    assert book.need_more_addrs()
+    assert ab.NEED_ADDRESS_THRESHOLD == 1000
+
+
+def test_addrbook_pick_recovers_when_all_bad():
+    """After an outage burns attempts on every address, pick_address must
+    fall back to retrying them, never strand the node."""
+    from tendermint_tpu_torch.p2p import addrbook as ab
+
+    book = AddrBook("", routability_strict=False)
+    src = NetAddress("127.0.0.1", 1)
+    for port in (4000, 4001):
+        a = NetAddress("127.0.0.1", port)
+        book.add_address(a, src)
+        ka = book._addrs[str(a)]
+        ka.attempts = ab.MAX_FAILURES
+        ka.last_attempt = 1.0  # never succeeded, long ago -> is_bad
+    assert book.pick_address() is not None
+
+
+def test_pex_flood_eviction_requires_ip_match():
+    """A flooder claiming a victim's listen_addr must not evict it from
+    the book; only an address matching the socket IP is marked bad."""
+    from tendermint_tpu_torch.p2p.pex import PEXReactor
+
+    book = AddrBook("", routability_strict=False)
+    victim = NetAddress("127.0.0.1", 5555)
+    book.add_address(victim, victim)
+
+    class FakeStream:
+        @staticmethod
+        def remote_addr():
+            return "10.9.9.9:1234"  # attacker's real socket IP
+
+    class FakePeer:
+        node_info = type(
+            "NI", (), {"listen_addr": "127.0.0.1:5555"}
+        )()  # claims the victim's address
+        stream = FakeStream()
+
+        @staticmethod
+        def id():
+            return "attacker"
+
+    class FakeSwitch:
+        stopped = []
+
+        def stop_peer_for_error(self, peer, reason):
+            self.stopped.append((peer, reason))
+
+    pex = PEXReactor(book, ensure_peers_period=3600)
+    pex.switch = FakeSwitch()
+    pex._msg_counts["attacker"] = [time.monotonic()] * 1001  # over limit
+    pex.receive(0x00, FakePeer(), b"{}")
+    assert str(victim) in book._addrs  # victim survives
+    assert pex.switch.stopped  # flooder still disconnected
+
+
+def test_addrbook_one_slash24_cannot_dominate_the_book():
+    """Eclipse backing, addr-book level: hundreds of addresses from one
+    /24 (one attacker subnet, one source) collapse into the few buckets
+    their (group, source-group) hash allows, so they evict EACH OTHER —
+    while a handful of diverse addresses stay present and pickable."""
+    import random as _random
+
+    book = AddrBook()
+    book._rng = _random.Random(7)
+    src = NetAddress("9.9.9.1", 26656)
+    for i in range(500):
+        book.add_address(NetAddress(f"9.9.9.{i % 250}", 10000 + i), src)
+    diverse = []
+    for i in range(20):
+        a = NetAddress(f"{20 + i}.{i + 1}.0.1", 26656)
+        diverse.append(a)
+        book.add_address(a, a)
+
+    doms = [k for k in book._addrs if k.startswith("9.9.9.")]
+    # one (group, src-group) pair hashes to at most NEW_BUCKETS_PER_ADDRESS
+    # buckets of BUCKET_SIZE — the 500 dials cannot occupy more
+    from tendermint_tpu_torch.p2p.addrbook import (
+        BUCKET_SIZE,
+        NEW_BUCKETS_PER_ADDRESS,
+    )
+
+    assert len(doms) <= NEW_BUCKETS_PER_ADDRESS * BUCKET_SIZE, len(doms)
+    # every diverse address survived the flood
+    for a in diverse:
+        assert str(a) in book._addrs
+    # and the picker still reaches them (seeded: deterministic)
+    picked_diverse = sum(
+        1 for _ in range(300)
+        if not str(book.pick_address()).startswith("9.9.9.")
+    )
+    assert picked_diverse >= 10, picked_diverse

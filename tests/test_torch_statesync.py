@@ -1,6 +1,6 @@
 """The port's state-sync subsystem (tendermint_tpu_torch/statesync/,
-docs/state-sync.md) on tests/test_statesync.py's cases, all but
-TestNodeWiring (it needs the node), and against the JAX package's: the two
+docs/state-sync.md) on tests/test_statesync.py's cases (TestNodeWiring on
+a port node with the CPU defaults), and against the JAX package's: the two
 producers' manifests and chunks are byte-equal on equal chains, each
 package's Restorer restores the other's snapshot to equal states and
 store records, and a node of each package state-syncs from a node of the
@@ -1338,6 +1338,50 @@ class TestStateSyncReactor:
 
 
 # -- node wiring: producer hook + RPC surface ---------------------------------
+
+
+class TestNodeWiring:
+    def test_node_produces_and_serves_snapshots(self, monkeypatch):
+        """A real node with snapshot_interval set produces snapshots on
+        the consensus post-apply hook and serves them over the
+        `snapshots` RPC route; statesync_* gauges ride /metrics."""
+        from tendermint_tpu_torch.config import reset_test_root
+        from tendermint_tpu_torch.node import default_new_node
+        from tendermint_tpu_torch.ops import gateway
+        from tendermint_tpu_torch.rpc.client import HTTPClient
+
+        monkeypatch.setattr(gateway, "_default_verifier", gateway.Verifier(device="cpu"))
+        monkeypatch.setattr(gateway, "_default_hasher", gateway.Hasher(device="cpu", min_tpu_batch=1 << 30))
+        tmp = tempfile.mkdtemp(prefix="tmd", dir="/tmp")
+        cfg = reset_test_root(tmp)
+        cfg.base.proxy_app = "kvstore"
+        cfg.rpc.laddr = "tcp://127.0.0.1:0"
+        cfg.p2p.laddr = "tcp://127.0.0.1:0"
+        cfg.statesync.snapshot_interval = 2
+        cfg.statesync.snapshot_keep_recent = 2
+        n = default_new_node(cfg)
+        n.start()
+        try:
+            assert wait_until(
+                lambda: n.snapshot_store.heights(), timeout=60
+            ), f"no snapshot by height {n.block_store.height()}"
+            client = HTTPClient(f"127.0.0.1:{n.rpc_port()}")
+            offers = client.snapshots()["snapshots"]
+            assert offers and offers[0]["height"] % 2 == 0
+            assert offers[0]["chain_id"] == n.config.base.chain_id
+            m = client.metrics()
+            for gauge in ("statesync_restore_active", "statesync_snapshots",
+                          "statesync_chunks_served", "statesync_peers_banned",
+                          "statesync_snapshots_taken",
+                          "statesync_last_snapshot_height"):
+                assert gauge in m, gauge
+            assert m["statesync_restore_active"] == 0
+            assert m["statesync_snapshots_taken"] >= 1
+            assert m["blockstore_base"] == 1
+            # retention holds as the chain grows
+            assert len(offers) <= 2
+        finally:
+            n.stop()
 
 
 @pytest.mark.slow

@@ -179,8 +179,14 @@ def test_reactor_receive_paths_never_leak_exceptions():
     for data in payloads():
         mr.receive(0x30, peer, data)
 
-    # the PEX reactor's leg waits for p2p/pex.py and p2p/addrbook.py,
-    # which the port does not hold yet
+    # pex reactor
+    from tendermint_tpu_torch.p2p.addrbook import AddrBook
+    from tendermint_tpu_torch.p2p.pex import PEXReactor
+
+    px = PEXReactor(AddrBook(""))
+    px.switch = _FuzzSwitch()
+    for data in payloads():
+        px.receive(0x00, peer, data)
 
     # blockchain reactor (no pool started; receive must still be safe
     # for request/status shapes — block_response needs the pool, so only
