@@ -651,6 +651,7 @@ STATESYNC_APP_FILE = "app-state.json"  # A's app state at its height less one, f
 STATESYNC_SAMPLE_KEYS = 64  # keys (half from the genesis state, half from the bursts) C must hold as A
 STATESYNC_PROOF_KEYS = 8  # present keys of the sample, and as many absent ones, proven over A's RPC
 STATESYNC_SYNC_S = 600.0  # the bound on each wait of the state sync
+REPLICA_WAIT_S = 120.0  # the bound on the replica's walk to A's last height
 # phases 37-38, the node_validator cell: one port Node, built by
 # default_new_node from its home, a validator of benches/bench_committee.py's
 # 100 committee (BENCH_r22.json's wire:n=100; phase 3's first 100 keys) at
@@ -1354,6 +1355,7 @@ def main() -> int:
     phase_start(36, "state-sync times")
     statesync_time(name, power, ss_ctx)
     statesync_launches = ss_ctx["launches"]
+    replica_launches = ss_ctx["replica_launches"]
     del ss_ctx, statesync_inputs, state_entries
 
     # -- phases 37 and 38: the node -------------------------------------------------
@@ -1418,6 +1420,7 @@ def main() -> int:
             entry["consensus_launches"] = committee_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
             entry["gossip_launches"] = gossip_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
             entry["statesync_launches"] = statesync_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
+            entry["replica_launches"] = replica_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
             entry["node_launches"] = node_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
     log({"kernels": entries})
     log(card)
@@ -7025,12 +7028,15 @@ def serve_statesync(root: str, doc_json, tamper: bool, conn) -> None:
     state at the height before the last (STATESYNC_APP_FILE), the last
     stored block then replayed into it as a Handshaker replays a block its
     app lacks, so that proofs at the height before the last verify against
-    the last header. With `tamper` (peer D) the snapshot store flips one
-    byte of the first chunk it serves, and no RPC is served. Sends (p2p
-    port, node id, RPC address), then serves until told to stop."""
+    the last header. The RPC carries an EventSwitch, so that a replica
+    following A can subscribe to NewBlock (the chain is static: the
+    subscription idles). With `tamper` (peer D) the snapshot store flips
+    one byte of the first chunk it serves, and no RPC is served. Sends
+    (p2p port, node id, RPC address), then serves until told to stop."""
     from tendermint_tpu_torch.abci.apps.signedkv import SignedKVStoreApp
     from tendermint_tpu_torch.blockchain import BlockStore
     from tendermint_tpu_torch.libs.db import db_provider
+    from tendermint_tpu_torch.libs.events import EventSwitch
     from tendermint_tpu_torch.ops.gateway import Verifier
     from tendermint_tpu_torch.proxy import AppConns, LocalClientCreator
     from tendermint_tpu_torch.rpc.core import RPCContext
@@ -7047,7 +7053,7 @@ def serve_statesync(root: str, doc_json, tamper: bool, conn) -> None:
     snaps = SnapshotStore(os.path.join(root, "snapshots"))
     node = p2p_node(doc, state, store, None, False, "D" if tamper else "A")
     node.sw.add_reactor("STATESYNC", StateSyncReactor(tampered_snapshots(snaps) if tamper else snaps))
-    conns = rpc = None
+    conns = rpc = evsw = None
     try:
         if not tamper:
             app = SignedKVStoreApp(verify_in_app=False)
@@ -7060,8 +7066,11 @@ def serve_statesync(root: str, doc_json, tamper: bool, conn) -> None:
             exec_commit_block(conns.consensus(), store.load_block(store.height()))
             if app.app_hash != state.app_hash:
                 raise AssertionError("A's app, replayed to the last height, differs from A's state")
+            evsw = EventSwitch()
+            evsw.start()
             rpc = RPCServer("tcp://127.0.0.1:0", RPCContext(
-                block_store=store, proxy_app_query=conns.query(), genesis_doc=doc, state=state, switch=node.sw))
+                event_switch=evsw, block_store=store, proxy_app_query=conns.query(), genesis_doc=doc,
+                state=state, switch=node.sw))
             rpc.start()
         node.start()
         conn.send((node.listener.internal_address().port, node.node_id(),
@@ -7072,6 +7081,8 @@ def serve_statesync(root: str, doc_json, tamper: bool, conn) -> None:
         node.close()
         if rpc is not None:
             rpc.stop()
+        if evsw is not None:
+            evsw.stop()
         if conns is not None:
             conns.stop()
         for db in dbs.values():
@@ -7400,6 +7411,160 @@ def statesync_reference_later(conn) -> None:
     statesync_reference(*conn.recv(), conn)
 
 
+def replica_expected(doc, last: int, last_full: bool, n_vals: int) -> dict:
+    """The launches and lanes a replica's walk from genesis to `last`
+    implies, and a client's walk over the replica too. rpc/light.py
+    `advance` checks each height's commit in turn (it skips heights only
+    past a pruned gap that /status attests, and A prunes nothing): the
+    commit of h < last is block h + 1's LastCommit (aggregate from the
+    upgrade on), the commit of `last` the seen commit (`last_full`). A
+    full commit is one B1 launch of its n_vals lanes (the light client's
+    batch_verifier), an aggregate one a dsm launch of n_vals + 1 lanes
+    (AggregateCommit.verify on the default Verifier). The reads at
+    last - 1 check their proofs against header `last`, which the walk
+    left in the light client's header memo: no launch."""
+    full = sum(not doc.aggregate_commits_at(h + 1) for h in range(1, last)) + int(last_full)
+    agg = last - full
+    return {"launches": {"b1": full, "dsm": agg},
+            "lanes": {"tpu_sigs": n_vals * full, "cpu_sigs": 0, "agg_lanes_device": (n_vals + 1) * agg,
+                      "agg_lanes_cpu": 0}}
+
+
+def replica_run(verifier, upstream: str, target: int, last: int, present: list[bytes], absent: list[bytes],
+                wanted: dict, proofs: dict, exp: dict) -> dict:
+    """A port ReplicaDaemon in this process, upstream A's RPC, on
+    `verifier` (the card's), installed as the gateway's default for the
+    replica's whole life: the replica takes the default when it is built,
+    and aggregate commits reach it through AggregateCommit.verify. The
+    launches and lanes are set to 0 just before it is built and read after
+    its walk to `last` and its own reads, and equal `exp`. It serves the
+    present and absent keys at `target` over its own RPC abci_query, and
+    through a LightClient pointed at it (whose walk over the replica's
+    re-served commits is counted apart, and equals `exp` too): each value
+    A's (`wanted`), each proof the one C verified over A's RPC (`proofs`).
+    Under TENDERMINT_REPLICA_TAMPER=value, then =proof, that client's
+    verified_query refuses every key, no kernel launches and the
+    replica's verified counters and the Verifier's lanes do not move.
+    Returns the launches, lanes, stats and times."""
+    from tendermint_tpu_torch.config.toml import ensure_root
+    from tendermint_tpu_torch.merkle.statetree_proof import TreeProof
+    from tendermint_tpu_torch.ops import gateway
+    from tendermint_tpu_torch.replica import ReplicaDaemon
+    from tendermint_tpu_torch.rpc.client import HTTPClient
+    from tendermint_tpu_torch.rpc.light import LightClient, LightClientError
+
+    keys = present + absent
+
+    def check_read(how: str, k: bytes, value, absent_: bool, height: int, proof_json) -> None:
+        c = proofs[k]
+        want = None if k in absent else wanted[k]
+        if (value, absent_, height, proof_json) != (want, k in absent, target, c["proof"].to_json()) or \
+                (c["value"], c["absent"], c["height"]) != (want, k in absent, target):
+            raise AssertionError(f"the replica's {how} of {k!r} at {height}: {value!r}, absent {absent_}; "
+                                 f"A's value {want!r}, C's proof at {c['height']}")
+
+    home = tempfile.mkdtemp(prefix="replica-")
+    cfg = ensure_root(home)
+    cfg.replica.upstream = upstream
+    cfg.replica.laddr = "tcp://127.0.0.1:0"
+    saved = gateway._default_verifier
+    gateway._default_verifier = verifier
+    rep = None
+    try:
+        v0 = verifier.stats()
+        gc.collect()
+        reset_launches()
+        t0 = time.perf_counter()
+        rep = ReplicaDaemon(cfg)
+        if rep.verifier is not verifier:
+            raise AssertionError("the replica did not take the card's Verifier")
+        ingest, ingest_s = rep._ingest, {}
+
+        def timed_ingest(h: int) -> None:
+            t = time.perf_counter()
+            ingest(h)
+            ingest_s[h] = time.perf_counter() - t
+
+        rep._ingest = timed_ingest  # the follower's catch-up calls it per height
+        rep.start()
+        deadline = time.monotonic() + REPLICA_WAIT_S
+        while rep._ingested < last and rep.device_error is None and time.monotonic() < deadline:
+            time.sleep(0.01)
+        walk_s = time.perf_counter() - t0
+        if rep.device_error is not None:
+            raise AssertionError(f"the replica's follower stopped: {rep.device_error!r}")
+        if rep._ingested != last or rep.light.height != last or rep.proof_verify_failures:
+            raise AssertionError(f"the replica: ingested {rep._ingested}, trust at {rep.light.height} of {last}, "
+                                 f"{rep.proof_verify_failures} proof failures")
+        rpc = HTTPClient(f"127.0.0.1:{rep.rpc_port}")
+        rpc_ms = []
+        for k in keys:
+            t = time.perf_counter()
+            resp = rpc.abci_query(data=k.hex(), path="", height=target, prove=True)["response"]
+            rpc_ms.append(1e3 * (time.perf_counter() - t))
+            proof_json = json.loads(bytes.fromhex(resp["proof"]))
+            check_read("abci_query", k, bytes.fromhex(resp["value"]) if resp.get("value") else None,
+                       not TreeProof.from_json(proof_json).is_membership, resp["height"], proof_json)
+        launches = read_launches()
+        v1 = verifier.stats()
+        lanes = {k: v1[k] - v0[k] for k in exp["lanes"]}
+        _launch_delta(launches, exp["launches"], "the replica")
+        if lanes != exp["lanes"]:
+            raise AssertionError(f"the replica's lanes {lanes}, expected {exp['lanes']}")
+        served = rep.stats()
+        # a client pointed at the replica walks its re-served commits
+        reset_launches()
+        t0 = time.perf_counter()
+        lc = LightClient.from_genesis(rpc, batch_verifier=verifier.commit_batch_verifier())
+        client_ms = []
+        for k in keys:
+            t = time.perf_counter()
+            r = lc.verified_query(k, height=target)
+            client_ms.append(1e3 * (time.perf_counter() - t))
+            check_read("verified_query", k, r["value"], r["absent"], r["height"], r["proof"].to_json())
+        client_s = time.perf_counter() - t0
+        client_launches = read_launches()
+        _launch_delta(client_launches, exp["launches"], "a client's walk over the replica")
+        # a lying replica is refused by the client; nothing is verified again
+        watched = ("height", "proof_verify_failures", "cache_misses", "cache_entries", "cache_invalidations")
+        before = {k: rep.stats()[k] for k in watched}, {k: verifier.stats()[k] for k in exp["lanes"]}
+        reset_launches()
+        refused = dict.fromkeys(("value", "proof"), 0)
+        for mode in refused:
+            os.environ["TENDERMINT_REPLICA_TAMPER"] = mode
+            try:
+                for k in keys:
+                    try:
+                        lc.verified_query(k, height=target)
+                    except LightClientError:
+                        refused[mode] += 1
+            finally:
+                del os.environ["TENDERMINT_REPLICA_TAMPER"]
+        tamper_launches = read_launches()
+        after = {k: rep.stats()[k] for k in watched}, {k: verifier.stats()[k] for k in exp["lanes"]}
+        if refused != dict.fromkeys(refused, len(keys)) or after != before:
+            raise AssertionError(f"tampered reads: refused {refused} of {len(keys)}; replica and Verifier "
+                                 f"{before} -> {after}")
+        _launch_delta(tamper_launches, {}, "the tampered reads")
+        r = lc.verified_query(present[0], height=target)  # the knob corrupts at serve time only
+        check_read("clean verified_query", present[0], r["value"], r["absent"], r["height"], r["proof"].to_json())
+        # the follower's idle WS read times out every 10 s on a static chain
+        # and resubscribes (upstream_reconnects), so the connection check
+        # may read False for its backoff; the others hold throughout
+        health = rep.health_view()
+        if not all(health["checks"][c]["ok"] for c in ("bootstrapped", "lag", "device")):
+            raise AssertionError(f"the replica's health: {health}")
+        stats = rep.stats()
+    finally:
+        if rep is not None:
+            rep.stop()
+        gateway._default_verifier = saved
+        shutil.rmtree(home, ignore_errors=True)
+    return {"launches": launches, "lanes": lanes, "client_launches": client_launches, "refused": refused,
+            "served": served, "stats": stats, "health": health["status"], "walk_s": walk_s, "ingest_s": ingest_s, "rpc_ms": rpc_ms,
+            "client_s": client_s, "client_ms": client_ms}
+
+
 def statesync_phase(name, power, vs, seed_of, bursts, entries: dict[bytes, bytes]) -> dict:
     """Phase 35: RPC, the light client and state sync on the card. Node A
     (an exec_chain on the default Verifier and Hasher) holds `entries`
@@ -7422,8 +7587,11 @@ def statesync_phase(name, power, vs, seed_of, bursts, entries: dict[bytes, bytes
     after, and equal statesync_expected; C and C' hold A's records, state,
     app hash, tx-index entries and sampled values; D is stopped once, for
     the chunk it flipped, and A stays; sampled present and absent keys
-    verify through LightClient.verified_query against A's RPC. Returns
-    what phase 36 reports and the launches."""
+    verify through LightClient.verified_query against A's RPC. Then a
+    port ReplicaDaemon follows A's RPC on C's Verifier (replica_run): its
+    launches, read apart from C's, equal replica_expected, and its reads
+    equal A's values and C's proofs. Returns what phase 36 reports, the
+    launches and the replica's."""
     import torch
 
     from tendermint_tpu_torch.ops import gateway
@@ -7494,6 +7662,7 @@ def statesync_phase(name, power, vs, seed_of, bursts, entries: dict[bytes, bytes
                                      f"{producer.snapshot_failures} failed")
             manifest = producer.store.load_manifest(snap_h)
             seen_full = not commit_is_aggregate(a.store.load_seen_commit(snap_h))
+            last_full = not commit_is_aggregate(a.store.load_seen_commit(height_a))
             tail_txs = sum(len(a.store.load_block(h).data.txs) for h in range(snap_h + 1, target + 1))
             want = statesync_records(a.store, a.state, a.app, snap_h, target, keys,
                                      seen=lambda h: (a.store.load_seen_commit(h) if h == snap_h
@@ -7598,6 +7767,11 @@ def statesync_phase(name, power, vs, seed_of, bursts, entries: dict[bytes, bytes
                   [k for k in absent if not proofs[k]["absent"] or proofs[k]["value"] is not None]
             if bad or any(p["height"] != target for p in proofs.values()):
                 raise AssertionError(f"verified queries against A's RPC: {bad}")
+            mark("verified_queries")
+            # the replica, on C's Verifier, after C's launches were read
+            rep_exp = replica_expected(doc, height_a, last_full, n_vals)
+            rep = replica_run(verifier, server.rpc, target, height_a, present, absent, wanted, proofs, rep_exp)
+            mark("replica_done")
             log({"phase": "statesync_path", **tag, "node": "C", "route": {"verify": verifier.kernel,
                  "hash": hasher._route}, "snapshot_height": snap_h, "synced_to": c.store.height(),
                  "tail_blocks": run["tail_blocks"], "groups": groups, "launches": launches, "lanes": lanes,
@@ -7610,6 +7784,16 @@ def statesync_phase(name, power, vs, seed_of, bursts, entries: dict[bytes, bytes
                  "window_widths": sorted(set(run["windows"])), "waves_k1": len(run["waves"])})
             log({"phase": "statesync_path", **tag, "node": "C-host", "lanes": ref["lanes"],
                  "records": "equal to A's", **{k: v for k, v in ref["run"].items() if k not in ("waves", "windows")}})
+            log({"phase": "replica_path", **tag, "upstream": "A", "walked_to": height_a, "read_height": target,
+                 "launches": rep["launches"], "replica_expected": rep_exp, "lanes": rep["lanes"],
+                 "client_launches": rep["client_launches"], "reads": {"present": len(present), "absent": len(absent),
+                                                                     "equal": "A's values, C's proofs"},
+                 "tamper_refused": rep["refused"], "stats_after_walk_and_reads": rep["served"],
+                 "stats": rep["stats"], "health": rep["health"]})
+            log({"phase": "replica_time", **tag, "walk_s": rep["walk_s"], "ingest_s": rep["ingest_s"],
+                 "rpc_read_ms": rep["rpc_ms"], "rpc_read_ms_median": statistics.median(rep["rpc_ms"]),
+                 "client_walk_and_reads_s": rep["client_s"], "client_read_ms": rep["client_ms"],
+                 "client_read_ms_median": statistics.median(rep["client_ms"])})
             mark("checked")
         finally:
             if c is not None:
@@ -7627,7 +7811,8 @@ def statesync_phase(name, power, vs, seed_of, bursts, entries: dict[bytes, bytes
          "hasher": hasher.stats()})
     log({"phase": "statesync_marks", **tag, "s_since_phase_start": marks})
     return {"runs": {"card": run, "host": ref["run"]}, "chunks": chunks, "chain": chain,
-            "launches": {k: launches[k] for k in ("b1", "dsm", "ripemd160", "merkle_tree")}}
+            "launches": {k: launches[k] for k in ("b1", "dsm", "ripemd160", "merkle_tree")},
+            "replica_launches": {k: rep["launches"][k] for k in ("b1", "dsm", "ripemd160", "merkle_tree")}}
 
 
 def statesync_time(name, power, ctx) -> None:

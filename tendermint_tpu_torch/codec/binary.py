@@ -5,9 +5,9 @@ and read with.
 Format (the reference's wire-protocol spec,
 docs/specification/wire-protocol.rst):
 
-- fixed-width uints: big-endian
-- `varint`: 1 length byte then that many big-endian bytes; 0 == b"\\x00";
-  negative sets the MSB of the length byte
+- fixed-width uints: big-endian, 1/2/4/8 bytes
+- `uvarint`: 1 length byte then that many big-endian bytes; 0 == b"\\x00"
+- `varint`: like uvarint; negative sets the MSB of the length byte
 - bytes/string: varint length prefix + raw bytes
 - time: int64 nanoseconds since epoch, fixed 8 bytes
 - lists: varint count + concatenated items
@@ -16,6 +16,17 @@ docs/specification/wire-protocol.rst):
 from __future__ import annotations
 
 import struct
+
+
+def encode_uvarint(n: int) -> bytes:
+    if n < 0:
+        raise ValueError("uvarint must be non-negative")
+    if n == 0:
+        return b"\x00"
+    body = n.to_bytes((n.bit_length() + 7) // 8, "big")
+    if len(body) > 255:
+        raise ValueError("uvarint too large")
+    return bytes([len(body)]) + body
 
 
 def encode_varint(n: int) -> bytes:
@@ -36,6 +47,12 @@ def encode_string(s: str) -> bytes:
     return encode_bytes(s.encode("utf-8"))
 
 
+def decode_bytes(buf: bytes, off: int = 0) -> tuple[bytes, int]:
+    d = Decoder(buf, off)
+    out = d.read_bytes()
+    return out, d.off
+
+
 class Encoder:
     """Accumulating encoder; all writes are deterministic."""
 
@@ -52,8 +69,20 @@ class Encoder:
     def write_u8(self, n: int) -> "Encoder":
         return self.write_raw(struct.pack(">B", n))
 
+    def write_u16(self, n: int) -> "Encoder":
+        return self.write_raw(struct.pack(">H", n))
+
+    def write_u32(self, n: int) -> "Encoder":
+        return self.write_raw(struct.pack(">I", n))
+
+    def write_u64(self, n: int) -> "Encoder":
+        return self.write_raw(struct.pack(">Q", n))
+
     def write_i64(self, n: int) -> "Encoder":
         return self.write_raw(struct.pack(">q", n))
+
+    def write_uvarint(self, n: int) -> "Encoder":
+        return self.write_raw(encode_uvarint(n))
 
     def write_varint(self, n: int) -> "Encoder":
         return self.write_raw(encode_varint(n))
@@ -103,8 +132,26 @@ class Decoder:
         scalars, 64-byte signatures)."""
         return self._take(n)
 
+    def read_u16(self) -> int:
+        return struct.unpack(">H", self._take(2))[0]
+
+    def read_u32(self) -> int:
+        return struct.unpack(">I", self._take(4))[0]
+
+    def read_u64(self) -> int:
+        return struct.unpack(">Q", self._take(8))[0]
+
     def read_i64(self) -> int:
         return struct.unpack(">q", self._take(8))[0]
+
+    def read_uvarint(self) -> int:
+        ln = self.read_u8()
+        if ln == 0:
+            return 0
+        body = self._take(ln)
+        if body[0] == 0:
+            raise ValueError("non-canonical uvarint (leading zero byte)")
+        return int.from_bytes(body, "big")
 
     def read_varint(self) -> int:
         ln = self.read_u8()

@@ -32,3 +32,9 @@ def canonical_dumps(obj: Any) -> bytes:
         separators=(",", ":"),
         ensure_ascii=True,
     ).encode("utf-8")
+
+
+def sign_bytes(chain_id: str, key: str, payload: Any) -> bytes:
+    """SignBytes(chainID, o) equivalent (reference types/signable.go:13-30):
+    wrap the canonical payload under its message-kind key with the chain id."""
+    return canonical_dumps({"chain_id": chain_id, key: payload})

@@ -1,4 +1,4 @@
-"""SHA-256 / RIPEMD-160 host hashing.
+"""SHA-256 / SHA-512 / RIPEMD-160 host hashing.
 
 RIPEMD-160 is the Merkle/leaf/address hash of the reference era
 (tmlibs/merkle SimpleHashFromBinary, types/validator.go:75-86). hashlib
@@ -14,6 +14,10 @@ import struct
 
 def sha256(data: bytes) -> bytes:
     return hashlib.sha256(data).digest()
+
+
+def sha512(data: bytes) -> bytes:
+    return hashlib.sha512(data).digest()
 
 
 _K1 = (0x00000000, 0x5A827999, 0x6ED9EBA1, 0x8F1BBCDC, 0xA953FD4E)

@@ -533,3 +533,52 @@ def build_registry(node) -> telemetry.Registry:
     reg.on_collect(refresh_overload_families)
 
     return reg
+
+
+def build_replica_registry(replica) -> telemetry.Registry:
+    """Wire a ReplicaDaemon into a Registry chained to the process-wide
+    default: the replica_* follower/cache plane plus the same
+    rpc_* ingress families a full node exports — one dashboard works for
+    validators and replicas alike. Catalog rows: docs/observability.md."""
+    reg = telemetry.Registry(parent=telemetry.default_registry())
+
+    # flat views on both surfaces: replica_{height,lag_heights,cache_*,
+    # proof_verify_failures,upstream_reconnects,served_reads_total,...}
+    reg.register_producer("replica", replica.stats)
+    reg.register_producer("rpc", replica.rpc_admission.snapshot)
+
+    # labeled ingress families, delta-inc'd from the monotonic admission
+    # counters at collect time (the node-registry pattern above)
+    shed_counter = reg.counter(
+        "rpc_shed_total",
+        "RPC requests shed at the replica's admission edge, by reason",
+        labelnames=("reason",),
+    )
+    ws_evictions_counter = reg.counter(
+        "ws_evictions_total",
+        "WS subscribers evicted for persistent send-queue overflow",
+    )
+    ws_dropped_counter = reg.counter(
+        "ws_dropped_events_total",
+        "Events dropped from slow WS subscribers' bounded send queues",
+    )
+
+    def refresh_replica_families() -> None:
+        admission = replica.rpc_admission
+        for reason, total in admission.sheds.items():
+            child = shed_counter.labels(reason=reason)
+            delta = total - child.value
+            if delta > 0:
+                child.inc(delta)
+        for plain, source in (
+            (ws_evictions_counter, admission.ws_evictions),
+            (ws_dropped_counter, admission.ws_dropped_events),
+        ):
+            child = plain.labels()
+            delta = source - child.value
+            if delta > 0:
+                child.inc(delta)
+
+    reg.on_collect(refresh_replica_families)
+
+    return reg

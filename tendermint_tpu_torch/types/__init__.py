@@ -13,6 +13,7 @@ from tendermint_tpu_torch.types.vote import (
     VOTE_TYPE_PREVOTE,
     Vote,
     VoteError,
+    is_vote_type_valid,
 )
 from tendermint_tpu_torch.types.tx import Tx, TxProof, TxResult, txs_hash, txs_proof
 from tendermint_tpu_torch.types.validator import Validator
@@ -35,6 +36,7 @@ __all__ = [
     "ConflictingVotesError",
     "VOTE_TYPE_PREVOTE",
     "VOTE_TYPE_PRECOMMIT",
+    "is_vote_type_valid",
     "Tx",
     "TxProof",
     "TxResult",

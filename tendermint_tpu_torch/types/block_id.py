@@ -45,6 +45,9 @@ class PartSetHeader:
         return f"PartSetHeader({self.total}:{self.hash.hex()[:12]})"
 
 
+ZERO_PSH = PartSetHeader()
+
+
 @dataclass(frozen=True)
 class BlockID:
     hash: bytes = b""
@@ -89,3 +92,6 @@ class BlockID:
 
     def __repr__(self):
         return f"BlockID({self.hash.hex()[:12]}:{self.parts_header!r})"
+
+
+ZERO_BLOCK_ID = BlockID()

@@ -24,6 +24,10 @@ VOTE_TYPE_PREVOTE = 0x01
 VOTE_TYPE_PRECOMMIT = 0x02
 
 
+def is_vote_type_valid(t: int) -> bool:
+    return t in (VOTE_TYPE_PREVOTE, VOTE_TYPE_PRECOMMIT)
+
+
 class VoteError(Exception):
     pass
 

@@ -971,8 +971,12 @@ class _FailingVerifier(Verifier):
         super().__init__(device="cpu")
         self.fail = fail
         self.armed = False
+        self.on_first_raise = None  # called once, where the first raise happens
 
     def _boom(self):
+        hook, self.on_first_raise = self.on_first_raise, None
+        if hook is not None:
+            hook()
         raise gateway.DeviceError("ed25519_verify kernel launch failed: cudaError 700")
 
     def prime_cache_async(self, items, on_done=None):
@@ -1010,8 +1014,11 @@ def test_device_error_stops_consensus(fail, at, tmp_path, caplog):
 
     def arm(h):
         if h == at:
-            seen["singletons"] = cs.vote_batcher.singletons
             verifier.armed = True
+
+    # the singletons are counted where the armed verifier first raises: a
+    # singleton verified between arming and that raise is no fallback
+    verifier.on_first_raise = lambda: seen.setdefault("singletons", cs.vote_batcher.singletons)
 
     try:
         with pytest.raises(AssertionError, match="device error"):

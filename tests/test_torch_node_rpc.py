@@ -1,6 +1,7 @@
-"""The port's full node + JSON-RPC, on the cases of tests/test_node_rpc.py
-but the three that call tools the port does not hold (ops/trace,
-ops/fleet, ops/txtrace). Reference test models: rpc/client/rpc_test.go,
+"""The port's full node + JSON-RPC, on the cases of tests/test_node_rpc.py;
+the operator tools' cases (ops/trace, ops/fleet, ops/txtrace) hold the
+port's renders, timelines and joins of the live node's scrapes equal to
+the JAX package's. Reference test models: rpc/client/rpc_test.go,
 rpc/test/helpers.go — start a real node in-process, drive it over RPC.
 The node runs on the gateway's CPU defaults (`host_defaults`)."""
 
@@ -485,6 +486,56 @@ def test_prometheus_exposition_endpoint(node):
     assert float(count.rsplit(" ", 1)[1]) >= 1
 
 
+def test_consensus_trace_rpc_segments_sum_to_wall(node, client):
+    """consensus_trace reconstructs a committed height's wall time into
+    named segments that sum to within 5% of the height's wall clock,
+    with device-vs-CPU attribution attached."""
+    assert wait_until(lambda: node.block_store.height() >= 2)
+    traces = client.consensus_trace(last=5)["traces"]
+    assert traces, "no completed heights traced"
+    heights = [t["height"] for t in traces]
+    assert heights == sorted(heights, reverse=True), "newest first"
+    for t in traces:
+        assert t["segments"], t
+        total = sum(t["segments"].values())
+        tol = max(0.05 * t["wall_s"], 0.005)  # floor for sub-ms heights
+        assert abs(total - t["wall_s"]) <= tol, (total, t["wall_s"])
+        # the commit machinery segments exist on every committed height.
+        # With the pipelined execution plane (the default) the apply runs
+        # on the executor and is attributed to the height it OVERLAPS as
+        # the overlap_apply_s aux note — the lowest traced height carries
+        # neither (its apply credited to its successor)
+        for seg in ("commit", "block_save"):
+            assert seg in t["segments"], t["segments"]
+        if t["height"] > min(heights):
+            assert (
+                "apply" in t["segments"] or "overlap_apply_s" in t["aux"]
+            ), t
+        dev = t["device"]
+        for k in ("verify_tpu_sigs", "verify_cpu_sigs",
+                  "hash_tpu_leaves", "hash_cpu_leaves"):
+            assert k in dev, dev
+        # CPU-route node: breaker not engaged, work attributed to CPU
+        assert dev["breaker_state_end"] == -1
+    # a single-validator CPU node verifies its own precommits on CPU
+    assert any(
+        t["device"]["verify_cpu_sigs"] > 0 or t["device"]["hash_cpu_leaves"] > 0
+        for t in traces
+    )
+    # the operator CLI renders the same traces without raising, as the JAX
+    # package's renders them
+    import io
+
+    from tendermint_tpu.ops.trace import render as jrender
+    from tendermint_tpu_torch.ops.trace import render
+
+    buf, jbuf = io.StringIO(), io.StringIO()
+    render(traces, out=buf)
+    jrender(traces, out=jbuf)
+    assert f"height {heights[0]}" in buf.getvalue()
+    assert buf.getvalue() == jbuf.getvalue()
+
+
 def test_consensus_trace_carries_gossip_arrivals(node, client):
     """every committed height's trace carries wall-clock
     gossip arrival marks in causal order — the raw material the fleet
@@ -555,6 +606,114 @@ def test_health_thresholds_flip_degraded(node, client, monkeypatch):
     except urllib.error.HTTPError as exc:
         assert exc.code == 503
         assert json.loads(exc.read().decode())["status"] == "failing"
+
+
+def test_fleet_scrapes_single_node(node):
+    """ops/fleet against a live (single) node: the aggregator
+    reconstructs the per-height timeline purely from GET /metrics +
+    consensus_trace + GET /health scrapes."""
+    import io
+
+    from tendermint_tpu.ops import fleet as jfleet
+    from tendermint_tpu_torch.ops import fleet
+
+    assert wait_until(lambda: node.block_store.height() >= 2)
+    url = f"127.0.0.1:{node.rpc_port()}"
+    snapshot = fleet.collect([url], last=5)
+    assert "error" not in snapshot[url], snapshot[url].get("error")
+    assert snapshot[url]["health"]["status"] in ("ok", "degraded")
+    rows = fleet.build_timeline(
+        {u: e["traces"] for u, e in snapshot.items()}, last=5
+    )
+    assert rows and rows[0]["height"] >= rows[-1]["height"]
+    for r in rows:
+        assert r["nodes_reporting"] == 1
+        assert r["precommit_quorum_s_max"] is not None
+        assert r["precommit_quorum_s_max"] >= 0
+        # one reporter: no cross-node spreads
+        assert r["commit_skew_s"] is None
+    summary = fleet.fleet_summary(snapshot)
+    assert summary[url]["height"] >= 2
+    buf = io.StringIO()
+    fleet.render(snapshot, rows, out=buf)
+    assert "health ok" in buf.getvalue() or "health degraded" in buf.getvalue()
+    # the JAX package's timeline, summary and render of the same scrape
+    jrows = jfleet.build_timeline({u: e["traces"] for u, e in snapshot.items()}, last=5)
+    assert jrows == rows
+    assert jfleet.fleet_summary(snapshot) == summary
+    jbuf = io.StringIO()
+    jfleet.render(snapshot, jrows, out=jbuf)
+    assert jbuf.getvalue() == buf.getvalue()
+    text = urllib.request.urlopen(f"http://{url}/metrics", timeout=10).read().decode()
+    assert jfleet.parse_prometheus(text) == fleet.parse_prometheus(text)
+
+
+def test_tx_trace_rpc_spans_sum_to_commit_latency(node, client):
+    """A committed tx's lifecycle trace is served by the
+    tx_trace RPC with its per-stage spans summing (within 10%, the
+    acceptance bar — they telescope, so this guards the stamp sites) to
+    the measured end-to-end commit latency, and the cross-node CLI
+    renders it."""
+    tx = b"txtrace-rpc-key=txtrace-rpc-val"
+    res = client.broadcast_tx_commit(tx=tx.hex())
+    assert res["deliver_tx"]["code"] == 0
+    want_hash = res["hash"]
+
+    def traced():
+        return [
+            t for t in client.tx_trace(last=50)["traces"]
+            if t["hash"] == want_hash
+        ]
+
+    assert wait_until(lambda: traced(), timeout=30), (
+        client.tx_trace(last=50)
+    )
+    [t] = traced()
+    assert t["outcome"] == "committed"
+    assert t["height"] == res["height"]
+    assert t["source"] == "rpc"
+    # the lifecycle stages a sole-validator commit must cross
+    for stage in ("rpc_ingress", "mempool_admit", "proposal",
+                  "block_commit", "apply", "event_delivery"):
+        assert stage in t["stages"], (stage, t["stages"])
+    # stamped instants are causally ordered
+    from tendermint_tpu_torch.libs.txtrace import STAGES
+
+    stamped = [t["stages"][s] for s in STAGES if s in t["stages"]]
+    assert stamped == sorted(stamped)
+    # spans through block_commit sum to the commit latency within 10%
+    assert t["commit_latency_s"] is not None and t["commit_latency_s"] > 0
+    commit_idx = STAGES.index("block_commit")
+    span_sum = sum(
+        v for k, v in t["spans"].items() if STAGES.index(k) <= commit_idx
+    )
+    assert abs(span_sum - t["commit_latency_s"]) <= max(
+        0.10 * t["commit_latency_s"], 1e-4
+    ), (span_sum, t["commit_latency_s"])
+    assert t["visible_latency_s"] >= t["commit_latency_s"]
+    # hash filter returns exactly this tx
+    only = client.tx_trace(hash=want_hash, last=50)
+    assert [x["hash"] for x in only["traces"]] == [want_hash]
+    # the cross-node joiner + renderer work against the live scrape
+    import io
+
+    from tendermint_tpu.ops import txtrace as jops_txtrace
+    from tendermint_tpu_torch.ops import txtrace as ops_txtrace
+
+    url = f"127.0.0.1:{node.rpc_port()}"
+    snapshot = ops_txtrace.collect_txtraces([url], tx_hash=want_hash)
+    rows = ops_txtrace.join_tx_timelines(snapshot)
+    assert len(rows) == 1 and rows[0]["committed"]
+    assert rows[0]["submitted_on"] == url
+    buf = io.StringIO()
+    ops_txtrace.render(rows, out=buf)
+    assert f"committed @h={res['height']}" in buf.getvalue()
+    # the JAX package's join and render of the same scrape
+    jrows = jops_txtrace.join_tx_timelines(snapshot)
+    assert jrows == rows
+    jbuf = io.StringIO()
+    jops_txtrace.render(jrows, out=jbuf)
+    assert jbuf.getvalue() == buf.getvalue()
 
 
 def test_debug_flight_endpoint(node, client):

@@ -111,15 +111,18 @@ def test_deferred_apply_overlaps_and_traces():
         if t.height > 1:
             assert "overlap_apply_s" in t.aux, (t.height, t.aux)
             assert "pipeline_join_wait_s" in t.aux, (t.height, t.aux)
-    # the operator CLI (the JAX package's; the port has no RPC yet) renders
-    # the port's traces' overlap split
-    from tendermint_tpu.ops.trace import render
+    # the operator CLI renders the traces' overlap split, as the JAX
+    # package's renders the same traces
+    from tendermint_tpu.ops.trace import render as jrender
+    from tendermint_tpu_torch.ops.trace import render
 
-    out = io.StringIO()
+    out, jout = io.StringIO(), io.StringIO()
     render([t.to_json() for t in traces], out=out)
+    jrender([t.to_json() for t in traces], out=jout)
     text = out.getvalue()
     assert "apply(H-1)" in text
     assert "join wait" in text
+    assert text == jout.getvalue()
 
 
 def test_hook_failure_never_wedges_consensus():

@@ -1,6 +1,7 @@
-"""The port's tx-lifecycle tracing (libs/txtrace.py + the tx_trace RPC), on
-the cases of tests/test_txtrace.py but its two ops/txtrace cross-node
-join cases (the tool is not in the port).
+"""The port's tx-lifecycle tracing (libs/txtrace.py, the tx_trace RPC and
+the cross-node joiner ops/txtrace.py), on the cases of
+tests/test_txtrace.py; the joiner's rows and render equal the JAX
+package's on the same scrapes.
 
 Contracts under test: the sampling knobs (first-K-per-height + 1-in-N),
 keep-first stamp semantics, span TELESCOPING (stamped spans through
@@ -225,6 +226,87 @@ class TestMempoolIntegration:
 
 
 class TestRPCAndCLI:
+    def _snapshot(self):
+        """Two fabricated node scrapes: the tx was submitted on A
+        (source=rpc), gossiped to B (source=peer) which proposed and
+        committed it; a second tx sits parked on A."""
+        h = "AB" * 10
+        parked = "CD" * 10
+        t0 = 1000.0
+        return {
+            "a:46657": {
+                "traces": [{
+                    "hash": h, "source": "rpc", "height": 9,
+                    "outcome": "committed",
+                    "stages": {"rpc_ingress": t0, "mempool_admit": t0 + 0.01,
+                               "p2p_broadcast": t0 + 0.02,
+                               "block_commit": t0 + 0.30,
+                               "event_delivery": t0 + 0.31},
+                    "spans": {}, "commit_latency_s": 0.30,
+                    "visible_latency_s": 0.31, "completed_at": t0 + 0.31,
+                }],
+                "active": [{
+                    "hash": parked, "source": "rpc", "height": 0,
+                    "outcome": None,
+                    "stages": {"rpc_ingress": t0 + 5.0,
+                               "mempool_admit": t0 + 5.01},
+                    "spans": {}, "commit_latency_s": None,
+                    "visible_latency_s": None, "completed_at": None,
+                }],
+            },
+            "b:46657": {
+                "traces": [{
+                    "hash": h, "source": "peer", "height": 9,
+                    "outcome": "committed",
+                    "stages": {"rpc_ingress": t0 + 0.03,
+                               "mempool_admit": t0 + 0.04,
+                               "proposal": t0 + 0.20,
+                               "block_commit": t0 + 0.29,
+                               "event_delivery": t0 + 0.30},
+                    "spans": {}, "commit_latency_s": 0.26,
+                    "visible_latency_s": 0.27, "completed_at": t0 + 0.30,
+                }],
+                "active": [],
+            },
+            "c:46657": {"error": "ConnectionRefusedError: down"},
+        }
+
+    def test_join_builds_cross_node_rows(self):
+        from tendermint_tpu.ops.txtrace import join_tx_timelines as jjoin
+        from tendermint_tpu_torch.ops.txtrace import join_tx_timelines
+
+        rows = join_tx_timelines(self._snapshot())
+        assert rows == jjoin(self._snapshot())  # the JAX package's join, on the same scrapes
+        assert len(rows) == 2
+        parked = next(r for r in rows if not r["committed"])
+        done = next(r for r in rows if r["committed"])
+        # the committed tx: submitted on A, proposed on B, cross-node
+        assert done["submitted_on"] == "a:46657"
+        assert done["proposed_on"] == "b:46657"
+        assert done["height"] == 9
+        assert done["nodes_reporting"] == 2
+        assert done["commit_latency_s"] == pytest.approx(0.26)
+        # the parked tx never reached proposal — the wedge-triage read
+        assert parked["last_stage"] == "mempool_admit"
+        assert parked["nodes_reporting"] == 1
+
+    def test_render_names_the_parked_stage(self):
+        import io
+
+        from tendermint_tpu.ops import txtrace as jtxtrace
+        from tendermint_tpu_torch.ops.txtrace import join_tx_timelines, render
+
+        rows = join_tx_timelines(self._snapshot())
+        buf = io.StringIO()
+        render(rows, out=buf)
+        out = buf.getvalue()
+        jbuf = io.StringIO()
+        jtxtrace.render(jtxtrace.join_tx_timelines(self._snapshot()), out=jbuf)
+        assert out == jbuf.getvalue()  # the JAX package's render, on the same scrapes
+        assert "PARKED at mempool_admit" in out
+        assert "committed @h=9" in out
+        assert "submitted on a:46657" in out
+
     def test_tx_trace_rpc_handler_filters_by_hash(self):
         from tendermint_tpu_torch.rpc.core.handlers import tx_trace
 
