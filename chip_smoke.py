@@ -417,10 +417,54 @@ Phases, in order; any failure raises and exits non-zero:
    each burst, the gate's batches and the share of gate lanes on the host
    floor, the restart's build (handshake) seconds, the host replay's
    seconds.
+39. The localnet (the localnet cell): the port's `ops/localnet` generates
+   a fleet of 4 validators at equal power (the signed kvstore behind the
+   gate, sqlite, a full mesh through netfaults link proxies, aggregate
+   commits from height 3, generous propose and vote timeouts, a 10 s commit
+   window) and starts it: four `python -m tendermint_tpu_torch.cli node`
+   processes, each holding the card (no daemon, no host fallback in their
+   environment). Each of 4 bursts of 1,000 signed txs and 10 forged goes
+   to node 0 over its HTTP JSON-RPC `broadcast_tx_sync` from 64 client
+   threads in the window before a proposal: the first once every member's
+   RPC answers (height 1's start window), each next one once the height
+   before it commits. Every height is byte-identical on the four
+   (`Localnet.assert_converged`); each valid tx is in exactly one block
+   and no other tx is, the forged ones refused at the gate (the heights
+   that hold each burst, and their rounds, are logged). Each process's
+   kernel launches, counted from 0 in it and printed by its CLI as it
+   stops (`kernel launches {...}`), are held in `localnet_expected`
+   against its gateway counters, read through `ops/fleet`'s scrape of its
+   GET /metrics just before the stop, and against the chain: B1 a launch
+   a device batch (a deliver a burst block, and the gate's batches of 32
+   or more, node 0's among them: these the scrape bounds, 32-512 lanes a
+   batch and no more lanes than the gate saw, but nothing predicts); no
+   dsm (a 4-validator commit stays under the gate on the host); K1 and K3
+   a tx root and an own part set, K1 a tree wave as the host replay's,
+   each counted from the chain; the replica none.
+   A `python -m tendermint_tpu_torch.cli replica` process follows node 0 and
+   serves 8 present and 8 absent keys at the last burst height, through a
+   `LightClient` pointed at it, equal to node 0's values. SIGTERM ends
+   every process with exit 0; a host replay of node 0's stored chain
+   (`gossip_reference`, a process of its own) gives its saved state and
+   every app hash; `cli --home <node 0> replay` exits 0 having replayed
+   node 0's WAL to its height. The launches are the members'; this
+   process launches nothing.
+40. Times of phase 39: each member's spawn to its RPC and to its first
+   height, and where a port process's start goes (`startup_probe`, a fresh
+   process: the torch import, the package, the CUDA context, the
+   libraries' load, B1's first and second launch); each burst height's wall
+   and `/consensus_trace` segments on every member; the RPC ingest rate of
+   each burst; the replica's walk and a verified read through it; the
+   replay's and the host replay's seconds.
+41. The kernels line, with each kernel's launches on every path beside
+   its entry (`localnet_launches`: the sum of the five processes' logged
+   counts).
 
 Each phase's start is logged on a line of its own, in seconds since
 launch. Each path's launch counts are set to 0 just before it and read just after
-(the daemons', in phases 21 and 23, read from their logs before and after).
+(the daemons', in phases 21 and 23, read from their logs before and after;
+the localnet's processes', in phase 39, from the line each prints as it
+stops, their counts starting at 0 with each process).
 The last lines are the kernels' JSON summary, the card line, and
 {"ok": true, "device": {...}}. Weights are keys made from a numpy seed;
 no network, one card.
@@ -672,6 +716,24 @@ NODE_SNAPSHOT_INTERVAL = 4
 NODE_TIMEOUT_COMMIT = 3.0
 NODE_INDEX_SAMPLE = 8  # a block's txs whose tx-index records are compared
 NODE_WAIT_S = 120.0  # the bound on each wait of the pump
+# phases 39-40, the localnet cell: the reference's `testnet` default and
+# test/p2p's fleet of 4 validators (tendermint_tpu/cli.py:324) at equal power, as
+# `python -m tendermint_tpu_torch.cli node` processes generated by the port's
+# ops/localnet (the signed kvstore, sqlite, a full mesh through netfaults link
+# proxies, aggregate commits from height 3), fed LOCALNET_BURSTS of phase 37's
+# bursts at node 0's RPC, one a height. The cut: 4 burst heights. A burst is
+# sent in the LOCALNET_TIMEOUT_COMMIT window before a proposal (height 1's
+# start window, then the window after each commit), the time in which it
+# reaches node 0 and, relayed by the mempool reactor, the proposer
+LOCALNET_NODES = 4
+LOCALNET_BURSTS = 4
+LOCALNET_UPGRADE_HEIGHT = 3
+LOCALNET_TIMEOUT_COMMIT = 10.0
+LOCALNET_TIMEOUT_PROPOSE = 10.0
+LOCALNET_TIMEOUT_VOTE = 2.0
+LOCALNET_READ_KEYS = 8  # present keys the replica serves, and as many absent ones
+LOCALNET_WAIT_S = 120.0  # the bound on each wait of the phase
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 # phase 21's daemon launches beside each kernel's entry in the kernels line
 DEVD_LAUNCH_KEYS = {"ed25519_verify": "b1", "ed25519_comb": "comb", "ed25519_comb_tables": "tables",
                     "ed25519_dsm": "dsm", "ripemd160": "ripemd160", "merkle_tree": "merkle_tree"}
@@ -687,6 +749,14 @@ def log(obj) -> None:
 def phase_start(n: int, what: str) -> None:
     """A line of its own as each phase starts: seconds since launch."""
     log({"phase_start": n, "what": what, "t_s": round(time.monotonic() - LAUNCHED, 3)})
+
+
+def last_launch_line(text: str) -> dict[str, int] | None:
+    """The counts on the last `kernel launches {...}` line of a process's
+    log (the daemon's `stats` op, a stopped `cli node` or `cli replica`),
+    or None."""
+    lines = [ln for ln in text.splitlines() if "kernel launches " in ln]
+    return json.loads(lines[-1].split("kernel launches ", 1)[1]) if lines else None
 
 
 def card_line() -> str:
@@ -1083,6 +1153,9 @@ def main() -> int:
         statesync_inputs_s = time.perf_counter() - t_ss
         t_node = time.perf_counter()
         node_inputs = make_node_inputs(pool, np.random.default_rng(SEED + 37))
+        node_inputs_s = time.perf_counter() - t_node
+        t_lnet = time.perf_counter()
+        localnet_inputs = make_localnet_inputs(pool, np.random.default_rng(SEED + 39))
     log({"phase": "setup", "keys": n_keys,
          "signatures": MIXED_LANES + n_small + 4 * n_mid + n_keys + AGG_SIZES[1],
          "app_state_keys": APP_STATE_KEYS, "app_signed_txs": sum(len(b["txs"]) for b in app_inputs["blocks"]),
@@ -1096,7 +1169,8 @@ def main() -> int:
          "statesync_signed_txs": sum(len(b["txs"]) for b in statesync_inputs),
          "statesync_inputs_s": statesync_inputs_s,
          "node_signed_txs": sum(len(b["txs"]) for b in node_inputs),
-         "node_inputs_s": time.perf_counter() - t_node, "seconds": time.perf_counter() - t0})
+         "node_inputs_s": node_inputs_s, "localnet_signed_txs": sum(len(b["txs"]) for b in localnet_inputs),
+         "localnet_inputs_s": time.perf_counter() - t_lnet, "seconds": time.perf_counter() - t0})
 
     # -- phase 2: kernel vs plain version on the card ---------------------------
     phase_start(2, "kernel vs plain version")
@@ -1365,7 +1439,15 @@ def main() -> int:
     node_time(name, power, node_ctx)
     node_launches = node_ctx["launches"]
     del node_ctx, node_inputs
-    phase_start(39, "kernels line")
+
+    # -- phases 39 and 40: the localnet, port node processes started by the CLI ----
+    phase_start(39, "localnet")
+    lnet_ctx = localnet_phase(name, power, localnet_inputs)
+    phase_start(40, "localnet times")
+    localnet_time(name, power, lnet_ctx)
+    localnet_launches = lnet_ctx["launches"]
+    del lnet_ctx, localnet_inputs
+    phase_start(41, "kernels line")
 
     entries = []
     for kname, module, launches, err, ms, p_ms, lanes in (
@@ -1422,6 +1504,7 @@ def main() -> int:
             entry["statesync_launches"] = statesync_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
             entry["replica_launches"] = replica_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
             entry["node_launches"] = node_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
+            entry["localnet_launches"] = localnet_launches[EXEC_LAUNCH_KEYS[entry["name"]]]
     log({"kernels": entries})
     log(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3101,9 +3184,9 @@ class DaemonOnCard:
         writes to its log."""
         client.stats()
         for _ in range(50):
-            lines = [ln for ln in self.log_text().splitlines() if "kernel launches " in ln]
-            if lines:
-                return json.loads(lines[-1].split("kernel launches ", 1)[1])
+            got = last_launch_line(self.log_text())
+            if got is not None:
+                return got
             time.sleep(0.1)
         raise AssertionError("devd logged no kernel launches")
 
@@ -6398,7 +6481,7 @@ class catchup_watch:
         return out
 
 
-def gossip_reference(root: str, doc_json, last: int, sample: int, wait_s: float) -> dict:
+def gossip_reference(root: str, doc_json, last: int, sample: int, wait_s: float, waves: bool = False) -> dict:
     """Phase 33's host reference, in a process of its own: V0's stored chain
     replayed from genesis, height by height as V0 stores it (its sqlite
     files, read beside the node), through the ported execution path on
@@ -6411,7 +6494,11 @@ def gossip_reference(root: str, doc_json, last: int, sample: int, wait_s: float)
     block's first `sample` txs, each block's part-set root and tx root
     recomputed on the host against its block id and header, the seconds
     the replay worked (its waits for V0 left out), and the launches
-    (none)."""
+    (none). With `waves`, the app's state tree hands its commit waves to a
+    host Hasher as a node's tree hands them to the node's (statetree's
+    _hash_batch: a wave of 32 nodes or more), and "waves" holds each
+    height's widths (the sharded fold's key priorities, which also reach
+    that Hasher, left out: an unsharded app hashes them key by key)."""
     from tendermint_tpu_torch.abci.apps.signedkv import SignedKVStoreApp
     from tendermint_tpu_torch.blockchain.store import BlockStore
     from tendermint_tpu_torch.libs.db import MemDB, db_provider
@@ -6463,6 +6550,19 @@ def gossip_reference(root: str, doc_json, last: int, sample: int, wait_s: float)
         app = SignedKVStoreApp(verify_in_app=False)
         app.deliver_verifier = verifier
         app.shards = APP_SHARDS
+        widths: dict[int, list[int]] = {}
+        applying = [0]  # the height apply_block runs
+        if waves:
+            tree_hasher = host_hasher()
+            leaf_hashes = tree_hasher.part_leaf_hashes
+
+            def recorded(chunks):
+                if call_site("other") == "tree":  # not the sharded fold's key priorities
+                    widths.setdefault(applying[0], []).append(len(chunks))
+                return leaf_hashes(chunks)
+
+            tree_hasher.part_leaf_hashes = recorded
+            app.tree.hasher = tree_hasher
         conns = AppConns(LocalClientCreator(app))
         conns.start()
         part_size = doc.consensus_params.block_gossip.block_part_size_bytes
@@ -6482,13 +6582,15 @@ def gossip_reference(root: str, doc_json, last: int, sample: int, wait_s: float)
                 roots.append({"height": h, "parts": parts.header() == meta.block_id.parts_header,
                               "data_hash": simple_hash_from_byteslices(list(block.data.txs))
                               == block.header.data_hash})
+                applying[0] = h
                 apply_block(state, None, conns.consensus(), block, meta.block_id.parts_header, MockMempool())
                 index.append([state.tx_indexer.get(tx_hash(tx)).to_json() for tx in block.data.txs[:sample]])
                 busy += time.perf_counter() - t0
         finally:
             conns.stop()
             db.close()
-    return {"states": states, "roots": roots, "index": index, "seconds": busy, "launches": read_launches()}
+    return {"states": states, "roots": roots, "index": index, "seconds": busy, "launches": read_launches(),
+            "waves": widths}
 
 
 def gossip_expected(doc, logs: dict, live: dict, caught: dict, proofs: dict, gate: int) -> dict:
@@ -8471,6 +8573,521 @@ def node_time(name, power, ctx) -> None:
     log({"phase": "node_time", **tag, "restart_build_s": ctx["runs"][1]["build_s"],
          "reference_replay_s": ctx["ref"]["seconds"], "reference_wait_s": ctx["ref_wait_s"],
          "phase_37_s": ctx["phase_s"]})
+
+
+# -- phases 39-40: the localnet, port node processes started by the CLI ----------
+
+
+def make_localnet_inputs(pool, rng) -> list[dict]:
+    """Phase 39's bursts, from their own generator so the earlier phases'
+    draws stay as they were: LOCALNET_BURSTS of phase 37's families."""
+    return make_bursts(pool, rng, LOCALNET_BURSTS, COMMITTEE_FIRST_BLOCK, COMMITTEE_BLOCK,
+                       COMMITTEE_VALUE_BYTES, EXEC_SIGNERS, b"lnet-%07d")
+
+
+def localnet_homes(spec) -> None:
+    """Generous liveness timeouts in every generated home (the fleet's
+    start window, each height's commit window and the burst's ingest stay
+    the spec's timeout_commit): no height of the run changes round while a
+    process is still starting or a 1 MB proposal is in flight."""
+    from tendermint_tpu_torch.config.toml import config_to_toml, load_config
+
+    for i in range(spec.n):
+        cfg = load_config(spec.home(i))
+        cc = cfg.consensus
+        cc.timeout_propose = LOCALNET_TIMEOUT_PROPOSE
+        cc.timeout_prevote = cc.timeout_precommit = LOCALNET_TIMEOUT_VOTE
+        if cfg.statesync.snapshot_interval:
+            raise AssertionError("a generated home takes snapshots: their digests are not in localnet_expected")
+        with open(os.path.join(spec.home(i), "config.toml"), "w") as f:
+            f.write(config_to_toml(cfg))
+
+
+def localnet_scrape(net) -> list[dict]:
+    """Each member's device work, read as an operator reads it: ops/fleet's
+    scrape of its GET /metrics (the gateway's Verifier and Hasher counters,
+    the gate's batch count)."""
+    from tendermint_tpu_torch.ops import fleet
+
+    names = {"tpu_batches": "gateway_verify_tpu_batches", "tpu_sigs": "gateway_verify_tpu_sigs",
+             "cpu_sigs": "gateway_verify_cpu_sigs", "agg_batches": "gateway_verify_agg_batches",
+             "agg_lanes_device": "gateway_verify_agg_lanes_device", "agg_lanes_cpu": "gateway_verify_agg_lanes_cpu",
+             "tpu_tx_roots": "gateway_hash_tpu_tx_roots", "tpu_part_batches": "gateway_hash_tpu_part_batches",
+             "tpu_leaves": "gateway_hash_tpu_leaves", "cpu_leaves": "gateway_hash_cpu_leaves",
+             "gate_batches": "mempool_sig_gate_batch_seconds_count", "height": "consensus_height"}
+    out = []
+    for node in net.nodes:
+        m = fleet.fetch_metrics(node.rpc_url)
+        row = {k: fleet.metric_value(m, name) for k, name in names.items()}
+        if any(v is None for v in row.values()):
+            raise AssertionError(f"node{node.index}'s /metrics lacks {[k for k, v in row.items() if v is None]}")
+        out.append({k: int(v) for k, v in row.items()})
+    return out
+
+
+def logged_launches(path: str) -> dict[str, int]:
+    """A port process's kernel launches, from the `kernel launches {...}`
+    line its CLI prints once stopped (cli.report_launches): its wrappers'
+    counts, from 0 at the process's start."""
+    with open(path, "rb") as f:
+        got = last_launch_line(f.read().decode(errors="replace"))
+    if got is None:
+        raise AssertionError(f"{path} holds no kernel launches line")
+    return got
+
+
+def localnet_expected(chain: dict, scraped: list[dict], launched: list[dict], ref_waves: dict, proposers: dict,
+                      gate: int, hash_gate: int, burst_lanes: list[int]) -> list[dict]:
+    """Each member's kernel launches (`launched`: logged by its CLI at its
+    exit) held against its gateway counters (`scraped`, read just before
+    the stop) and against a prediction from the chain (read over node 0's
+    RPC) and the host replay's tree waves, from the code's call sites:
+    - B1: a launch a device batch of the Verifier (tpu_batches): one
+      deliver a block of `gate` txs or more (the signed kvstore's
+      deliver_txs, every member), and the gate's batches of `gate` lanes or
+      more. The gate's batches are bounded, not predicted: a batch's width
+      follows the arrival of the txs (the RPC clients' pace at node 0, the
+      mempool reactor's at the others), which no scrape shows. So the
+      gate's device lanes are at most the lanes its gate saw (the burst's
+      at node 0, the valid ones relayed at the others), at least 32 and at
+      most 512 (SigBatcher's max_batch) a batch, its device batches at most
+      the gate's batches; node 0's gate puts lanes on B1.
+    - dsm: none; a 4-validator commit (4 lanes, 5 an aggregate) stays under
+      the gate on the host, every check of it (agg_lanes_cpu above 0).
+    - K1: a launch a block's tx root of `hash_gate` txs or more, on every
+      member; a part set of the member's own proposals of `hash_gate`
+      parts or more; a state-tree wave that reaches the Hasher (32 nodes or
+      more; the host replay's widths).
+    - K3: a launch a tx root and an own part set of those (a wave's
+      parents are built on the host).
+    - b2, comb, tables, sha256: none."""
+    txs = {h: len(t) for h, t in chain["txs"].items()}
+    parts = chain["parts"]
+    delivers = [txs[h] for h in sorted(txs) if txs[h] >= gate]
+    roots = [txs[h] for h in sorted(txs) if txs[h] >= hash_gate]
+    waves = [w for h in sorted(ref_waves) if h <= chain["height"] for w in ref_waves[h] if w >= hash_gate]
+    out = []
+    for i, (got, ran) in enumerate(zip(scraped, launched)):
+        own = [parts[h] for h in sorted(parts) if proposers[h] == i and parts[h] >= hash_gate]
+        exp = {"tpu_tx_roots": len(roots), "tpu_part_batches": len(own) + len(waves),
+               "tpu_leaves": sum(roots) + sum(own) + sum(waves), "agg_batches": 0, "agg_lanes_device": 0}
+        if {k: got[k] for k in exp} != exp:
+            raise AssertionError(f"node{i}'s scraped hash and aggregate counters { {k: got[k] for k in exp} }, "
+                                 f"expected {exp}")
+        want = {"b1": got["tpu_batches"], "b2": 0, "dsm": 0, "comb": 0, "tables": 0,
+                "ripemd160": len(roots) + len(own) + len(waves), "sha256": 0, "merkle_tree": len(roots) + len(own)}
+        if ran != want:
+            raise AssertionError(f"node{i}'s kernel launches {ran}, expected {want} (B1 its {got['tpu_batches']} "
+                                 f"device batches; K1 and K3 {len(roots)} tx roots, {len(own)} own part sets, "
+                                 f"{len(waves)} waves)")
+        gate_lanes = got["tpu_sigs"] - sum(delivers)
+        gate_batches = got["tpu_batches"] - len(delivers)
+        seen = burst_lanes[0] if i == 0 else burst_lanes[1]
+        if not (0 <= gate_lanes <= seen and 32 * gate_batches <= gate_lanes <= 512 * gate_batches
+                and gate_batches <= got["gate_batches"]):
+            raise AssertionError(f"node{i}'s gate on B1: {gate_batches} batches, {gate_lanes} lanes, of "
+                                 f"{got['gate_batches']} gate batches and {seen} lanes")
+        if (i == 0 and gate_lanes == 0) or got["agg_lanes_cpu"] == 0 or got["cpu_sigs"] == 0:
+            raise AssertionError(f"node{i}: no gate lanes on B1, or no commit lane on the host: {got}")
+        out.append({**exp, "deliver_batches": len(delivers), "deliver_lanes": sum(delivers),
+                    "gate_batches_device": gate_batches, "gate_lanes_device": gate_lanes, "gate_lanes": seen,
+                    "own_part_sets": len(own), "waves": len(waves), "launches": ran})
+    return out
+
+
+def localnet_proposers(doc, rounds: dict[int, int]) -> dict[int, bytes]:
+    """The address that proposed each height's block: the genesis set's
+    rotation, advanced once a height as State advances it, and `rounds[h]`
+    more times at height h for the round it committed in, as consensus
+    advances a copy of the set (consensus/state.py, enter_new_round)."""
+    from tendermint_tpu_torch.libs.db import MemDB
+    from tendermint_tpu_torch.state.state import State
+
+    vals = State.get_state(MemDB(), doc).validators
+    out = {}
+    for h in range(1, max(rounds) + 1):
+        at = vals.copy()
+        if rounds[h]:
+            at.increment_accum(rounds[h])
+        out[h] = at.get_proposer().address
+        vals = vals.copy()
+        vals.increment_accum(1)
+    return out
+
+
+def localnet_chain(client, last: int) -> dict:
+    """Node 0's chain over its RPC: each height's txs, part count, commit
+    round and app hash."""
+    from tendermint_tpu_torch.types.agg_commit import commit_from_json
+
+    out = {"height": last, "txs": {}, "parts": {}, "round": {}, "app_hash": {}, "fingerprint": {}}
+    for h in range(1, last + 1):
+        res = client.block(height=h)
+        meta, block = res["block_meta"], res["block"]
+        out["txs"][h] = [bytes.fromhex(t) for t in (block["data"]["txs"] or [])]
+        out["parts"][h] = meta["block_id"]["parts"]["total"]
+        out["app_hash"][h] = block["header"]["app_hash"]
+        out["round"][h] = commit_from_json(client.commit(height=h)["commit"]).round_()
+    return out
+
+
+def startup_probe() -> dict:
+    """Where a port process's start goes, in this fresh process: the torch
+    import, the port's node package, the CUDA context, the libraries'
+    load and B1's first launch (its module load) and second, each in
+    seconds."""
+    import importlib
+
+    t = time.perf_counter()
+    out = {}
+    import torch
+
+    out["torch_import_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    importlib.import_module("tendermint_tpu_torch.node")
+    out["package_import_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    out["cuda_context_s"] = time.perf_counter() - t
+    from tendermint_tpu_torch.crypto import ed25519 as ed
+    from tendermint_tpu_torch.ops import ed25519_f32p as f32p
+    from tendermint_tpu_torch.ops import kernels
+
+    t = time.perf_counter()
+    for name in ("ed25519_verify", "hash_blocks", "merkle_tree"):
+        kernels.load(name)
+    out["libraries_load_s"] = time.perf_counter() - t
+    seed = bytes(range(32))
+    items = [(ed.public_key(seed), b"probe", ed.sign(seed, b"probe"))] * 32
+    for key in ("b1_first_launch_s", "b1_second_launch_s"):
+        args, _, _ = f32p.marshal_device_args(items, "cuda")
+        t = time.perf_counter()
+        f32p.verify_lanes(*args)
+        torch.cuda.synchronize()
+        out[key] = time.perf_counter() - t
+    return out
+
+
+def free_port_range(n: int) -> int:
+    """A base port whose n ports on 127.0.0.1 are free now, below the
+    ephemeral range (where the link proxies' own ports land): a fleet's
+    p2p and RPC ports (tests/test_torch_localnet.py's fleets too)."""
+    import socket
+
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    rng = np.random.default_rng()
+    for _ in range(200):
+        base = int(rng.integers(max(1024, low - 12000), max(2048, low - n - 1)))
+        socks = []
+        try:
+            for port in range(base, base + n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", port))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError(f"no {n} free ports in a row")
+
+
+def localnet_phase(name, power, bursts) -> dict:
+    """Phase 39: the localnet cell on the card. The port's ops/localnet
+    generates a LOCALNET_NODES-validator fleet (the signed kvstore behind
+    the gate, sqlite, full topology through netfaults link proxies,
+    aggregate commits from LOCALNET_UPGRADE_HEIGHT; localnet_homes' timeouts)
+    and starts it: one `python -m tendermint_tpu_torch.cli node` process a
+    member, each holding the card (no daemon, no host fallback). Each burst
+    goes to node 0 over its HTTP JSON-RPC broadcast_tx_sync from
+    NODE_RPC_CLIENTS threads in the window before a proposal: the first
+    once every member's RPC answers (height 1's start window), each next
+    one once the height before it commits. Checks: every height up to the fleet's
+    least is byte-identical on the four (Localnet.assert_converged); every
+    valid tx is in exactly one block, none else is, and only the forged
+    txs were refused (the heights that hold each burst are logged: one,
+    when the burst reached the proposer whole); each member's kernel
+    launches, printed by its CLI as it stops, agree with its gateway
+    counters scraped just before the stop and with the chain in
+    localnet_expected (the proposers from each height's commit round; the
+    gate's device batches bounded, not predicted), and the replica
+    launches none; a `cli replica` process following
+    node 0 serves LOCALNET_READ_KEYS present and as many absent keys at the
+    last burst height equal to node 0's values, through a LightClient
+    pointed at it; SIGTERM ends each process with exit 0; a host replay of
+    node 0's stored chain (gossip_reference, a process of its own) gives
+    node 0's last saved state and every app hash of its chain; and
+    `cli --home <node 0> replay` exits 0 having replayed messages to node
+    0's height or the one after. This process launches no kernel. Returns
+    what phase 40 needs and the launches, summed over the five processes."""
+    import signal
+
+    from tendermint_tpu_torch.abci.apps.signedkv import parse_sig_tx
+    from tendermint_tpu_torch.config.toml import load_config
+    from tendermint_tpu_torch.libs.db import db_provider
+    from tendermint_tpu_torch.ops import gateway
+    from tendermint_tpu_torch.ops import localnet as ln
+    from tendermint_tpu_torch.rpc.client import HTTPClient
+    from tendermint_tpu_torch.rpc.light import LightClient
+    from tendermint_tpu_torch.state.state import State
+    from tendermint_tpu_torch.types.genesis import GenesisDoc
+
+    tag = {"card": name, "power_limit": power}
+    gate = gateway._env_int("TENDERMINT_TPU_MIN_BATCH", 32)
+    hash_gate = gateway._env_int("TENDERMINT_TPU_HASH_MIN_BATCH", 16)
+    root = tempfile.mkdtemp(prefix="localnet-")
+    spec = ln.LocalnetSpec(n=LOCALNET_NODES, root=root, chain_id="chip-localnet", seed=SEED, topology="full",
+                           proxy_app="signedkv", db_backend="sqlite", upgrade_height=LOCALNET_UPGRADE_HEIGHT,
+                           timeout_commit=LOCALNET_TIMEOUT_COMMIT, log_level="warning",
+                           base_port=free_port_range(2 * LOCALNET_NODES + 1))
+    net = ln.Localnet(spec).generate()
+    localnet_homes(spec)
+    doc = GenesisDoc.from_file(os.path.join(spec.home(0), "genesis.json"))
+    log({"phase": "localnet_setup", **tag, "nodes": spec.n, "topology": spec.resolved_topology(),
+         "links": len(spec.dial_edges()), "proxy_app": spec.proxy_app, "db_backend": spec.db_backend,
+         "upgrade_height": spec.upgrade_height, "timeouts": {**spec.consensus_timeouts(),
+                                                              "timeout_propose": LOCALNET_TIMEOUT_PROPOSE,
+                                                              "timeout_prevote": LOCALNET_TIMEOUT_VOTE,
+                                                              "timeout_precommit": LOCALNET_TIMEOUT_VOTE},
+         "bursts": [len(b["txs"]) for b in bursts], "forged": [len(b["forged"]) for b in bursts],
+         "rpc_clients": NODE_RPC_CLIENTS})
+    addr_of = {}
+    for i in range(spec.n):
+        with open(os.path.join(spec.home(i), "priv_validator.json")) as f:
+            addr_of[bytes.fromhex(json.load(f)["address"])] = i
+    reset_launches()
+    replica = feeder = None
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    t_phase = time.perf_counter()
+    try:
+        t_start = time.perf_counter()
+        net.start()
+        starts = {i: {} for i in range(spec.n)}
+
+        def started(key: str, height: int):
+            def cond() -> bool:
+                for node in net.nodes:
+                    if not node.alive():
+                        raise AssertionError(f"node{node.index} exited {node.proc.poll()}: "
+                                             f"{open(os.path.join(node.home, 'node.log'), 'rb').read()[-800:]!r}")
+                    st = starts[node.index]
+                    if key not in st and node.height() >= height:
+                        st[key] = time.perf_counter() - t_start
+                return all(key in st for st in starts.values())
+            return cond
+
+        wait_for(started("rpc_up_s", 0), LOCALNET_WAIT_S, "every member's RPC")
+        node0 = net.nodes[0]
+        client = HTTPClient(node0.rpc_url, timeout=60.0)
+        feeder = rpc_feeder(node0.rpc_url)
+        replica = None
+        # burst 1 is sent in height 1's start window, each next one once the
+        # height before it commits: the commit window is its time to reach
+        # node 0 and, relayed by the mempool reactor, the next proposer (sent
+        # during a proposal, a burst slowed that proposal by seconds: the
+        # processes share the host's cores)
+        refused, targets = [], []
+        for k, burst in enumerate(bursts):
+            h0 = client.status()["latest_block_height"]
+            targets.append(h0 + 1)
+            answers, errors = feeder.send(burst["txs"])
+            if errors or len(answers) != len(burst["txs"]):
+                raise AssertionError(f"RPC ingest of burst {k + 1}: {len(errors)} errors: {errors[:3]}")
+            refused.append(sorted(i for i, a in answers.items() if a["code"]))
+            if k == 0:
+                wait_for(started("first_height_s", 1), LOCALNET_WAIT_S, "every member's first height")
+                # the replica follows node 0 from genesis, its start beside
+                # the bursts
+                replica = ln.ReplicaProc(os.path.join(root, "replica"), node0.rpc_url,
+                                         spec.base_port + 2 * spec.n)
+                replica.start()
+                t_rep = time.perf_counter()
+            wait_for(lambda: client.num_unconfirmed_txs()["n_txs"] == 0
+                     and client.status()["latest_block_height"] > h0, LOCALNET_WAIT_S, f"burst {k + 1} committed")
+        last_burst = client.status()["latest_block_height"]
+        t_fed = time.perf_counter()
+        # the last burst's state is read at last_burst, proven against
+        # header last_burst + 1: every member and the replica past it
+        wait_for(lambda: min(net.heights()) > last_burst, LOCALNET_WAIT_S, "every member past the last burst")
+        upto = min(net.heights())
+        converged = net.assert_converged(upto)
+        chain = localnet_chain(client, upto)
+        traces = [HTTPClient(node.rpc_url).consensus_trace(last=upto)["traces"] for node in net.nodes]
+        wait_for(lambda: replica.lag() == 0 and replica.rpc("status")["latest_block_height"] > last_burst,
+                 LOCALNET_WAIT_S, "the replica's walk past the last burst")
+        replica_s = {"spawn_to_head": time.perf_counter() - t_rep, "after_last_burst": time.perf_counter() - t_fed}
+        written = {}
+        for b in bursts:
+            bad = set(b["forged"])
+            for i, tx in enumerate(b["txs"]):
+                if i not in bad:
+                    key, value = parse_sig_tx(tx)[1].split(b"=", 1)
+                    written[key] = value
+        keys = sorted(written)
+        rng = np.random.default_rng(SEED + 39)
+        present = [keys[i] for i in rng.choice(len(keys), size=LOCALNET_READ_KEYS, replace=False)]
+        absent = [b"lnet-absent-%02d" % i for i in range(LOCALNET_READ_KEYS)]
+        lc = LightClient.from_genesis(HTTPClient(replica.rpc_url, timeout=60.0))
+        reads_ms = []
+        for k in present + absent:
+            q = client.abci_query(data=k.hex())["response"]
+            at_node = bytes.fromhex(q["value"]) if q.get("value") else None
+            t = time.perf_counter()
+            r = lc.verified_query(k, height=last_burst)
+            reads_ms.append(1e3 * (time.perf_counter() - t))
+            want = written.get(k)
+            if (r["value"], r["absent"], r["height"], at_node) != (want, want is None, last_burst, want):
+                raise AssertionError(f"the replica's read of {k!r}: {r['value']!r} absent {r['absent']} at "
+                                     f"{r['height']}; node 0 {at_node!r}, written {want!r}")
+        # the gateway counters just before the stop, beside the launches
+        # each process prints as it stops (cli.report_launches); every
+        # process stops at once, and each must exit 0
+        scraped = localnet_scrape(net)
+        t_stop = time.perf_counter()
+        procs = {"replica": replica.proc, **{node.index: node.proc for node in net.nodes}}
+        for proc in procs.values():
+            proc.send_signal(signal.SIGTERM)
+        stopped = {k: proc.wait(timeout=60) for k, proc in procs.items()}
+        stop_s = time.perf_counter() - t_stop
+        replica.proc = None
+        for node in net.nodes:
+            node.proc = None
+        launched = [logged_launches(os.path.join(node.home, "node.log")) for node in net.nodes]
+        replica_launched = logged_launches(os.path.join(replica.home, "replica.log"))
+        db_dir = load_config(spec.home(0)).base.db_dir()
+        db = db_provider("state", "sqlite", db_dir)
+        try:
+            final_state = State.load_state(db, doc)
+        finally:
+            db.close()
+        stored = final_state.last_block_height
+        # the host replay, the `replay` command and phase 40's startup probe
+        # side by side, each a process of its own
+        pending = pool.apply_async(gossip_reference, (db_dir, doc.to_json(), stored, 0, 10 * LOCALNET_WAIT_S, True))
+        t_replay = time.perf_counter()
+        replay_proc = subprocess.Popen([sys.executable, "-m", "tendermint_tpu_torch.cli", "--home", spec.home(0),
+                                        "replay"], env=ln.member_env(), cwd=REPO_DIR, text=True,
+                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        probe_proc = subprocess.Popen([sys.executable, "-c", "import json, chip_smoke; "
+                                       "print(json.dumps(chip_smoke.startup_probe()))"],
+                                      env=ln.member_env(), cwd=REPO_DIR, text=True,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        replay_out, replay_err = replay_proc.communicate(timeout=10 * LOCALNET_WAIT_S)
+        replay_s = time.perf_counter() - t_replay
+        probe_out, probe_err = probe_proc.communicate(timeout=10 * LOCALNET_WAIT_S)
+        if probe_proc.returncode != 0:
+            raise AssertionError(f"the startup probe: {probe_err[-800:]}")
+        probe = json.loads(probe_out.strip().splitlines()[-1])
+        t_ref = time.perf_counter()
+        ref = pending.get(timeout=10 * LOCALNET_WAIT_S)
+        ref_wait_s = time.perf_counter() - t_ref
+        own_launches = read_launches()
+    except BaseException:
+        # what each member said before it is stopped: the error's context
+        for i in range(spec.n):
+            with contextlib.suppress(OSError), open(os.path.join(spec.home(i), "node.log"), "rb") as f:
+                log({"phase": "localnet_log", "node": i, "tail": f.read()[-3000:].decode(errors="replace")})
+        with contextlib.suppress(Exception):
+            log({"phase": "localnet_heights", "heights": net.heights(),
+                 "mempools": [HTTPClient(n.rpc_url).num_unconfirmed_txs()["n_txs"] for n in net.nodes]})
+        raise
+    finally:
+        if feeder is not None:
+            feeder.close()
+        if replica is not None:
+            replica.kill()
+        pool.terminate()
+        pool.join()
+        net.stop(keep_root=False)
+    phase_s = time.perf_counter() - t_phase
+
+    # -- the checks ----------------------------------------------------------
+    if stopped != {"replica": 0, **{i: 0 for i in range(spec.n)}}:
+        raise AssertionError(f"exit codes after SIGTERM: {stopped}")
+    if any(own_launches.values()):
+        raise AssertionError(f"this process launched kernels during the localnet: {own_launches}")
+    committed: dict[bytes, int] = {}
+    for h in range(1, upto + 1):
+        for tx in chain["txs"][h]:
+            committed[tx] = committed.get(tx, 0) + 1
+    burst_heights = []  # the heights that hold each burst's valid txs: one, when it reached the proposer whole
+    for k, b in enumerate(bursts):
+        valid = [tx for i, tx in enumerate(b["txs"]) if i not in set(b["forged"])]
+        if any(committed.get(tx) != 1 for tx in valid):
+            raise AssertionError(f"burst {k + 1}: a valid tx is not in exactly one block")
+        burst_heights.append([h for h in range(1, upto + 1) if set(chain["txs"][h]) & set(valid)])
+        if refused[k] != b["forged"]:
+            raise AssertionError(f"burst {k + 1}: the gate refused {refused[k]}, forged {b['forged']}")
+    if sum(committed.values()) != sum(len(b["txs"]) - len(b["forged"]) for b in bursts):
+        raise AssertionError("a block holds a tx outside the bursts' valid ones")
+    if final_state.bytes_() != ref["states"][-1] or any(ref["launches"].values()):
+        raise AssertionError(f"node 0's saved state differs from the host replay's, or it launched: {ref['launches']}")
+    # the app hash after height h, from the replay's state saved at h, is
+    # header h + 1's
+    ref_apps = {json.loads(s)["last_block_height"]: json.loads(s)["app_hash"].upper() for s in ref["states"]}
+    if any(chain["app_hash"][h + 1].upper() != ref_apps[h] for h in range(1, upto)):
+        raise AssertionError("an app hash of node 0's chain differs from the host replay's")
+    if not all(r["parts"] and r["data_hash"] for r in ref["roots"]):
+        raise AssertionError(f"a block's part-set root or tx root differs on the host: {ref['roots']}")
+    m = re.search(r"replayed (\d+) messages; final height/round/step: (\d+)/(\d+)/(\S+)", replay_out)
+    if replay_proc.returncode != 0 or m is None or int(m.group(1)) == 0 or int(m.group(2)) not in (stored, stored + 1):
+        raise AssertionError(f"`replay` on node 0's home: exit {replay_proc.returncode}, {replay_out[-400:]!r} "
+                             f"{replay_err[-800:]!r}; node 0 stored {stored}")
+    proposers = {h: addr_of[a] for h, a in localnet_proposers(doc, chain["round"]).items()}
+    relayed = sum(len(b["txs"]) - len(b["forged"]) for b in bursts)
+    exps = localnet_expected(chain, scraped, launched, ref["waves"], proposers, gate, hash_gate,
+                             [sum(len(b["txs"]) for b in bursts), relayed])
+    # the replica: its 4-lane commits and 5-lane aggregates under the gate on
+    # the host, its reads' proofs against a header it holds: no launch
+    if any(replica_launched.values()):
+        raise AssertionError(f"the replica launched {replica_launched}")
+    launches = {k: sum(ran[k] for ran in launched) + replica_launched[k] for k in replica_launched}
+    if not all(launches[k] for k in ("b1", "ripemd160", "merkle_tree")):
+        raise AssertionError(f"a kernel of the localnet's path never launched: {launches}")
+    log({"phase": "localnet_path", **tag, "heights": upto, "converged_heights": converged,
+         "burst_heights": burst_heights, "target_heights": targets, "rounds": chain["round"],
+         "proposers": {h: proposers[h] for hs in burst_heights for h in hs},
+         "block_txs": {h: len(chain["txs"][h]) for hs in burst_heights for h in hs},
+         "parts": {h: chain["parts"][h] for hs in burst_heights for h in hs},
+         "launches": launches, "members": [{"node": i, **scraped[i], **{k: v for k, v in e.items() if k != "launches"},
+                                            "launches": e["launches"]} for i, e in enumerate(exps)],
+         "replica": {"keys": len(present) + len(absent), **replica_s, "launches": replica_launched},
+         "replay": {"messages": int(m.group(1)), "final": m.group(0).rsplit(" ", 1)[-1], "node0_stored": stored},
+         "exit_codes": stopped, "phase_s": phase_s,
+         "records": "byte-identical on the four; states and app hashes equal to the host replay"})
+    return {"starts": starts, "ingest": list(feeder.bursts), "chain": chain, "burst_heights": burst_heights,
+            "launches": launches, "exps": exps, "replica_s": replica_s, "reads_ms": reads_ms, "replay_s": replay_s,
+            "ref": ref, "ref_wait_s": ref_wait_s, "phase_s": phase_s, "fed_s": t_fed - t_start, "stop_s": stop_s,
+            "traces": traces, "probe": probe}
+
+
+def localnet_time(name, power, ctx) -> None:
+    """Phase 40: phase 39's run as its operator reads it: each member's
+    spawn to its RPC and to its first height, and where a port process's
+    start goes (startup_probe, run in a fresh process beside the replay:
+    the torch import, the package, the CUDA context, the libraries' load,
+    B1's first and second launch); each burst height's wall and
+    /consensus_trace segments on every member; the RPC ingest rate of
+    each burst; the replica's spawn to the head and its wait after the
+    last burst, a verified read's latency through it; the stop, the
+    replay's and the host replay's seconds."""
+    tag = {"card": name, "power_limit": power}
+    heights = {h for hs in ctx["burst_heights"] for h in hs}
+    per_height = [[{"height": t["height"], "wall_s": t["wall_s"], "segments": t["segments"]}
+                   for t in traces if t["height"] in heights] for traces in ctx["traces"]]
+    log({"phase": "localnet_time", **tag, "starts": ctx["starts"], "startup_probe": ctx["probe"],
+         "burst_heights": ctx["burst_heights"], "per_height": per_height,
+         "ingest_txs_per_s": [b["txs_per_s"] for b in ctx["ingest"]],
+         "ingest_s": [b["seconds"] for b in ctx["ingest"]],
+         "replica_s": ctx["replica_s"], "read_ms": ctx["reads_ms"], "stop_s": ctx["stop_s"],
+         "replay_s": ctx["replay_s"], "reference_replay_s": ctx["ref"]["seconds"],
+         "reference_wait_s": ctx["ref_wait_s"], "fed_s": ctx["fed_s"], "phase_39_s": ctx["phase_s"]})
 
 if __name__ == "__main__":
     sys.exit(main())

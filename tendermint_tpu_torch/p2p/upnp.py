@@ -1,5 +1,5 @@
 """UPnP IGD client: NAT discovery, external-IP lookup, port mapping
-(reference: p2p/upnp/upnp.go:35-380).
+(reference: p2p/upnp/upnp.go:35-380, probe.go).
 
 Pure stdlib: SSDP discovery is an M-SEARCH datagram to the well-known
 multicast group; the gateway answers with the LOCATION of its device
@@ -15,6 +15,7 @@ from __future__ import annotations
 import socket
 import urllib.request
 import xml.etree.ElementTree as ET
+from dataclasses import dataclass
 
 SSDP_ADDR = ("239.255.255.250", 1900)
 _SEARCH = (
@@ -33,6 +34,14 @@ _WAN_SERVICES = (
 
 class UPnPError(Exception):
     pass
+
+
+@dataclass
+class Capabilities:
+    """probe_upnp's answer (ref probe.go UPNPCapabilities)."""
+
+    port_mapping: bool = False
+    hairpin: bool = False
 
 
 class NAT:
@@ -188,3 +197,15 @@ def _local_ip(reach_url: str) -> str:
         return "127.0.0.1"
     finally:
         s.close()
+
+
+def probe(ext_port: int = 46656, int_port: int = 46656, timeout: float = 3.0) -> Capabilities:
+    """Can this network do UPnP port mapping? (ref probe.go:87-112 minus
+    the hairpin self-dial, which needs a live listener)."""
+    caps = Capabilities()
+    nat = discover(timeout=timeout)
+    nat.get_external_address()
+    nat.add_port_mapping("tcp", ext_port, int_port, "tendermint-tpu probe", 20 * 60)
+    caps.port_mapping = True
+    nat.delete_port_mapping("tcp", ext_port)
+    return caps

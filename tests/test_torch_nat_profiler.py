@@ -161,6 +161,74 @@ class TestUPnPEqualToJax:
         assert igd.mapped == [("tcp", 46656)] * 2 and igd.deleted == [("tcp", 46656)] * 2
 
 
+class TestProbeEqualToJax:
+    """`upnp.probe` and `Capabilities` (probe_upnp's answer), the CLI's
+    `probe_upnp`: both packages, pointed at one fake IGD (their
+    `discover` bound to its SSDP address, so no datagram leaves the
+    loopback)."""
+
+    @pytest.fixture()
+    def igd(self):
+        g = _FakeIGD()
+        yield g
+        g.close()
+
+    @staticmethod
+    def _bind(monkeypatch, mod, ssdp_addr, timeout=None):
+        """mod.discover pointed at `ssdp_addr` (and, with `timeout`, with
+        that window whatever the caller asks)."""
+        orig = mod.discover
+
+        def discover(timeout_=3.0, **kw):
+            return orig(timeout=timeout_ if timeout is None else timeout, ssdp_addr=ssdp_addr)
+
+        monkeypatch.setattr(mod, "discover", lambda timeout=3.0, **kw: discover(timeout))
+
+    def test_probe_requests_and_capabilities_equal_to_jax(self, igd, monkeypatch):
+        from tendermint_tpu.p2p import upnp as jupnp
+
+        seen = []
+        for mod in (jupnp, upnp):
+            self._bind(monkeypatch, mod, igd.ssdp_addr)
+            igd.requests.clear()
+            caps = mod.probe(ext_port=46700, int_port=46701, timeout=3.0)
+            seen.append((caps, list(igd.requests)))
+        (j_caps, j_requests), (t_caps, t_requests) = seen
+        assert isinstance(t_caps, upnp.Capabilities)
+        assert (t_caps.port_mapping, t_caps.hairpin) == (j_caps.port_mapping, j_caps.hairpin) == (True, False)
+        assert upnp.Capabilities() == upnp.Capabilities(port_mapping=False, hairpin=False)
+        assert [r[0] for r in j_requests] == ["ssdp", "http", "http", "http", "http"]
+        assert t_requests == j_requests
+        assert igd.mapped == [("tcp", 46700)] * 2 and igd.deleted == [("tcp", 46700)] * 2
+
+    def test_cli_probe_upnp_equal_to_jax(self, igd, monkeypatch, capsys):
+        """`probe_upnp` prints the capabilities as JSON and exits 0; with no
+        gateway answering it prints the error and exits 1, in both CLIs."""
+        import json
+
+        from tendermint_tpu import cli as jcli
+        from tendermint_tpu.p2p import upnp as jupnp
+        from tendermint_tpu_torch import cli
+
+        sink = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        sink.bind(("127.0.0.1", 0))
+        got = {}
+        try:
+            for name, main, mod in (("jax", jcli.main, jupnp), ("port", cli.main, upnp)):
+                self._bind(monkeypatch, mod, igd.ssdp_addr)
+                ok = (main(["probe_upnp"]), json.loads(capsys.readouterr().out))
+                monkeypatch.undo()
+                self._bind(monkeypatch, mod, sink.getsockname(), timeout=0.2)
+                failed = (main(["probe_upnp"]), json.loads(capsys.readouterr().out))
+                monkeypatch.undo()
+                got[name] = (ok, failed)
+        finally:
+            sink.close()
+        assert got["port"][0] == got["jax"][0] == (0, {"port_mapping": True, "hairpin": False})
+        assert got["port"][1] == got["jax"][1]
+        assert got["port"][1][0] == 1 and got["port"][1][1]["error"].startswith("SSDP discovery failed")
+
+
 class TestIPRangeCounter:
     def test_limits_per_depth(self):
         c = IPRangeCounter(limits=(4, 3, 2))
