@@ -573,6 +573,11 @@ ALU_OPS = ("LOP3", "IADD3", "SHF", "LEA", "VIADD", "LDG", "STG")
 # its own, in a loop of its own or behind a branch on the warp)
 RMD_LINE_MARKS = {"left": r"0x(5a827999|6ed9eba1|8f1bbcdc|a953fd4e)\b",
                   "right": r"0x(50a28be6|5c4dd124|6d703ef3|7a6d76e9)\b"}
+# K2's two warps' loops by their rotates (SHF.L.W / SHF.R.W by a distance
+# or its complement to 32): only the rounds' Sigma0 / Sigma1 rotate by 2,
+# 6, 11 or 22, only the schedule's sigma0 / sigma1 by 17 or 18
+SHA_WARP_MARKS = {"compression": r"SHF\.[LR]\.W\S* [^;]*, 0x(2|1e|6|1a|b|15|16|a)\b",
+                  "schedule": r"SHF\.[LR]\.W\S* [^;]*, 0x(11|f|12|e)\b"}
 SHARDS = 4  # B1' on one card: 4 shards over cuda:0
 PROFILE_TRIES = 3  # traces device_ms takes before it gives up on a kernel
 # a plain version's time: one run on the card (each was run on the card by an
@@ -788,9 +793,10 @@ def device_ms(fn, kernel: str, calls: int = 5) -> float:
     """The device time of one launch of the CUDA kernel whose name holds
     `kernel`, over `calls` calls of fn() (torch.profiler, after a warm-up
     call): the kernel alone, without the host's launch path that a CUDA
-    event pair around a short kernel also holds. A trace that holds no
-    event of the kernel (the profiler drops a trace's device events now
-    and then) is taken again, up to PROFILE_TRIES traces."""
+    event pair around a short kernel also holds. The profiler drops a
+    trace's device events now and then, so the time is a mean over the
+    launches the trace holds, and a trace that holds none is taken again,
+    up to PROFILE_TRIES traces."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -801,10 +807,10 @@ def device_ms(fn, kernel: str, calls: int = 5) -> float:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total = sum((getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0))
-                    for e in prof.key_averages() if kernel in e.key)
+        seen = [e for e in prof.key_averages() if kernel in e.key]
+        total = sum((getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)) for e in seen)
         if total:
-            return total / 1e3 / calls
+            return total / 1e3 / sum(e.count for e in seen)
         log({"phase": "profiler_retry", "kernel": kernel, "trace": attempt + 1})
     raise RuntimeError(f"the profiler saw no device time for {kernel} in {PROFILE_TRIES} traces")
 
@@ -2942,19 +2948,21 @@ def alu_yardsticks(name: str, power: str) -> dict[str, float]:
     return yard
 
 
-def rmd_compression(sass: dict, function: str) -> dict:
-    """The SASS of one RIPEMD-160 compression in a K1 or K3 kernel: the
-    loop of each line (RMD_LINE_MARKS), both lines' instructions summed
-    over their distinct loops (one loop when a branch on the warp keeps
-    both lines in it), each loop holding its line's exchange, join and
-    loads."""
+def compression_loops(sass: dict, function: str, marks: dict[str, str]) -> dict:
+    """The SASS of one compression in a hash kernel, whose warps each run a
+    part of it in a loop of their own: the loop of each part by its marks
+    (RMD_LINE_MARKS: K1's and K3's RIPEMD-160 lines, each loop holding its
+    line's exchange, join and loads; SHA_WARP_MARKS: K2's rounds and
+    schedule, each loop holding its warp's shared loads or stores and its
+    barrier), the parts' instructions summed over their distinct loops
+    (one loop when a branch on the warp keeps both parts in it)."""
     c = next(c for f, c in sass.items() if function in f)
-    lines = c.get("marked_loops", {})
-    if set(lines) != set(RMD_LINE_MARKS):
-        raise AssertionError(f"{function}: no loop holds each RIPEMD-160 line ({sorted(lines)})")
-    distinct = {(v["start"], v["end"]): v for v in lines.values()}
+    parts = {k: v for k, v in c.get("marked_loops", {}).items() if k in marks}
+    if set(parts) != set(marks):
+        raise AssertionError(f"{function}: no loop holds each of {sorted(marks)} ({sorted(parts)})")
+    distinct = {(v["start"], v["end"]): v for v in parts.values()}
     return {"instructions": sum(v["instructions"] for v in distinct.values()),
-            "loops": len(distinct), "per_line": lines}
+            "loops": len(distinct), "per_part": parts}
 
 
 def hash_bound(yard, compressions: int, chain_blocks: int, chain: int, instrs: int,
@@ -2998,12 +3006,12 @@ def time_hashes(name, power, commit_args, block_txs, built, calls, params, plain
 
     tag = {"card": name, "power_limit": power}
     yard = alu_yardsticks(name, power)
-    hash_sass = sass_counts(os.path.join(kernels.BUILD_DIR, "libhash_blocks.so"), RMD_LINE_MARKS)
+    hash_sass = sass_counts(os.path.join(kernels.BUILD_DIR, "libhash_blocks.so"),
+                            {**RMD_LINE_MARKS, **SHA_WARP_MARKS})
     tree_sass = sass_counts(os.path.join(kernels.BUILD_DIR, "libmerkle_tree.so"), RMD_LINE_MARKS)
-    per_block = {"ripemd160": rmd_compression(hash_sass, "hash_blocks_kernelILi0E"),
-                 "sha256": next(c["longest_loop"] for f, c in hash_sass.items()
-                                if "hash_blocks_kernelILi1E" in f)}
-    per_node = rmd_compression(tree_sass, "merkle_tree_kernel")
+    per_block = {"ripemd160": compression_loops(hash_sass, "hash_blocks_kernelILi0E", RMD_LINE_MARKS),
+                 "sha256": compression_loops(hash_sass, "hash_blocks_kernelILi1E", SHA_WARP_MARKS)}
+    per_node = compression_loops(tree_sass, "merkle_tree_kernel", RMD_LINE_MARKS)
     log({"phase": "hash_sass", "per_block_loop": per_block, "per_node_loop": per_node,
          "functions": {"hash_blocks": hash_sass, "merkle_tree": tree_sass}})
     chains = {"ripemd160": th.RIPEMD160_CHAIN, "sha256": th.SHA256_CHAIN}

@@ -1,6 +1,6 @@
 """Time the port's B1 (csrc/ed25519_verify.cu), B2 (csrc/ed25519_verify_b2.cu),
 dsm (csrc/ed25519_dsm.cu), comb verify (csrc/ed25519_comb.cu), comb
-table-build (csrc/ed25519_comb_tables.cu), K1 RIPEMD-160
+table-build (csrc/ed25519_comb_tables.cu), K1 RIPEMD-160 and K2 SHA-256
 (csrc/hash_blocks.cu) and K3 Merkle tree (csrc/merkle_tree.cu) kernels
 beside the same kernels of other checkouts, on one NVIDIA GPU.
 
@@ -17,8 +17,8 @@ and ptxas's registers and spills are printed; every other checkout's
 output must equal this one's on the same inputs (the verdicts, the dsm
 points, the comb pool's rows, the digests, the tree's nodes, byte for
 byte). Each is timed with CUDA events (median of 7 after 2 warm-ups) at the
-main path's shapes (lane counts; the table build at COMB_KEYS keys; K1 on
-HASH_BATCHES, K3 on trees of TREE_LEAVES leaves), the checkouts taking
+main path's shapes (lane counts; the table build at COMB_KEYS keys; K1 and
+K2 on HASH_BATCHES, K3 on trees of TREE_LEAVES leaves), the checkouts taking
 turns, twice in opposite orders; `--profile` adds each kernel's device
 time (torch.profiler) per checkout. One JSON line per measurement; the
 card's name and power limit on the first line.
@@ -46,10 +46,14 @@ COMB_KEYS = (1, 100, 1000, 10_000)
 COMB_DISTINCT_KEYS = 256  # keys made and signed here; larger key counts repeat them
 # K1's batches on the block paths: block_1mb's and block_cap's 64 KB parts,
 # and block_cap's tx leaves (types/params.py's caps: 10,000 transactions of
-# 1 to 4,096 bytes, every 1,000th at 10,240, length-prefixed)
-HASH_BATCHES = ("parts_16", "parts_318", "tx_leaves_10000")
+# 1 to 4,096 bytes, every 1,000th at 10,240, length-prefixed); K2's
+# ("sha256:"): block_1mb's tx leaves (BASELINE.json's 4,000 transactions of
+# 250 bytes) and block_cap's
+HASH_BATCHES = ("parts_16", "parts_318", "tx_leaves_10000", "sha256:tx_leaves_4000",
+                "sha256:tx_leaves_10000")
 TREE_LEAVES = (16, 318, 4000, 10_000)  # K3: both blocks' part and tx trees
 PART_BYTES, TXS, TX_CAP = 65_536, 10_000, 10_240
+BLOCK_1MB_TXS, BLOCK_1MB_TX_BYTES = 4000, 250
 SEED = 9
 ENTRIES = {"ed25519_verify": "tm_ed25519_verify", "ed25519_verify_b2": "tm_ed25519_verify_b2",
            "ed25519_dsm": "tm_ed25519_dsm", "ed25519_comb": "tm_ed25519_comb",
@@ -103,10 +107,11 @@ def cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
 
 
 def device_times(fn, calls: int = 1) -> dict[str, float]:
-    """Device ms of each CUDA kernel one call of fn() launches, by kernel
-    name, averaged over `calls` calls (torch.profiler, after a warm-up
-    call). A trace with no kernel in it (the profiler drops a trace's
-    device events now and then) is taken again, up to three traces."""
+    """Device ms of each CUDA kernel one call of fn() launches (once each),
+    by kernel name, over `calls` calls (torch.profiler, after a warm-up
+    call): a mean over the launches the trace holds, since the profiler
+    drops a trace's device events now and then. A trace with no kernel in
+    it is taken again, up to three traces."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -121,7 +126,7 @@ def device_times(fn, calls: int = 1) -> dict[str, float]:
         for evt in prof.key_averages():
             dev_us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
             if dev_us and "kernel" in evt.key.lower():
-                out[evt.key] = dev_us / 1e3 / calls
+                out[evt.key] = dev_us / 1e3 / evt.count
         if out:
             break
     return out
@@ -235,24 +240,29 @@ def comb_tables_args(n: int):
 
 
 def hash_args(batch: str):
-    """K1 on one of HASH_BATCHES, made from SEED: its packed blocks on the
-    card and the digest rows; algo 0 first, the message count last."""
+    """K1, or K2 for a batch named "sha256:...", on one of HASH_BATCHES,
+    made from SEED: its packed blocks on the card and the digest rows; the
+    algo first, the message count last."""
     import torch
 
     from tendermint_tpu_torch.codec.binary import encode_bytes
     from tendermint_tpu_torch.ops import hashing as th
 
     rng = np.random.default_rng(SEED)
-    kind, count = batch.rsplit("_", 1)
+    sha = batch.startswith("sha256:")
+    kind, count = batch.removeprefix("sha256:").rsplit("_", 1)
     if kind == "parts":
         msgs = [rng.bytes(PART_BYTES) for _ in range(int(count))]
+    elif int(count) == BLOCK_1MB_TXS:
+        msgs = [encode_bytes(rng.bytes(BLOCK_1MB_TX_BYTES)) for _ in range(BLOCK_1MB_TXS)]
     else:
         lengths = rng.integers(1, 4097, size=int(count))
         lengths[999::1000] = TX_CAP
         msgs = [encode_bytes(rng.bytes(int(k))) for k in lengths]
-    words, first, nblocks = th.to_device(*th.pack_ragged(msgs, True), "cuda")
-    out = torch.empty((len(msgs), 5), dtype=torch.int32, device="cuda")
-    args = [th.RIPEMD160_ALGO] + [t.data_ptr() for t in (words, first, nblocks, out)] + [len(msgs)]
+    words, first, nblocks = th.to_device(*th.pack_ragged(msgs, not sha), "cuda")
+    out = torch.empty((len(msgs), 8 if sha else 5), dtype=torch.int32, device="cuda")
+    algo = th.SHA256_ALGO if sha else th.RIPEMD160_ALGO
+    args = [algo] + [t.data_ptr() for t in (words, first, nblocks, out)] + [len(msgs)]
     return args, [out], None, (words, first, nblocks)
 
 
@@ -301,7 +311,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace each checkout's launches (torch.profiler) and print each device "
                          "kernel's time: the comb kernels at their largest count (the table build's "
-                         "passes one by one), K1 and K3 at every shape")
+                         "passes one by one), K1, K2 and K3 at every shape")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_compare: needs an NVIDIA GPU", file=sys.stderr)

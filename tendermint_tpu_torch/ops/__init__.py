@@ -19,7 +19,8 @@ versions, and the gateway the commit path talks to.
   (`csrc/ed25519_verify_b2.cu`) with its plain version `verify_plain`.
 - `hashing`: the wrappers of the RIPEMD-160 and SHA-256 kernels K1 and
   K2 (`csrc/hash_blocks.cu`, over a ragged block buffer: K1 a message's
-  two lines on a pair of warps, K2 one thread a message) with their plain versions `ripemd160_words` / `sha256_words`.
+  two lines on a pair of warps, K2 a message's rounds and schedule on a
+  pair of warps) with their plain versions `ripemd160_words` / `sha256_words`.
 - `merkle`: the wrapper of the Merkle tree kernel K3
   (`csrc/merkle_tree.cu`) with its plain version `_run_tree`, and the
   part-set and tx-root paths that chain K1 into K3 on the card.

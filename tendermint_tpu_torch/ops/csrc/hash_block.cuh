@@ -2,9 +2,9 @@
 // and the load of one 64-byte message block.
 //
 // A message is MD-padded on the host and its blocks lie end to end in one
-// buffer of 16-word rows; a thread hashes one message, walking its own
-// blocks (ops/hashing.py packs them: '<u4' words for RIPEMD-160, '>u4'
-// for SHA-256, so a word here is already the value the compression takes).
+// buffer of 16-word rows; the kernels walk a message's own blocks
+// (ops/hashing.py packs them: '<u4' words for RIPEMD-160, '>u4' for
+// SHA-256, so a word here is already the value the compression takes).
 
 #pragma once
 

@@ -15,28 +15,41 @@
 // dependent instructions) and the whole batch's integer instructions over
 // the card's ALU rate. A 64 KB part is 1,025 blocks in sequence whatever
 // the part count. The state and the block stay in registers (all indices
-// are compile-time, ripemd160.cuh), and the next blocks' loads are in
-// flight during the current block's compression, so only the chain is
-// left on the path.
+// are compile-time, ripemd160.cuh, sha256.cuh), and the next blocks' loads
+// are in flight during the current block's compression, so only the chain
+// and issuing the compression's own instructions are left on the path.
 //
-// K1 gives a message two threads: a block of two warps takes 32 messages,
-// lane t of warp 0 running message t's left line and lane t of warp 1 its
-// right line, so the two 80-step chains of a compression run side by side
-// on two warps (one thread running both waits them out one after the
+// Both kernels give a message two threads: a block of two warps takes 32
+// messages, lane t of each warp working on message t. Each warp's code is
+// uniform: its part depends on the warp index only. Both warps walk to the
+// largest block count of their 32 messages (__reduce_max_sync), so they
+// meet the same barriers; a lane whose message has ended keeps its state
+// and idles, and lanes past n walk too and write nothing.
+//
+// K1 runs message t's left line on lane t of warp 0 and its right line on
+// lane t of warp 1, so the two 80-step chains of a compression run side by
+// side on two warps (one thread running both waits them out one after the
 // other: ptxas lays the lines out in sequence and a warp runs in order).
 // Both threads hold the chaining state; after each block's line they swap
 // their line's five words through shared memory (double-buffered, so one
 // __syncthreads a block is the pair's only barrier) and both apply the
-// join. Each warp's code is uniform: its line depends on the warp index
-// only. Both warps walk to the largest block count of their 32 messages,
-// so they meet the same barriers; a lane whose message has ended keeps its
-// state and idles, and lanes past n walk too and write nothing.
+// join.
 //
-// A line of a block is shorter than the load of the next block from
+// K2 splits a compression into its schedule and its rounds. Warp 1, the
+// schedule warp, expands each block's 64 schedule words and writes W + K
+// for every round into shared memory (double-buffered, four rounds a
+// 16-byte word), one block ahead of warp 0, the compression warp, which
+// runs the 64 rounds with the state in registers and one shared load every
+// four rounds: no schedule work and no device-memory load is left on the
+// thread that carries the chain. One __syncthreads a block hands a buffer
+// over.
+//
+// A block's compression is shorter than the load of the next block from
 // device memory, and ptxas sinks a register prefetch to the end of the
-// loop, so each thread copies its blocks kAhead ahead into a ring of its
-// own in shared memory (cp.async, one commit group a block) and reads the
-// current one from there. K2 keeps one thread a message.
+// loop, so each thread that reads blocks (both of K1's, K2's schedule
+// warp) copies them kAhead ahead into a ring of its own in shared memory
+// (cp.async, one commit group a block) and reads the current one from
+// there.
 //
 // tm_hash_blocks writes `out` row by row (5 words a message for RIPEMD-160,
 // 8 for SHA-256): the tree path points it at rows 0..n-1 of K3's node
@@ -122,27 +135,108 @@ TM_HASH_DEV void ripemd160_pair(PairShared& sh, const uint4* words, const int32_
   }
 }
 
-constexpr int kThreads = 128;  // K2's block, one thread a message
-constexpr int kPairThreads = 2 * kPairLanes;  // K1's block
+// A K2 block's shared memory: the schedule warp's ring of blocks, [slot]
+// [quarter][lane] as K1's, and the sums W + K it hands the compression
+// warp, [buffer][four rounds][lane], so that both warps' 16-byte accesses
+// are conflict-free.
+struct ShaShared {
+  uint4 ring[kSlots][4][kPairLanes];
+  uint4 wk[2][16][kPairLanes];
+};
 
+// block b of a message (if it has one) into ring slot `slot` of the
+// schedule warp's lane, one commit group either way
+TM_HASH_DEV void fetch_sha_block(ShaShared& sh, const uint4* blocks, int b, int nb, int slot, int lane) {
+  if (b < nb) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) __pipeline_memcpy_async(&sh.ring[slot][q][lane], blocks + 4 * b + q, 16);
+  }
+  __pipeline_commit();
+}
+
+// One K2 block's walk for lane `lane` (message m0 + lane) of warp ROLE:
+// 0 the compression warp, 1 the schedule warp. Each meets `most`
+// barriers: the schedule warp's b-th follows its write of block b's sums,
+// the compression warp's b-th precedes its read of them, so the schedule
+// warp writes block b + 1 while the rounds of block b run, into the
+// buffer the rounds of block b - 1 have left.
+template <int ROLE>
+TM_HASH_DEV void sha256_pair(ShaShared& sh, const uint4* words, const int32_t* first,
+                             const int32_t* nblocks, uint32_t* out, int n, int m0, int lane) {
+  const int i = m0 + lane;
+  const bool live = i < n;
+  const int nb = live ? nblocks[i] : 0;
+  const int most = __reduce_max_sync(0xFFFFFFFFu, nb);  // the same in both warps
+  if constexpr (ROLE == 1) {
+    const uint4* blocks = words + 4 * static_cast<int64_t>(live ? first[i] : 0);
+#pragma unroll
+    for (int d = 0; d < kAhead; ++d) fetch_sha_block(sh, blocks, d, nb, d, lane);
+    int slot = 0;  // block b's slot: b mod kSlots
+#pragma unroll 1
+    for (int b = 0; b < most; ++b) {
+      __pipeline_wait_prior(kAhead - 1);  // block b's group has landed
+      uint32_t w[16];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint4 v = sh.ring[slot][q][lane];
+        w[4 * q] = v.x;
+        w[4 * q + 1] = v.y;
+        w[4 * q + 2] = v.z;
+        w[4 * q + 3] = v.w;
+      }
+      // block b + kAhead into the slot read one block ago
+      fetch_sha_block(sh, blocks, b + kAhead, nb, slot == 0 ? kSlots - 1 : slot - 1, lane);
+      slot = slot == kSlots - 1 ? 0 : slot + 1;
+      sha_schedule(w, &sh.wk[b & 1][0][lane], kPairLanes);
+      __syncthreads();
+    }
+    __pipeline_wait_prior(0);
+  } else {
+    uint32_t h[8];
+    sha256_init(h);
+#pragma unroll 1
+    for (int b = 0; b < most; ++b) {
+      __syncthreads();  // block b's sums are in buffer b & 1
+      uint32_t s[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) s[k] = h[k];
+      sha_rounds(s, &sh.wk[b & 1][0][lane], kPairLanes);
+      if (b < nb) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) h[k] += s[k];
+      }
+    }
+    if (live) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) out[8 * static_cast<int64_t>(i) + k] = h[k];
+    }
+  }
+}
+
+constexpr int kThreads = 2 * kPairLanes;  // a block of either kernel: 32 messages on two warps
+
+// The launch bound stays at 128 threads, the bound K1 was tuned under: at
+// 64, ptxas gives K1 two more registers and a schedule 2-5% slower.
 template <int ALGO>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(2 * kThreads)
     hash_blocks_kernel(const uint4* __restrict__ words, const int32_t* __restrict__ first,
                        const int32_t* __restrict__ nblocks, uint32_t* __restrict__ out, int n) {
+  const int m0 = blockIdx.x * kPairLanes;
+  const int lane = threadIdx.x % kPairLanes;
   if constexpr (ALGO == 0) {
     __shared__ PairShared sh;
-    const int m0 = blockIdx.x * kPairLanes;
-    const int lane = threadIdx.x % kPairLanes;
     if (threadIdx.x < kPairLanes) {
       ripemd160_pair<0>(sh, words, first, nblocks, out, n, m0, lane);
     } else {
       ripemd160_pair<1>(sh, words, first, nblocks, out, n, m0, lane);
     }
   } else {
-    const int i = blockIdx.x * kThreads + threadIdx.x;
-    if (i >= n) return;
-    sha256_message(words + 4 * static_cast<int64_t>(first[i]), nblocks[i],
-                   out + 8 * static_cast<int64_t>(i));
+    __shared__ ShaShared sh;
+    if (threadIdx.x < kPairLanes) {
+      sha256_pair<0>(sh, words, first, nblocks, out, n, m0, lane);
+    } else {
+      sha256_pair<1>(sh, words, first, nblocks, out, n, m0, lane);
+    }
   }
 }
 
@@ -156,11 +250,10 @@ extern "C" int tm_hash_blocks(int algo, const void* words, const int32_t* first,
                               const int32_t* nblocks, uint32_t* out, int n, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint4* w = static_cast<const uint4*>(words);
+  const int grid = (n + kPairLanes - 1) / kPairLanes;
   if (algo == 0) {
-    const int grid = (n + kPairLanes - 1) / kPairLanes;
-    hash_blocks_kernel<0><<<grid, kPairThreads, 0, s>>>(w, first, nblocks, out, n);
+    hash_blocks_kernel<0><<<grid, kThreads, 0, s>>>(w, first, nblocks, out, n);
   } else if (algo == 1) {
-    const int grid = (n + kThreads - 1) / kThreads;
     hash_blocks_kernel<1><<<grid, kThreads, 0, s>>>(w, first, nblocks, out, n);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);

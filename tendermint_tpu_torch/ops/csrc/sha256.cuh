@@ -1,10 +1,19 @@
-// SHA-256 for one thread: the compression of hash_blocks.cu (K2).
+// SHA-256: the compression of hash_blocks.cu (K2), as its two parts:
+// sha_schedule, a block's 64 schedule words each with its round constant
+// added (W[t] + K[t]), and sha_rounds, the 64 rounds from the chaining
+// state on those sums. K2 runs the parts on two warps (the schedule warp
+// one block ahead of the compression warp, the sums handed over through
+// shared memory); sha256_compress and sha256_message are their composition
+// on one thread.
 //
-// As in ripemd160.cuh, every round constant and schedule index is a
-// template argument, so the 64 rounds unroll with the message schedule in
-// a ring of 16 registers, and each rotate is one SHF.R.W. A round's
-// dependent chain runs through e (the rotates of Sigma1 in parallel, their
-// xor, the five-term add into t1, the add of d): about five instructions.
+// Every round index is a template argument, so the schedule runs in a ring
+// of 16 registers and the rounds' state stays in registers; each rotate is
+// one SHF.R.W. A round's dependent chain runs through e: Sigma1's rotates
+// side by side, their xor, and one three-input add of Sigma1, Ch and
+// d + h + (W + K), a sum ready three rounds ahead and so added off the
+// chain (d and h at round t are a and e of round t - 3); a' is one more
+// three-input add. Ch and Maj are one LOP3 each: about 14 instructions a
+// round.
 //
 // Words and digests are big-endian values: the host packs the padded
 // message with '>u4' and writes the eight state words back with '>u4'.
@@ -30,32 +39,82 @@ __host__ __device__ constexpr uint32_t sha_k(int t) {
   return k[t];
 }
 
-// round T on s = (a, b, c, d, e, f, g, h); w holds schedule words T-16..T-1
-// in slot (index & 15), and from round 16 on slot T & 15 becomes word T
+// schedule word T + K[T]; w holds words T-16..T-1 in slot (index & 15),
+// and from T = 16 on slot T & 15 becomes word T
 template <int T>
-TM_HASH_DEV void sha_rounds(uint32_t (&s)[8], uint32_t (&w)[16]) {
-  if constexpr (T < 64) {
-    if constexpr (T >= 16) {
-      const uint32_t w15 = w[(T - 15) & 15], w2 = w[(T - 2) & 15];
-      const uint32_t s0 = rotr32(w15, 7) ^ rotr32(w15, 18) ^ (w15 >> 3);
-      const uint32_t s1 = rotr32(w2, 17) ^ rotr32(w2, 19) ^ (w2 >> 10);
-      w[T & 15] += s0 + w[(T - 7) & 15] + s1;
-    }
-    constexpr uint32_t k = sha_k(T);
-    const uint32_t e = s[4], a = s[0];
-    const uint32_t t1 = s[7] + (rotr32(e, 6) ^ rotr32(e, 11) ^ rotr32(e, 25)) +
-                        ((e & s[5]) ^ (~e & s[6])) + k + w[T & 15];
-    const uint32_t t2 = (rotr32(a, 2) ^ rotr32(a, 13) ^ rotr32(a, 22)) +
-                        ((a & s[1]) ^ (a & s[2]) ^ (s[1] & s[2]));
-    s[7] = s[6];
-    s[6] = s[5];
-    s[5] = s[4];
-    s[4] = s[3] + t1;
-    s[3] = s[2];
-    s[2] = s[1];
-    s[1] = s[0];
-    s[0] = t1 + t2;
-    sha_rounds<T + 1>(s, w);
+TM_HASH_DEV uint32_t sha_word_k(uint32_t (&w)[16]) {
+  if constexpr (T >= 16) {
+    const uint32_t w15 = w[(T - 15) & 15], w2 = w[(T - 2) & 15];
+    const uint32_t s0 = rotr32(w15, 7) ^ rotr32(w15, 18) ^ (w15 >> 3);
+    const uint32_t s1 = rotr32(w2, 17) ^ rotr32(w2, 19) ^ (w2 >> 10);
+    w[T & 15] += s0 + w[(T - 7) & 15] + s1;
+  }
+  constexpr uint32_t k = sha_k(T);
+  return w[T & 15] + k;
+}
+
+// The schedule of one block (w: its 16 words, overwritten) as W[t] + K[t],
+// four rounds a uint4: wk[q * stride] holds rounds 4q..4q+3.
+template <int Q = 0>
+TM_HASH_DEV void sha_schedule(uint32_t (&w)[16], uint4* wk, int stride) {
+  if constexpr (Q < 16) {
+    uint4 v;
+    v.x = sha_word_k<4 * Q>(w);
+    v.y = sha_word_k<4 * Q + 1>(w);
+    v.z = sha_word_k<4 * Q + 2>(w);
+    v.w = sha_word_k<4 * Q + 3>(w);
+    wk[Q * stride] = v;
+    sha_schedule<Q + 1>(w, wk, stride);
+  }
+}
+
+// x + y + z as one IADD3 in that grouping: the compiler otherwise
+// reassociates a round's sums and puts four or five adds in sequence on
+// the chain through e (on the host, a plain sum)
+TM_HASH_DEV uint32_t add3(uint32_t x, uint32_t y, uint32_t z) {
+#ifdef __CUDA_ARCH__
+  uint32_t r;
+  asm("{\n\t.reg .u32 t;\n\tadd.u32 t, %1, %2;\n\tadd.u32 %0, t, %3;\n\t}"
+      : "=r"(r) : "r"(x), "r"(y), "r"(z));
+  return r;
+#else
+  return x + y + z;
+#endif
+}
+
+// round T on s = (a, b, c, d, e, f, g, h) with wk = W[T] + K[T]:
+// e' = Sigma1 + Ch + (d + h + wk) and a' = e' + Sigma0 + (Maj - d), so
+// that each new word is one IADD3 after its Sigma's LOP3, with d + h + wk
+// summed off the chain (d and h are a and e of three rounds back)
+template <int T>
+TM_HASH_DEV void sha_round(uint32_t (&s)[8], uint32_t wk) {
+  const uint32_t a = s[0], b = s[1], c = s[2], d = s[3], e = s[4], f = s[5], g = s[6], h = s[7];
+  const uint32_t sig1 = rotr32(e, 6) ^ rotr32(e, 11) ^ rotr32(e, 25);
+  const uint32_t ch = (e & f) ^ (~e & g);
+  const uint32_t sig0 = rotr32(a, 2) ^ rotr32(a, 13) ^ rotr32(a, 22);
+  const uint32_t maj = (a & b) ^ (a & c) ^ (b & c);
+  const uint32_t e1 = add3(sig1, ch, d + h + wk);
+  s[7] = g;
+  s[6] = f;
+  s[5] = e;
+  s[4] = e1;
+  s[3] = c;
+  s[2] = b;
+  s[1] = a;
+  s[0] = add3(e1, sig0, maj - d);
+}
+
+// The 64 rounds on s from the sums sha_schedule wrote (wk[q * stride],
+// four rounds each).
+template <int Q = 0>
+TM_HASH_DEV void sha_rounds(uint32_t (&s)[8], const uint4* wk, int stride) {
+  if constexpr (Q < 16) {
+    const uint4 v = wk[Q * stride];
+    sha_round<4 * Q>(s, v.x);
+    sha_round<4 * Q + 1>(s, v.y);
+    sha_round<4 * Q + 2>(s, v.z);
+    sha_round<4 * Q + 3>(s, v.w);
+    sha_rounds<Q + 1>(s, wk, stride);
   }
 }
 
@@ -73,28 +132,26 @@ TM_HASH_DEV void sha256_init(uint32_t (&h)[8]) {
 // h <- compress(h, x), x one 64-byte block as 16 big-endian word values
 TM_HASH_DEV void sha256_compress(uint32_t (&h)[8], const uint32_t (&x)[16]) {
   uint32_t w[16], s[8];
+  uint4 wk[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) w[i] = x[i];
+  sha_schedule(w, wk, 1);
 #pragma unroll
   for (int i = 0; i < 8; ++i) s[i] = h[i];
-  sha_rounds<0>(s, w);
+  sha_rounds(s, wk, 1);
 #pragma unroll
   for (int i = 0; i < 8; ++i) h[i] += s[i];
 }
 
 // The digest of one MD-padded message of `nblocks` blocks into out[0..7],
-// the next block's loads issued before the current block's rounds.
+// on one thread.
 TM_HASH_DEV void sha256_message(const uint4* blocks, int nblocks, uint32_t* out) {
-  uint32_t h[8];
+  uint32_t h[8], x[16];
   sha256_init(h);
-  uint32_t cur[16] = {}, nxt[16] = {};
-  if (nblocks > 0) load_block(cur, blocks);
 #pragma unroll 1
   for (int b = 0; b < nblocks; ++b) {
-    if (b + 1 < nblocks) load_block(nxt, blocks + 4 * (b + 1));
-    sha256_compress(h, cur);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) cur[i] = nxt[i];
+    load_block(x, blocks + 4 * b);
+    sha256_compress(h, x);
   }
 #pragma unroll
   for (int i = 0; i < 8; ++i) out[i] = h[i];

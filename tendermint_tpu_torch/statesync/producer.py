@@ -429,8 +429,7 @@ class SnapshotProducer:
                 seen_commit=seen_json,
             )
             kind = "full"
-        self.store.save(manifest, chunks)
-        self.store.prune(self.keep_recent)
+        self.store.save(manifest, chunks, keep_recent=self.keep_recent)
         self.snapshots_taken += 1
         self.last_snapshot_height = h
         self.last_snapshot_bytes = manifest.total_bytes

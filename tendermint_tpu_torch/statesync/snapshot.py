@@ -287,7 +287,11 @@ class SnapshotStore:
 
     # -- writing -----------------------------------------------------------
 
-    def save(self, manifest: Manifest, chunks: list[bytes]) -> str:
+    def save(self, manifest: Manifest, chunks: list[bytes],
+             keep_recent: int | None = None) -> str:
+        """Publish a snapshot; with `keep_recent`, also drop all but the
+        newest `keep_recent` under the same lock, so that a reader never
+        lists more than that."""
         if len(chunks) != manifest.chunks:
             raise SnapshotError(
                 f"{len(chunks)} chunks for a {manifest.chunks}-chunk manifest"
@@ -312,30 +316,40 @@ class SnapshotStore:
             # detected once per process (the load-time contract tests
             # rely on); only load-verified manifests enter the cache
             self._manifest_cache.pop(manifest.height, None)
+            if keep_recent is not None:
+                self._prune_locked(keep_recent)
         return final
 
     def delete(self, height: int) -> None:
         with self._mtx:
-            self._manifest_cache.pop(height, None)
-            d = self._dir(height)
-            if os.path.isdir(d):
-                shutil.rmtree(d)
+            self._delete_locked(height)
+
+    def _delete_locked(self, height: int) -> None:
+        self._manifest_cache.pop(height, None)
+        d = self._dir(height)
+        if os.path.isdir(d):
+            shutil.rmtree(d)
 
     def prune(self, keep_recent: int) -> list[int]:
         """Drop all but the newest `keep_recent` snapshots; returns the
         pruned heights."""
-        pruned = []
-        if keep_recent < 1:
-            keep_recent = 1
-        for h in self.heights()[:-keep_recent]:
-            self.delete(h)
-            pruned.append(h)
+        with self._mtx:
+            return self._prune_locked(keep_recent)
+
+    def _prune_locked(self, keep_recent: int) -> list[int]:
+        pruned = self._heights_locked()[:-max(keep_recent, 1)]
+        for h in pruned:
+            self._delete_locked(h)
         return pruned
 
     # -- reading -----------------------------------------------------------
 
     def heights(self) -> list[int]:
         """Published snapshot heights, ascending (dirs with a manifest)."""
+        with self._mtx:
+            return self._heights_locked()
+
+    def _heights_locked(self) -> list[int]:
         out = []
         try:
             names = os.listdir(self.base_dir)

@@ -1,6 +1,6 @@
 """The hash kernels' device code (`csrc/hash_block.cuh`, `ripemd160.cuh`,
-`sha256.cuh`, `hash_blocks.cu`'s K1 pair walk and `merkle_tree.cu`'s K3
-walk), compiled as host C++ with g++ and run on the CPU.
+`sha256.cuh`, `hash_blocks.cu`'s K1 and K2 pair walks and `merkle_tree.cu`'s
+K3 walk), compiled as host C++ with g++ and run on the CPU.
 
 The headers compile as written: a stub `cuda_runtime.h` defines the CUDA
 qualifiers away and gives `uint4` and the funnel shifts their documented
@@ -17,14 +17,19 @@ grid barrier one over every thread of the grid. Every barrier waits at
 most a few seconds: a walk whose threads meet unequal numbers of barriers
 (which deadlocks on the card) returns an error instead of hanging the test.
 
-Held against hashlib, `crypto.hashing.ripemd160` of both packages,
-`merkle.simple.inner_hash` and FlatTree of both packages, exactly:
+Held against hashlib, `crypto.hashing.ripemd160` of both packages, the
+JAX package's `ops.hashing.sha256_batch`, `merkle.simple.inner_hash` and
+FlatTree of both packages, exactly:
 - the one-thread walks (`ripemd160_message`, `sha256_message`) on the
   padding edge lengths, and `rmd_line` / `rmd_join` against
   `ripemd160_compress`;
 - K1's pair walk (two warps a block, 32 messages, both lines side by side)
   at 1, 31, 33 and 65 messages and on a pair of 32 messages of 1 to 1,025
   blocks;
+- K2's pair walk (two warps a block, 32 messages, the rounds on one warp
+  and the schedule one block ahead on the other) at 1, 31, 33 and 65
+  messages and on a pair of 32 messages of 1 to 161 and of 1 to 1,025
+  blocks, and a K2 block whose warps meet unequal numbers of barriers;
 - K3's one-thread node over ops/merkle.py's device schedule, and its walk
   over a grid of blocks then block 0, at small blocks and at the card's
   block of 1,024 threads, on trees of 2 to 10,000 leaves and on the leaf
@@ -45,6 +50,7 @@ import pytest
 from tendermint_tpu.crypto.hashing import ripemd160 as jax_ripemd160
 from tendermint_tpu.merkle.simple import FlatTree as JaxFlatTree
 from tendermint_tpu.merkle.simple import inner_hash as jax_inner_hash
+from tendermint_tpu.ops.hashing import sha256_batch as jax_sha256_batch
 from tendermint_tpu_torch.crypto.hashing import ripemd160
 from tendermint_tpu_torch.merkle.simple import FlatTree, inner_hash, leaf_hash
 from tendermint_tpu_torch.ops import hashing as th
@@ -268,6 +274,44 @@ int host_pair_messages(const uint32_t* words, const int32_t* first, const int32_
   return 0;
 }
 
+// K2 as the card runs it: blocks of two warps over 32 messages each, warp
+// 0 the rounds and warp 1 the schedule, one block at a time. Returns 0,
+// or -1 if a block hung.
+int host_sha_pair_messages(const uint32_t* words, const int32_t* first, const int32_t* nblocks,
+                           uint32_t* out, int n) {
+  const uint4* w = reinterpret_cast<const uint4*>(words);
+  for (int m0 = 0; m0 < n; m0 += kPairLanes) {
+    auto sh = std::make_unique<ShaShared>();
+    const int rc = run_grid(1, 2 * kPairLanes, [&](int) {
+      const int lane = threadIdx.x % kPairLanes;
+      if (threadIdx.x < kPairLanes) {
+        sha256_pair<0>(*sh, w, first, nblocks, out, n, m0, lane);
+      } else {
+        sha256_pair<1>(*sh, w, first, nblocks, out, n, m0, lane);
+      }
+    });
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
+// a K2 block whose schedule warp sees no message (n = 0) while its
+// compression warp sees the first 32: the warps walk to different block
+// counts, the deadlock the barriers must report, not hang on
+int host_sha_unequal_barriers(const uint32_t* words, const int32_t* first, const int32_t* nblocks,
+                              uint32_t* out, int n) {
+  const uint4* w = reinterpret_cast<const uint4*>(words);
+  auto sh = std::make_unique<ShaShared>();
+  return run_grid(1, 2 * kPairLanes, [&](int) {
+    const int lane = threadIdx.x % kPairLanes;
+    if (threadIdx.x < kPairLanes) {
+      sha256_pair<0>(*sh, w, first, nblocks, out, n, 0, lane);
+    } else {
+      sha256_pair<1>(*sh, w, first, nblocks, out, 0, 0, lane);
+    }
+  });
+}
+
 // the one-thread K3 round walk, a round's nodes in turn
 void host_tree(uint32_t* nodes, const int32_t* left, const int32_t* right, const int32_t* out,
                const int32_t* widths, int rounds, int stride) {
@@ -338,6 +382,9 @@ def lib(tmp_path_factory):
     lib.host_rmd_parts.restype = None
     lib.host_pair_messages.argtypes = [u32, i32, i32, u32, ctypes.c_int]
     lib.host_pair_messages.restype = ctypes.c_int
+    for fn in (lib.host_sha_pair_messages, lib.host_sha_unequal_barriers):
+        fn.argtypes = [u32, i32, i32, u32, ctypes.c_int]
+        fn.restype = ctypes.c_int
     lib.host_tree.argtypes = [u32, i32, i32, i32, i32, ctypes.c_int, ctypes.c_int]
     lib.host_tree.restype = None
     lib.host_merkle_walk.argtypes = [u32, i32, i32, i32, i32] + [ctypes.c_int] * 4
@@ -455,6 +502,66 @@ def test_unequal_barriers_are_reported_not_hung(lib):
     lib.host_set_wait_ms(300)
     try:
         assert lib.host_unequal_barriers() == -1
+    finally:
+        lib.host_set_wait_ms(30000)
+
+
+def _sha_pair_digests(lib, msgs: list[bytes]) -> list[bytes]:
+    words, first, nblocks = th.pack_ragged(msgs, little_endian=False)
+    words = np.ascontiguousarray(words, dtype=np.uint32)
+    out = np.zeros((len(msgs), 8), dtype=np.uint32)
+    rc = lib.host_sha_pair_messages(_ptr(words, ctypes.c_uint32), _ptr(first, ctypes.c_int32),
+                                    _ptr(nblocks, ctypes.c_int32), _ptr(out, ctypes.c_uint32), len(msgs))
+    assert rc == 0, "a K2 block hung: its warps met unequal numbers of barriers"
+    return th.digests_to_bytes_be(out)
+
+
+def _hold_sha(got: list[bytes], msgs: list[bytes]) -> None:
+    assert got == [hashlib.sha256(m).digest() for m in msgs]
+    assert got == jax_sha256_batch(msgs)
+
+
+@pytest.mark.parametrize("count", [1, 31, 33, 65])
+def test_sha_pair_walk_matches_hashlib_and_jax(lib, count):
+    """K2's walk (the rounds on warp 0, the schedule on warp 1) at message
+    counts around a block's 32, on the padding edge lengths first."""
+    rng = np.random.default_rng(100 + count)
+    lengths = (list(EDGE_LENGTHS) + [int(x) for x in rng.integers(0, 1200, size=count)])[:count]
+    msgs = [rng.bytes(n) for n in lengths]
+    _hold_sha(_sha_pair_digests(lib, msgs), msgs)
+
+
+@pytest.mark.parametrize("most", [161, 1025])
+def test_sha_pair_walk_ragged_pair(lib, most):
+    """One K2 block over 32 messages of 1 to `most` blocks (block_cap's
+    10,240-byte transaction, a 64 KB part), scattered in the buffer: the
+    schedule warp's ring and both buffers of sums turn over many times
+    while lanes whose messages have ended keep their state."""
+    blocks = sorted({int(round(x)) for x in np.geomspace(1, most, PAIR_LANES)})
+    blocks += [b for b in range(2, most) if b not in blocks][: PAIR_LANES - len(blocks)]
+    assert len(set(blocks)) == PAIR_LANES and min(blocks) == 1 and max(blocks) == most
+    rng = np.random.default_rng(most)
+    order = rng.permutation(PAIR_LANES)
+    msgs = [rng.bytes(64 * (blocks[i] - 1)) for i in order]
+    assert [th.pack_ragged([m], False)[2][0] for m in msgs] == [blocks[i] for i in order]
+    _hold_sha(_sha_pair_digests(lib, msgs), msgs)
+    # and behind other messages: the 32 start mid-buffer, in a second block
+    tail = [rng.bytes(int(n)) for n in rng.integers(0, 300, size=7)]
+    _hold_sha(_sha_pair_digests(lib, tail + msgs), tail + msgs)
+
+
+def test_sha_unequal_barriers_are_reported_not_hung(lib):
+    """A K2 block whose schedule warp walks no block while its compression
+    warp walks its messages' returns -1 within the barrier's wait."""
+    msgs = [b"x" * 100] * PAIR_LANES
+    words, first, nblocks = th.pack_ragged(msgs, little_endian=False)
+    words = np.ascontiguousarray(words, dtype=np.uint32)
+    out = np.zeros((len(msgs), 8), dtype=np.uint32)
+    lib.host_set_wait_ms(300)
+    try:
+        assert lib.host_sha_unequal_barriers(_ptr(words, ctypes.c_uint32), _ptr(first, ctypes.c_int32),
+                                             _ptr(nblocks, ctypes.c_int32), _ptr(out, ctypes.c_uint32),
+                                             len(msgs)) == -1
     finally:
         lib.host_set_wait_ms(30000)
 

@@ -1359,12 +1359,21 @@ class TestNodeWiring:
         cfg.p2p.laddr = "tcp://127.0.0.1:0"
         cfg.statesync.snapshot_interval = 2
         cfg.statesync.snapshot_keep_recent = 2
+        # every snapshot full: a delta chain of full_every snapshots widens
+        # retention to full_every + 1, and the bound read below is 2
+        cfg.statesync.snapshot_full_every = 1
         n = default_new_node(cfg)
+        assert n.snapshot_producer.keep_recent == 2
         n.start()
         try:
+            # the store lists a height, and the producer has counted three
+            # snapshots: the /metrics read below sees the count, and the
+            # chain has grown past the two snapshots it keeps
             assert wait_until(
-                lambda: n.snapshot_store.heights(), timeout=60
-            ), f"no snapshot by height {n.block_store.height()}"
+                lambda: n.snapshot_store.heights()
+                and n.snapshot_producer.snapshots_taken >= 3,
+                timeout=60,
+            ), f"not three snapshots by height {n.block_store.height()}"
             client = HTTPClient(f"127.0.0.1:{n.rpc_port()}")
             offers = client.snapshots()["snapshots"]
             assert offers and offers[0]["height"] % 2 == 0
